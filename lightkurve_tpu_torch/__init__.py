@@ -1,14 +1,16 @@
 """lightkurve_tpu_torch — the batched transit search in PyTorch and CUDA.
 
-A port of ``lightkurve_tpu``'s main path to PyTorch with hand-written CUDA
-kernels for NVIDIA Hopper (sm_90a): FITS files are read by the C++ column
-reader (:mod:`.io.native`), streamed into device stacks
-(:mod:`.io.pipeline`), and searched with shared-time-grid BLS
-(:mod:`.ops.bls`) in checkpointed chunks (:mod:`.parallel.checkpoint`).
+A port of ``lightkurve_tpu``'s transit search to PyTorch with hand-written
+CUDA kernels for NVIDIA Hopper (sm_90a): FITS files are read by the C++
+column reader (:mod:`.io.native`), streamed into device stacks
+(:mod:`.io.pipeline`), and searched with box least squares (:mod:`.ops.bls`:
+shared-time-grid kernels, mixed grids by group, per-curve methods) in
+checkpointed chunks (:mod:`.parallel.checkpoint`).
 
 Modules mirror ``lightkurve_tpu``'s names.  Importing the package builds
 nothing and needs neither a GPU nor ``nvcc``: kernels compile on first use
-with a CUDA tensor.  The package never imports ``jax``.
+with a CUDA tensor.  Entry points put their tensors on the card unless the
+caller passes ``device="cpu"``.  The package never imports ``jax``.
 """
 import importlib
 
@@ -19,6 +21,9 @@ _LAZY = {
     "SweepRunner": ".parallel.checkpoint",
     "StreamingStackLoader": ".io.pipeline",
     "bls_power_shared_batch": ".ops.bls",
+    "bls_power": ".ops.bls",
+    "bls_power_binned": ".ops.bls",
+    "prewarm_shared_sweep": ".parallel.checkpoint",
 }
 
 __all__ = list(_LAZY)

@@ -13,7 +13,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from .config import numpy_dtype, resolve_dtype
+from .config import numpy_dtype, resolve_device, resolve_dtype
 from .io.pipeline import assemble_host_stack
 
 __all__ = ["LightCurveStack"]
@@ -54,9 +54,10 @@ class LightCurveStack:
     def from_numpy(cls, time, flux, flux_err, mask, device=None, dtype=None,
                    meta=None):
         """Build a stack from host arrays (B, N) on ``device`` (default
-        CPU) in ``dtype`` (default :data:`config.default_dtype`)."""
+        the card; ``"cpu"`` for the plain versions) in ``dtype`` (default
+        :data:`config.default_dtype`)."""
         dtype = resolve_dtype(dtype)
-        device = torch.device(device or "cpu")
+        device = resolve_device(device)
 
         def put(a, dt):
             return torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
@@ -76,6 +77,7 @@ class LightCurveStack:
         :func:`~lightkurve_tpu_torch.io.pipeline.assemble_host_stack`, the
         streaming loader's rule (times stay increasing across gaps)."""
         from .io import native
+        device = resolve_device(device)
         t, _ = native.read_batch(paths, time_column, nthreads=nthreads)
         f, _ = native.read_batch(paths, flux_column, stride=t.shape[1],
                                  nthreads=nthreads)
@@ -110,23 +112,75 @@ class LightCurveStack:
         return self._replace(flux=self.flux / med,
                              flux_err=self.flux_err / torch.abs(med))
 
+    def _grid_groups(self, shared=None):
+        """Group rows by identical time grids.  Returns (gid, t_host):
+        ``gid`` maps row → group index, groups numbered in the sorted order
+        of their time rows (``np.unique``); ``t_host`` is None when all
+        rows share one grid (checked on the device, no (B, N) host copy).
+        Pass ``shared`` when the all-equal check has been made already."""
+        if shared is None:
+            shared = bool(torch.all(self.time == self.time[0:1]))
+        if shared:
+            return np.zeros(len(self), dtype=int), None
+        t_host = self.time.cpu().numpy()
+        _, gid = np.unique(t_host, axis=0, return_inverse=True)
+        return np.asarray(gid).ravel(), t_host
+
     def bls_search(self, periods, durations, oversample=10,
-                   objective="likelihood"):
-        """Batched BLS over the stack through the shared-time-grid kernels
-        (:func:`~lightkurve_tpu_torch.ops.bls.bls_power_shared_batch`).
-        Every curve must share one time grid; mixed grids and the
-        per-curve methods are not ported yet."""
-        from .ops.bls import bls_power_shared_batch
-        if not bool(torch.all(self.time == self.time[0:1])):
-            raise NotImplementedError(
-                "bls_search needs one shared time grid; mixed grids are "
-                "not ported yet")
-        dy = torch.where(self.mask, self.flux_err,
-                         torch.tensor(torch.inf, dtype=self.flux.dtype,
-                                      device=self.device))
+                   objective="likelihood", shared_time=None, method="fast"):
+        """Batched BLS over the stack; returns a dict of (B, P) tensors on
+        the stack's device.
+
+        When every curve shares one time grid (auto-detected, or forced
+        with ``shared_time=True``) the search runs through the shared-grid
+        kernels (:func:`~lightkurve_tpu_torch.ops.bls.bls_power_shared_batch`).
+        A stack of a few distinct grids (one per sector or quarter) is
+        grouped by grid, one shared-grid search per group.  An explicit
+        ``shared_time=False``, a stack whose every row has its own grid, or
+        ``method="exact"`` takes the per-curve exact search
+        (:func:`~lightkurve_tpu_torch.ops.bls.bls_power`).
+        """
+        from .ops.bls import bls_power, bls_power_shared_batch
+        if method not in ("fast", "exact"):
+            raise ValueError(f"method must be 'fast' or 'exact' "
+                             f"(got {method!r})")
+        dtype = self.flux.dtype
+        np_dtype = numpy_dtype(dtype)
         # grid values in the data dtype, as the reference casts them
-        durations = np.asarray(durations, dtype=np.float64).astype(
-            numpy_dtype(self.flux.dtype))
-        return bls_power_shared_batch(self.time[0], self.flux, dy, periods,
-                                      durations, oversample=oversample,
-                                      objective=objective)
+        periods = np.asarray(periods.cpu() if isinstance(
+            periods, torch.Tensor) else periods, np.float64).astype(np_dtype)
+        durations = np.asarray(durations.cpu() if isinstance(
+            durations, torch.Tensor) else durations,
+            np.float64).astype(np_dtype)
+        dy = torch.where(self.mask, self.flux_err,
+                         torch.tensor(torch.inf, dtype=dtype,
+                                      device=self.device))
+        auto = shared_time is None
+        if auto and method == "fast":
+            shared_time = bool(torch.all(self.time == self.time[0:1]))
+        if shared_time and method == "fast":
+            return bls_power_shared_batch(
+                self.time[0], self.flux, dy, periods, durations,
+                oversample=oversample, objective=objective)
+        if method == "fast" and auto:
+            # mixed time grids: a shared-grid search per group of rows
+            gid, _ = self._grid_groups(shared=False)
+            if gid.max() + 1 < len(self):          # fewer grids than rows
+                out = None
+                for g in range(int(gid.max()) + 1):
+                    rows = torch.as_tensor(np.nonzero(gid == g)[0],
+                                           device=self.device)
+                    sub = bls_power_shared_batch(
+                        self.time[rows[0]], self.flux[rows], dy[rows],
+                        periods, durations, oversample=oversample,
+                        objective=objective)
+                    if out is None:
+                        out = {k: torch.empty((len(self),) + v.shape[1:],
+                                              dtype=v.dtype,
+                                              device=self.device)
+                               for k, v in sub.items()}
+                    for k, v in sub.items():
+                        out[k][rows] = v
+                return out
+        return bls_power(self.time, self.flux, dy, periods, durations,
+                         oversample=oversample, objective=objective)

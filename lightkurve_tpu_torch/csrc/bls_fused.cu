@@ -143,12 +143,17 @@ fused_uniform_kernel(const T* __restrict__ ts, const T* __restrict__ Y,
                                  n_in + o, t0 + o, dur + o);
 }
 
-int max_shared_optin() {
-  int dev = 0, v = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+int max_shared_optin(int dev) {
+  int v = 0;
   if (cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
     return 0;
   return v;
+}
+
+int current_shared_optin() {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  return max_shared_optin(dev);
 }
 
 template <typename T>
@@ -167,7 +172,7 @@ int launch(const T* ts, const T* Y, const T* tot_y, const T* pc,
     durs.k[j] = k_durs[j];
     durs.value[j] = dur_values[j];
   }
-  const size_t limit = (size_t)max_shared_optin();
+  const size_t limit = (size_t)current_shared_optin();
   int tb = kMaxTile;
   while (tb > 1 && smem_bytes<T>(rows_cap, tb) > limit) tb /= 2;
   const size_t smem = smem_bytes<T>(rows_cap, tb);
@@ -187,6 +192,11 @@ int launch(const T* ts, const T* Y, const T* tot_y, const T* pc,
 }  // namespace
 
 extern "C" {
+
+// Shared memory a block may opt in to on device ``dev`` (bytes; 0 on
+// error): the limit the launch below sizes its tile against, for the
+// host's choice between this kernel and the staged route.
+int lk_max_shared_optin(int dev) { return max_shared_optin(dev); }
 
 int lk_bls_fused_uniform_f32(const float* ts, const float* Y,
                              const float* tot_y, const float* pc,

@@ -1,9 +1,11 @@
 // Duration-window scan bodies shared by the BLS kernels.
 //
-// Each function runs the window search for ONE (trial period, curve) pair
-// on one thread: every start bin r < nbp and every duration k <= nbp in
-// the static duration list, over inclusive bin prefix sums whose circular
-// wrap extension rows [nbp, nbp + k_max - 1) are already filled in.
+// The scan functions run the window search for ONE (trial period, curve)
+// pair on one thread: every start bin r < nbp and every duration k <= nbp
+// in the static duration list, over inclusive bin prefix sums whose
+// circular wrap extension rows [nbp, nbp + k_max - 1) are already filled
+// in.  The uniform scan is also split into its per-duration range search
+// and its winner reconstruction, so several threads can share one pair.
 //
 // Semantics are those of the staged scans in lightkurve_tpu/ops/bls.py
 // (_bls_shared_scan_uniform for counts, _bls_shared_scan for weights):
@@ -49,43 +51,49 @@ __device__ __forceinline__ T lk_transit_time(int arg, int k, T d_phase, T period
 
 // Uniform (per-curve constant) weights.  cy[r * stride] is the prefix of
 // sum(y - mu) for this curve; cn[r] the count prefix shared by all curves.
-// rows: number of valid prefix rows (windows reaching past it are invalid).
-// Outputs the COUNT-based winner: power (objective), depth, n_in,
-// transit time and duration; the caller rescales by the curve weight.
+//
+// lk_uniform_window_best: the windows of ONE duration k starting at bins
+// [r_lo, r_hi); *v / *arg hold the first maximum of the count-based
+// objective (strict >), or -inf / 0 when no window in the range is valid.
+// Contiguous ranges combined in ascending order with strict > give the
+// same winner as one sequential pass.
 template <typename T, typename CountT>
-__device__ void lk_uniform_window_scan(
-    const T* cy, int stride, const CountT* cn, int nbp, int rows, T period,
-    T tot_y, T n_total, const LkDurations& durs, T d_phase, bool likelihood,
-    T* out_power, T* out_depth, T* out_n_in, T* out_t0, T* out_dur) {
-  T best_v = lk_neg_inf<T>();
-  int best_arg = 0, best_j = 0;
-  for (int j = 0; j < durs.n; ++j) {
-    const int k = durs.k[j];
-    T v = lk_neg_inf<T>();
-    int arg = 0;
-    if (k <= nbp) {
-      const int r_end = min(nbp, rows - k + 1);
-      for (int r = 0; r < r_end; ++r) {
-        const T lo_n = r > 0 ? (T)cn[r - 1] : (T)0;
-        const T n_in = (T)cn[r + k - 1] - lo_n;
-        const T n_out = n_total - n_in;
-        if (!(n_in > (T)0 && n_out > (T)0)) continue;
-        const T inv_in = (T)1 / n_in;
-        const T inv_out = (T)1 / n_out;
-        const T s = inv_in + inv_out;
-        const T lo_y = r > 0 ? cy[(size_t)(r - 1) * stride] : (T)0;
-        const T y_in = cy[(size_t)(r + k - 1) * stride] - lo_y;
-        const T depth = tot_y * inv_out - y_in * s;
-        const T obj = likelihood ? ((T)0.5 * n_in) * depth * depth
-                                 : depth * lk_rsqrt(s);
-        if (obj > v) { v = obj; arg = r; }
-      }
-    }
-    if (j == 0 || v > best_v) { best_v = v; best_arg = arg; best_j = j; }
+__device__ __forceinline__ void lk_uniform_window_best(
+    const T* cy, int stride, const CountT* cn, int k, int r_lo, int r_hi,
+    T tot_y, T n_total, bool likelihood, T* v_out, int* arg_out) {
+  T v = lk_neg_inf<T>();
+  int arg = 0;
+  for (int r = r_lo; r < r_hi; ++r) {
+    const T lo_n = r > 0 ? (T)cn[r - 1] : (T)0;
+    const T n_in = (T)cn[r + k - 1] - lo_n;
+    const T n_out = n_total - n_in;
+    if (!(n_in > (T)0 && n_out > (T)0)) continue;
+    const T inv_in = (T)1 / n_in;
+    const T inv_out = (T)1 / n_out;
+    const T s = inv_in + inv_out;
+    const T lo_y = r > 0 ? cy[(size_t)(r - 1) * stride] : (T)0;
+    const T y_in = cy[(size_t)(r + k - 1) * stride] - lo_y;
+    const T depth = tot_y * inv_out - y_in * s;
+    const T obj = likelihood ? ((T)0.5 * n_in) * depth * depth
+                             : depth * lk_rsqrt(s);
+    if (obj > v) { v = obj; arg = r; }
   }
-  // winner reconstruction from the prefix sums, as the staged scan does:
-  // when no window was valid (best_v = -inf) the statistics fall back to
-  // n_in = 1 and n_out = 1 at bin 0 of the first duration
+  *v_out = v;
+  *arg_out = arg;
+}
+
+// lk_uniform_window_finish: the winner's statistics from the prefix sums,
+// as the staged scan reconstructs them: when no window was valid
+// (best_v = -inf) they fall back to n_in = 1 and n_out = 1 at bin 0 of
+// the first duration.  Outputs the COUNT-based winner: power (objective),
+// depth, n_in, transit time and duration; the caller rescales by the
+// curve weight.
+template <typename T, typename CountT>
+__device__ __forceinline__ void lk_uniform_window_finish(
+    const T* cy, int stride, const CountT* cn, T best_v, int best_arg,
+    int best_j, T period, T tot_y, T n_total, const LkDurations& durs,
+    T d_phase, T* out_power, T* out_depth, T* out_n_in, T* out_t0,
+    T* out_dur) {
   const int kb = durs.k[best_j];
   const int hi = best_arg + kb - 1;
   const T lo_y = best_arg > 0 ? cy[(size_t)(best_arg - 1) * stride] : (T)0;
@@ -101,6 +109,31 @@ __device__ void lk_uniform_window_scan(
   *out_n_in = n_in_b;
   *out_t0 = lk_transit_time<T>(best_arg, kb, d_phase, period);
   *out_dur = (T)durs.value[best_j];
+}
+
+// The whole uniform scan of one (period, curve) on one thread.  rows:
+// number of valid prefix rows (windows reaching past it are invalid).
+template <typename T, typename CountT>
+__device__ void lk_uniform_window_scan(
+    const T* cy, int stride, const CountT* cn, int nbp, int rows, T period,
+    T tot_y, T n_total, const LkDurations& durs, T d_phase, bool likelihood,
+    T* out_power, T* out_depth, T* out_n_in, T* out_t0, T* out_dur) {
+  T best_v = lk_neg_inf<T>();
+  int best_arg = 0, best_j = 0;
+  for (int j = 0; j < durs.n; ++j) {
+    const int k = durs.k[j];
+    T v = lk_neg_inf<T>();
+    int arg = 0;
+    if (k <= nbp)
+      lk_uniform_window_best<T, CountT>(cy, stride, cn, k, 0,
+                                        min(nbp, rows - k + 1), tot_y,
+                                        n_total, likelihood, &v, &arg);
+    if (j == 0 || v > best_v) { best_v = v; best_arg = arg; best_j = j; }
+  }
+  lk_uniform_window_finish<T, CountT>(cy, stride, cn, best_v, best_arg,
+                                      best_j, period, tot_y, n_total, durs,
+                                      d_phase, out_power, out_depth, out_n_in,
+                                      out_t0, out_dur);
 }
 
 // Per-sample weights.  cw / cwy: prefixes of sum(w) and sum(w*y) for this

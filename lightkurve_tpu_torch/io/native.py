@@ -40,8 +40,8 @@ def library():
             return _LIB[0]
         path = build_library(
             "lk_fits_reader",
-            ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", "-pthread"],
-            [_SRC])
+            ["g++", "-O3", "-fPIC", "-std=c++17", "-pthread"],
+            ["g++", "-shared", "-pthread"], [_SRC])
         lib = ctypes.CDLL(path)
         lib.lk_read_column_f64.restype = ctypes.c_int
         lib.lk_read_column_f64.argtypes = [

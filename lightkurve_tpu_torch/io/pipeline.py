@@ -17,7 +17,7 @@ import threading
 import numpy as np
 import torch
 
-from ..config import numpy_dtype, resolve_dtype
+from ..config import numpy_dtype, resolve_device, resolve_dtype
 
 __all__ = ["StreamingStackLoader", "assemble_host_stack"]
 
@@ -99,7 +99,8 @@ class StreamingStackLoader:
     length : static cadence axis; default: the bit-ceiled largest row
         count over the files (header reads).
     dtype : floating dtype of the stacks (default ``config.default_dtype``).
-    device : where the stacks live (default CPU).
+    device : where the stacks live (default the card; ``"cpu"`` for the
+        plain versions).
     nthreads : native reader threads per batch.
     """
 
@@ -113,7 +114,7 @@ class StreamingStackLoader:
         self.columns = (time_column, flux_column, flux_err_column)
         self.nthreads = nthreads
         self.dtype = resolve_dtype(dtype)
-        self.device = torch.device(device or "cpu")
+        self.device = resolve_device(device)
         self._length = length
 
     @property

@@ -1,12 +1,13 @@
 """Build and load the port's native libraries at first use.
 
 The CUDA kernels under ``lightkurve_tpu_torch/csrc/*.cu`` are compiled by
-``nvcc`` for ``sm_90a`` into one shared library with a plain C interface,
-loaded with :mod:`ctypes`.  The FITS column reader (the repository's
-``csrc/fits_reader.cpp``) is compiled by ``g++``.  Both land in
-``lightkurve_tpu_torch/_build/`` (git-ignored) and are rebuilt when a
-source is newer than the library.  A failed build raises; nothing falls
-back.  Importing this module compiles nothing.
+``nvcc`` for ``sm_90a``, one process per source, all started together, and
+linked into one shared library with a plain C interface, loaded with
+:mod:`ctypes`.  The FITS column reader (the repository's
+``csrc/fits_reader.cpp``) is compiled and linked by ``g++`` the same way.
+Both land in ``lightkurve_tpu_torch/_build/`` (git-ignored) and are rebuilt
+when a source is newer than the library.  A failed build raises; nothing
+falls back.  Importing this module compiles nothing.
 """
 from __future__ import annotations
 
@@ -24,8 +25,11 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
+#: compile flags of one CUDA source (an object with a plain C interface)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+#: link flags of the kernel library
+NVCC_LINK_FLAGS = ["-shared", "-gencode", "arch=compute_90a,code=sm_90a"]
 
 _LOCK = threading.Lock()
 _LOADED = {}
@@ -47,10 +51,21 @@ def build_log(name):
         return f.read()
 
 
-def build_library(name, cmd_prefix, sources, deps=()):
-    """Compile ``sources`` with ``cmd_prefix`` into ``_build/<name>.so``
-    unless it is newer than every source and dependency; return its path.
+def _run_all(cmds):
+    """Run the commands concurrently; returns (returncode, output) each."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    return [(p.returncode, out) for p, out in zip(procs, outs)]
 
+
+def build_library(name, compile_prefix, link_prefix, sources, deps=()):
+    """Build ``sources`` into ``_build/<name>.so`` unless it is newer than
+    every source and dependency; return its path.
+
+    Each source is compiled to an object by its own ``compile_prefix -c``
+    process, all started together, and ``link_prefix`` links the objects.
     The library is written under a process-unique name and moved into
     place, so concurrent builds (test workers) never load a half-written
     file."""
@@ -58,16 +73,32 @@ def build_library(name, cmd_prefix, sources, deps=()):
     target = os.path.join(BUILD_DIR, name + ".so")
     if not _stale(target, list(sources) + list(deps)):
         return target
-    tmp = f"{target}.{os.getpid()}.{threading.get_ident()}.tmp"
-    cmd = list(cmd_prefix) + ["-o", tmp] + list(sources)
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    tag = f"{os.getpid()}.{threading.get_ident()}"
+    tmp = f"{target}.{tag}.tmp"
+    objs = [os.path.join(BUILD_DIR, f"{name}.{os.path.basename(s)}.{tag}.o")
+            for s in sources]
+    steps = [[list(compile_prefix) + ["-c", "-o", o, s]
+              for o, s in zip(objs, sources)],
+             [list(link_prefix) + ["-o", tmp] + objs]]
+    log, failed = [], None
+    for cmds in steps:
+        for cmd, (code, out) in zip(cmds, _run_all(cmds)):
+            log.append(" ".join(cmd) + "\n" + out)
+            if code != 0 and failed is None:
+                failed = (code, cmd, out)
+        if failed:
+            break
     with open(os.path.join(BUILD_DIR, name + ".log"), "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+        f.write("\n".join(log))
+    for o in objs:
+        if os.path.exists(o):
+            os.remove(o)
+    if failed:
         if os.path.exists(tmp):
             os.remove(tmp)
-        raise RuntimeError(f"building {name} failed (exit {proc.returncode}):"
-                           f"\n{' '.join(cmd)}\n{proc.stderr[-4000:]}")
+        code, cmd, out = failed
+        raise RuntimeError(f"building {name} failed (exit {code}):"
+                           f"\n{' '.join(cmd)}\n{out[-4000:]}")
     os.replace(tmp, target)
     return target
 
@@ -93,9 +124,16 @@ def _declare_cuda(lib):
         + [P])
     lib.lk_bls_fused_uniform_f64.argtypes = \
         lib.lk_bls_fused_uniform_f32.argtypes
+    lib.lk_bls_window_uniform_f32.argtypes = (
+        [P, P, P, P, P, I, I, I, P, P, I, D, D, I] + [P] * 5 + [P])
+    lib.lk_bls_window_uniform_f64.argtypes = \
+        lib.lk_bls_window_uniform_f32.argtypes
     for fn in (lib.lk_bls_window_weighted_f32, lib.lk_bls_window_weighted_f64,
-               lib.lk_bls_fused_uniform_f32, lib.lk_bls_fused_uniform_f64):
+               lib.lk_bls_fused_uniform_f32, lib.lk_bls_fused_uniform_f64,
+               lib.lk_bls_window_uniform_f32, lib.lk_bls_window_uniform_f64):
         fn.restype = ctypes.c_int
+    lib.lk_max_shared_optin.argtypes = [I]
+    lib.lk_max_shared_optin.restype = ctypes.c_int
     lib.lk_cuda_error_string.argtypes = [ctypes.c_int]
     lib.lk_cuda_error_string.restype = ctypes.c_char_p
 
@@ -107,8 +145,9 @@ def cuda_library():
         if lib is None:
             sources = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
             deps = glob.glob(os.path.join(CSRC_DIR, "*.cuh"))
-            path = build_library("lk_bls_kernels", [_nvcc()] + NVCC_FLAGS,
-                                 sources, deps)
+            nvcc = _nvcc()
+            path = build_library("lk_bls_kernels", [nvcc] + NVCC_FLAGS,
+                                 [nvcc] + NVCC_LINK_FLAGS, sources, deps)
             lib = ctypes.CDLL(path)
             _declare_cuda(lib)
             _LOADED["cuda"] = lib

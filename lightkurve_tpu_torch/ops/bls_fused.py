@@ -20,6 +20,7 @@ for CUDA tensors and runs :func:`fused_scan_uniform_plain` for CPU tensors.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import numpy as np
@@ -27,10 +28,17 @@ import torch
 
 from ..config import numpy_dtype
 from .bls_window import (_check_cuda, _undersized, durations_args,
-                         transit_time)
+                         uniform_scan_staged)
 
 __all__ = ["fused_scan_uniform", "fused_scan_uniform_plain", "fold_ids",
-           "nbins_per_period", "max_nbins_bound", "inv_d_phase"]
+           "nbins_per_period", "max_nbins_bound", "inv_d_phase",
+           "uniform_fold", "fold_rows", "full_f32_matmul",
+           "fused_smem_bytes", "fused_tile_fits", "shared_memory_optin",
+           "FUSED_TILE"]
+
+#: curves per K-F block at full width (``kMaxTile`` in csrc/bls_fused.cu)
+FUSED_TILE = 32
+_ID_TILE = 512          # fold ids K-F stages per block (``kIdTile``)
 
 _FIELDS = ("power", "depth", "n_in", "transit_time", "duration")
 
@@ -71,13 +79,71 @@ def max_nbins_bound(p_host, d_phase, dtype):
     return int(np.ceil(np.max(np.asarray(p_host, dtype=np_dtype)) * inv))
 
 
-def _chunk_uniform(ts, Y0, tot_y, pc, k_durs, dur_values, d_phase, nbins,
-                   max_nbins_p, use_likelihood, wrap):
-    n, B = Y0.shape
+def fold_rows(nbins, max_nbins_p, k_max):
+    """Rows of a fold held in device memory: every period's bins plus the
+    ``k_max - 1`` wrap rows, rounded up to a multiple of 128."""
+    return -(-(max(nbins, max_nbins_p) + k_max - 1) // 128) * 128
+
+
+def fused_smem_bytes(rows_cap, dtype, tile=FUSED_TILE):
+    """Shared memory of one K-F block (``smem_bytes`` in csrc/bls_fused.cu):
+    ``tile`` prefix columns of ``rows_cap`` rows, the count column and the
+    staged fold ids."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return rows_cap * tile * itemsize + rows_cap * 4 + _ID_TILE * 4
+
+
+def fused_tile_fits(rows_cap, dtype, smem_optin, tile=FUSED_TILE):
+    """True when a K-F block of ``tile`` curves with ``rows_cap`` rows fits
+    ``smem_optin`` bytes of shared memory (``None``: no limit, the CPU)."""
+    return (smem_optin is None
+            or fused_smem_bytes(rows_cap, dtype, tile) <= smem_optin)
+
+
+def shared_memory_optin(device):
+    """Shared memory (bytes) a block may opt in to on ``device``, as K-F
+    reads it when it sizes its tile; ``None`` for the CPU."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    from ._build import cuda_library
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    value = int(cuda_library().lk_max_shared_optin(index))
+    if value <= 0:
+        raise RuntimeError(f"could not read the shared memory limit of "
+                           f"{device}")
+    return value
+
+
+@contextlib.contextmanager
+def full_f32_matmul(device):
+    """Run float32 matrix products in full float32: a fold's one-hot
+    product must not round its flux operand to TF32."""
+    if device.type != "cuda":
+        yield
+        return
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def uniform_fold(ts, Y0, pc, d_phase, nbins, max_nbins_p, k_max, wrap=True):
+    """The staged fold of ``_bls_shared_scan_uniform``: inclusive bin prefix
+    sums of the mean-shifted flux ``Y0`` (n, B) at periods ``pc`` (C,).
+
+    Every sample lands at its fold bin and, in wrap mode, again
+    ``nbins_p`` rows later (the circular extension rows).  The flux sums
+    are one one-hot product (full float32) and a cumulative sum; the count
+    prefix shared by every curve is ``sum_i [ids_i <= r]`` (plus the wrap
+    copy's), exact.  Rows are sized from ``max_nbins_p``
+    (:func:`max_nbins_bound`).  Returns cs_y (C, npad, B), cs_n (C, npad)
+    and the per-period bin counts (C,)."""
     dtype = Y0.dtype
-    k_max = max(k_durs)
-    npad = -(-(max(nbins, max_nbins_p) + k_max - 1) // 128) * 128
-    n_total = float(n)
+    npad = fold_rows(nbins, max_nbins_p, k_max)
     rows = torch.arange(npad, device=Y0.device, dtype=torch.int32)
     nbp = nbins_per_period(pc, d_phase)                        # (C,)
     ids = fold_ids(ts, pc, d_phase, nbins)                     # (C, n)
@@ -85,67 +151,25 @@ def _chunk_uniform(ts, Y0, tot_y, pc, k_durs, dur_values, d_phase, nbins,
     onehot = ids[:, None, :] == rows[None, :, None]            # (C, npad, n)
     if wrap:
         onehot = onehot | (ids2[:, None, :] == rows[None, :, None])
-    cs_y = torch.cumsum(torch.matmul(onehot.to(dtype), Y0), dim=1)
-    # count prefix directly: sum_i [ids_i <= r] (+ the wrap copy's); exact
+    with full_f32_matmul(Y0.device):
+        hist = torch.matmul(onehot.to(dtype), Y0)              # (C, npad, B)
+    del onehot
+    cs_y = torch.cumsum(hist, dim=1)
+    del hist
     cs_n = (ids[:, None, :] <= rows[None, :, None]).sum(-1, dtype=dtype)
     if wrap:
         cs_n = cs_n + (ids2[:, None, :] <= rows[None, :, None]).sum(
             -1, dtype=dtype)
-    cs_n = cs_n[..., None]                                     # (C, npad, 1)
-    C = pc.shape[0]
-    zeros_y = torch.zeros((C, 1, B), dtype=dtype, device=Y0.device)
-    zeros_n = torch.zeros((C, 1, 1), dtype=dtype, device=Y0.device)
-    zp_y = torch.cat([zeros_y, cs_y, zeros_y.expand(C, k_max - 1, B)], 1)
-    zp_n = torch.cat([zeros_n, cs_n, zeros_n.expand(C, k_max - 1, 1)], 1)
-    cex_y, cex_n = zp_y[:, :npad], zp_n[:, :npad]
-    valid_rows = rows[None, :] < nbp[:, None]                  # (C, npad)
-    best_v = best_arg = best_j = None
-    for j, k in enumerate(k_durs):
-        n_in = zp_n[:, k:k + npad] - cex_n
-        y_in = zp_y[:, k:k + npad] - cex_y
-        n_out = n_total - n_in
-        valid = (valid_rows & (k <= nbp)[:, None])[..., None]
-        okn = valid & (n_in > 0) & (n_out > 0)
-        inv_in = 1.0 / torch.where(okn, n_in, 1.0)
-        inv_out = 1.0 / torch.where(okn, n_out, 1.0)
-        s = inv_in + inv_out
-        depth = tot_y * inv_out - y_in * s                     # (C, npad, B)
-        if use_likelihood:
-            obj = (0.5 * torch.where(okn, n_in, 1.0)) * depth * depth
-        else:
-            obj = depth * torch.rsqrt(s)
-        obj = torch.where(okn, obj, -torch.inf)
-        v, arg = torch.max(obj, dim=1)                         # first max
-        if best_v is None:
-            best_v, best_arg = v, arg
-            best_j = torch.zeros_like(arg)
-        else:
-            upd = v > best_v
-            best_v = torch.where(upd, v, best_v)
-            best_arg = torch.where(upd, arg, best_arg)
-            best_j = torch.where(upd, j, best_j)
-    # winner reconstruction from the prefix sums; when no window was valid
-    # the statistics fall back to n_in = n_out = 1 at bin 0
-    ks = torch.tensor(k_durs, dtype=torch.int64, device=Y0.device)
-    dvs = torch.tensor(dur_values, dtype=dtype, device=Y0.device)
-    kbest = ks[best_j]
-    hi = (best_arg + kbest - 1)[:, None, :]
-    lo = (best_arg - 1).clamp(min=0)[:, None, :]
-    has_lo = (best_arg > 0)
-    y_in_b = (torch.gather(cs_y, 1, hi)[:, 0]
-              - torch.where(has_lo, torch.gather(cs_y, 1, lo)[:, 0], 0.0))
-    cn = cs_n[..., 0]
-    n_in_w = (torch.gather(cn, 1, hi[:, 0])
-              - torch.where(has_lo, torch.gather(cn, 1, lo[:, 0]), 0.0))
-    ok_w = torch.isfinite(best_v)
-    n_in_b = torch.where(ok_w, n_in_w, 1.0)
-    inv_out_w = 1.0 / torch.where(ok_w, n_total - n_in_w, 1.0)
-    s_w = 1.0 / n_in_b + inv_out_w
-    depth_b = tot_y * inv_out_w - y_in_b * s_w
-    t0 = transit_time(best_arg, kbest, d_phase, pc[:, None])
-    return _undersized(dict(power=best_v, depth=depth_b, n_in=n_in_b,
-                            transit_time=t0, duration=dvs[best_j]),
-                       nbp > max_nbins_p)
+    return cs_y, cs_n, nbp
+
+
+def _chunk_uniform(ts, Y0, tot_y, pc, k_durs, dur_values, d_phase, nbins,
+                   max_nbins_p, use_likelihood, wrap):
+    cs_y, cs_n, nbp = uniform_fold(ts, Y0, pc, d_phase, nbins, max_nbins_p,
+                                   max(k_durs), wrap)
+    best = uniform_scan_staged(cs_y, cs_n, nbp, pc, tot_y, float(Y0.shape[0]),
+                               k_durs, dur_values, d_phase, use_likelihood)
+    return _undersized(best, nbp > max_nbins_p)
 
 
 def fused_scan_uniform_plain(ts, Y0, periods, k_durs, dur_values, d_phase,

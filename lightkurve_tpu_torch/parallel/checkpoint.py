@@ -1,12 +1,15 @@
 """Checkpointed period-grid sweeps.
 
-Counterpart of ``lightkurve_tpu/parallel/checkpoint.py`` for the shared
-time-grid method on one device.  :class:`SweepRunner` walks a large
-period grid in chunks, reduces each chunk's (B, P_chunk) BLS grids to
-per-curve winners on the device, keeps the best-so-far winners on the
-host, and persists them (npz, the same layout as ``lightkurve_tpu``'s)
-after every chunk, so an interrupted sweep resumes from the last
-finished chunk -- including a sweep that ``lightkurve_tpu`` started.
+Counterpart of ``lightkurve_tpu/parallel/checkpoint.py`` on one device.
+:class:`SweepRunner` walks a large period grid in chunks, reduces each
+chunk's (B, P_chunk) BLS grids to per-curve winners on the device, keeps
+the best-so-far winners on the host, and persists them (npz, the same
+layout as ``lightkurve_tpu``'s) after every chunk, so an interrupted sweep
+resumes from the last finished chunk -- including a sweep that
+``lightkurve_tpu`` started.  Methods: ``"shared"`` (the shared-time-grid
+kernels; a stack of several grids runs one shared-grid search per grid),
+``"fast"`` (binned per-curve search) and ``"exact"`` (sorted-phase
+per-curve search).
 """
 from __future__ import annotations
 
@@ -21,7 +24,9 @@ from ..config import numpy_dtype
 
 log = logging.getLogger(__name__)
 
-__all__ = ["SweepRunner"]
+__all__ = ["SweepRunner", "shared_sweep_geometries", "prewarm_shared_sweep"]
+
+METHODS = ("shared", "fast", "exact")
 
 _FIELDS = ("power", "depth", "depth_err", "depth_snr", "log_likelihood",
            "duration", "transit_time", "period")
@@ -39,29 +44,81 @@ def _reduce_winner(out, n_valid):
                         for f in _FIELDS])
 
 
+def _k_max(durations, d_phase):
+    return max(int(max(int(d / d_phase + 0.5), 1)) for d in durations)
+
+
+def _chunk_nbins(pvals, d_phase, k_max):
+    """The shared step's fold size for a chunk: its largest period's bins,
+    quantized so bins plus wrap rows fill whole 128-row tiles."""
+    nb = int(np.ceil(float(np.max(pvals)) / d_phase))
+    tiles = max((nb + k_max - 1 + 127) // 128, 1)
+    return tiles * 128 - (k_max - 1)
+
+
+def shared_sweep_geometries(periods, durations, chunk_periods,
+                            oversample=10):
+    """The distinct (d_phase, nb_q, chunk periods) fold geometries a shared
+    sweep over ``periods`` uses, in grid (= execution) order: the shared
+    step sizes its fold per chunk (:func:`_chunk_nbins`), knowable up
+    front from the grid alone."""
+    periods = np.asarray(periods, dtype=np.float64)
+    durations = np.asarray(durations, dtype=np.float64)
+    d_phase = float(durations.min()) / oversample
+    k_max = _k_max(durations, d_phase)
+    geoms, seen = [], set()
+    for lo in range(0, len(periods), chunk_periods):
+        chunk = periods[lo:lo + chunk_periods]
+        nb_q = _chunk_nbins(chunk, d_phase, k_max)
+        if nb_q not in seen:
+            seen.add(nb_q)
+            geoms.append((d_phase, nb_q, chunk))
+    return geoms
+
+
+def prewarm_shared_sweep(device="cuda", wait=False):
+    """Build and load the kernel library on one background thread, so the
+    build overlaps the host work before the first chunk (the first batch's
+    FITS parse).  Nothing else is compiled per shape.  Returns the list of
+    futures (``[]`` for a CPU device, which needs no kernels);
+    ``wait=True`` blocks until they are done.  The build holds a lock, so
+    a sweep that needs the library meanwhile waits for this build."""
+    if torch.device(device).type != "cuda":
+        return []
+    from ..ops._build import cuda_library
+    pool = ThreadPoolExecutor(1, thread_name_prefix="lk-torch-prewarm")
+    futures = [pool.submit(cuda_library)]
+    pool.shutdown(wait=False)                  # the thread ends with its job
+    if wait:
+        for f in futures:
+            f.result()
+    return futures
+
+
 class SweepRunner:
     """Chunked, resumable BLS sweep over a huge period grid.
 
     Parameters
     ----------
-    stack : `~lightkurve_tpu_torch.batch.LightCurveStack` whose curves
-        share one time grid.
+    stack : `~lightkurve_tpu_torch.batch.LightCurveStack`.
     periods : (P,) full period grid (float64 host array).
     durations : (D,) durations.
     checkpoint_path : str — npz file updated after each chunk.
     chunk_periods : int — grid points per device step.
-    method : only ``"shared"`` (the shared-time-grid kernels) is ported.
+    method : ``"fast"`` (binned per-curve search, the default),
+        ``"exact"`` (sorted-phase per-curve search) or ``"shared"`` (the
+        shared-time-grid kernels; rows on different grids run one
+        shared-grid search per grid).
     async_save : write the npz on a background thread (one write in
         flight), so checkpoint IO overlaps device compute.
     """
 
     def __init__(self, stack, periods, durations, checkpoint_path,
                  chunk_periods=4096, oversample=10, objective="likelihood",
-                 method="shared", save_every=1, async_save=False):
-        if method != "shared":
-            raise NotImplementedError(
-                f"method={method!r}: only the shared-time-grid method is "
-                "ported")
+                 method="fast", save_every=1, async_save=False):
+        if method not in METHODS:
+            raise ValueError(f"method must be one of {METHODS} "
+                             f"(got {method!r})")
         self.stack = stack
         self.periods = np.asarray(periods, dtype=np.float64)
         self.durations = np.asarray(durations, dtype=np.float64)
@@ -88,6 +145,14 @@ class SweepRunner:
     @property
     def done(self):
         return self.next_chunk >= self.n_chunks
+
+    def prewarm(self, wait=False):
+        """Start building this sweep's kernels on a background thread
+        (shared method on the card; see :func:`prewarm_shared_sweep`).
+        Returns the futures, ``[]`` where nothing is built."""
+        if self.method != "shared":
+            return []
+        return prewarm_shared_sweep(self.stack.device, wait=wait)
 
     def _load(self):
         data = np.load(self.checkpoint_path)
@@ -142,44 +207,101 @@ class SweepRunner:
             self._save_pool = None
 
     def _make_step(self):
-        """One chunk step: the shared-grid BLS over a period chunk and the
-        device-side winner reduction.  Returns a function of (host
-        periods, n_valid) giving the (F, B) winners on the device."""
+        """One chunk step: the BLS over a period chunk and the device-side
+        winner reduction.  Returns a function of (host periods, n_valid)
+        giving the (F, B) winners on the device."""
         from ..ops.bls import bls_power_shared_batch
         stack = self.stack
-        time = stack.time
-        if not bool(torch.all(time == time[0:1])):
-            raise NotImplementedError(
-                "curves on different time grids (the bucketed step) are "
-                "not ported yet")
         dtype = stack.flux.dtype
-        np_dtype = numpy_dtype(dtype)
         d_phase = float(self.durations.min()) / self.oversample
-        # durations enter the kernel in the data dtype, as the reference's
+        # durations enter the search in the data dtype, as the reference's
         # step passes them
-        durs = self.durations.astype(np_dtype)
-        # per-curve-constant weights (all cadences valid, row-constant
-        # flux_err) take the uniform kernel
-        err = stack.flux_err
-        uniform = bool(torch.all(stack.mask)) and bool(
-            torch.all(err == err[:, :1]))
-        k_max = max(int(max(int(d / d_phase + 0.5), 1))
-                    for d in self.durations)
-        t_row = time[0].to(dtype)
+        durs = self.durations.astype(numpy_dtype(dtype))
         dy = torch.where(stack.mask, stack.flux_err,
                          torch.tensor(torch.inf, dtype=dtype,
                                       device=stack.device))
+        if self.method != "shared":
+            return self._make_percurve_step(d_phase, durs, dy)
+        # per-curve-constant weights (all cadences valid, row-constant
+        # flux_err) take the uniform regime
+        err = stack.flux_err
+        uniform = bool(torch.all(stack.mask)) and bool(
+            torch.all(err == err[:, :1]))
+        k_max = _k_max(self.durations, d_phase)
+        oversample, objective = self.oversample, self.objective
+
+        def search(t_row, flux, dy_rows, pvals, n_valid):
+            out = bls_power_shared_batch(
+                t_row, flux, dy_rows, pvals, durs, oversample=oversample,
+                objective=objective, d_phase=d_phase,
+                nbins=_chunk_nbins(pvals, d_phase, k_max), chunk=8,
+                uniform_weights=uniform)
+            return _reduce_winner(out, n_valid)
+
+        time = stack.time
+        if not bool(torch.all(time == time[0:1])):
+            return self._make_bucketed_step(search, dy)
+        t_row = time[0].to(dtype)
+        return lambda pvals, n_valid: search(t_row, stack.flux, dy, pvals,
+                                             n_valid)
+
+    def _make_bucketed_step(self, search, dy):
+        """The shared step for a stack whose rows lie on several time grids
+        (one per sector or quarter): rows are bucketed by grid identity in
+        first-seen order, each bucket runs one shared-grid search on its
+        rows, and the winners are put back in row order on the device.
+        Past 32 buckets the per-curve methods are likely faster, and a
+        warning says so."""
+        stack = self.stack
+        time_np = stack.time.cpu().numpy()
+        B = time_np.shape[0]
+        key_to_bucket, buckets = {}, []
+        for i in range(B):
+            key = time_np[i].tobytes()
+            b = key_to_bucket.get(key)
+            if b is None:
+                key_to_bucket[key] = b = len(buckets)
+                buckets.append([])
+            buckets[b].append(i)
+        if len(buckets) > 32:
+            log.warning(
+                "Bucketed sweep over %d distinct time grids for %d curves;"
+                " per-curve methods (method='fast'/'exact') may be faster "
+                "for fully heterogeneous batches.", len(buckets), B)
+        log.info("Bucketed shared sweep: %d buckets (sizes %s)",
+                 len(buckets), [len(b) for b in buckets])
+        rows = [torch.as_tensor(b, device=stack.device) for b in buckets]
+        segments = [(stack.time[r[0]], stack.flux[r], dy[r]) for r in rows]
+        # position of each row in the buckets' concatenated winners
+        back = torch.as_tensor(np.argsort(np.concatenate(buckets)),
+                               device=stack.device)
+
+        def step(pvals, n_valid):
+            outs = [search(t_row, flux, dy_rows, pvals, n_valid)
+                    for t_row, flux, dy_rows in segments]
+            return torch.cat(outs, dim=1)[:, back]
+
+        return step
+
+    def _make_percurve_step(self, d_phase, durs, dy):
+        """The per-curve step: every curve folds on its own time row, the
+        binned search (``"fast"``) or the sorted-phase one (``"exact"``),
+        sized for the grid's longest period."""
+        from ..ops.bls import _binned, bls_power
+        stack = self.stack
+        fast = self.method == "fast"
+        size = int(np.ceil(self.periods.max() / d_phase)) + (0 if fast
+                                                             else 1)
+        # the binned step bins by the product with 1/d_phase, as the
+        # reference's compiled step does with its constant d_phase
+        kernel, kw = ((_binned, dict(nbins=size, reciprocal=True)) if fast
+                      else (bls_power, dict(t0_count=size)))
         oversample, objective = self.oversample, self.objective
 
         def step(pvals, n_valid):
-            # per-chunk histogram size, quantized to a 128-row tile
-            nb = int(np.ceil(float(np.max(pvals)) / d_phase))
-            tiles = max((nb + k_max - 1 + 127) // 128, 1)
-            nb_q = tiles * 128 - (k_max - 1)
-            out = bls_power_shared_batch(
-                t_row, stack.flux, dy, pvals, durs, oversample=oversample,
-                objective=objective, d_phase=d_phase, nbins=nb_q, chunk=8,
-                uniform_weights=uniform)
+            out = kernel(stack.time, stack.flux, dy, pvals, durs,
+                         oversample=oversample, objective=objective,
+                         d_phase=d_phase, **kw)
             return _reduce_winner(out, n_valid)
 
         return step

@@ -31,8 +31,18 @@ def refuse(*a, **k):
 subprocess.run = subprocess.Popen = refuse
 for name in sys.argv[1:]:
     importlib.import_module(name)
+import numpy as np
 import lightkurve_tpu_torch as pkg
-pkg.LightCurveStack, pkg.SweepRunner, pkg.StreamingStackLoader
+for name in pkg.__all__:
+    getattr(pkg, name)
+t = np.tile(np.arange(64) * 0.02, (2, 1))
+stack = pkg.LightCurveStack.from_numpy(t, np.ones_like(t), np.ones_like(t),
+                                       np.ones(t.shape, bool), device="cpu")
+for method in ("shared", "fast", "exact"):
+    runner = pkg.SweepRunner(stack, [0.5, 0.6], [0.1], "/nonexistent.npz",
+                             method=method)
+    assert runner.prewarm(wait=True) == []
+assert pkg.prewarm_shared_sweep("cpu", wait=True) == []
 from lightkurve_tpu_torch.ops import _build
 from lightkurve_tpu_torch.io import native
 assert not _build._LOADED and not native._LIB, "a library was loaded"

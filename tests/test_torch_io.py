@@ -107,7 +107,8 @@ def test_streaming_loader_matches_jax(tmp_path, batch_size):
     ja = list(jpipe.StreamingStackLoader(paths, batch_size=batch_size,
                                          dtype=jnp.float64, nthreads=2))
     tb = list(tpipe.StreamingStackLoader(paths, batch_size=batch_size,
-                                         dtype=torch.float64, nthreads=2))
+                                         dtype=torch.float64, nthreads=2,
+                                         device="cpu"))
     assert len(ja) == len(tb) == -(-len(paths) // batch_size)
     for a, b in zip(ja, tb):
         assert b.shape == (batch_size, 64)
@@ -153,7 +154,8 @@ def test_stack_from_files_matches_jax(tmp_path):
     same columns), which keeps them increasing across interior gaps."""
     paths = write_curves(tmp_path, [40, 64, 50])
     a = JStack.from_files(paths, dtype=jnp.float64, nthreads=2)
-    b = TStack.from_files(paths, dtype=torch.float64, nthreads=2)
+    b = TStack.from_files(paths, dtype=torch.float64, nthreads=2,
+                          device="cpu")
     for f in ("flux", "flux_err", "mask"):
         np.testing.assert_array_equal(getattr(b, f).numpy(),
                                       np.asarray(getattr(a, f)), f)

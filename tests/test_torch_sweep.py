@@ -52,7 +52,8 @@ def make_arrays(regime, B=6, n=500, seed=3):
 def stacks(regime):
     arrays, p_inj = make_arrays(regime)
     j = JStack(*(jnp.asarray(a) for a in arrays))
-    return j, TStack.from_numpy(*arrays, dtype=torch.float64), p_inj
+    return j, TStack.from_numpy(*arrays, dtype=torch.float64,
+                                 device="cpu"), p_inj
 
 
 def assert_state_equal(a, b, exact=False):
@@ -105,7 +106,7 @@ def test_kill_resume_bit_equal(tmp_path, async_save):
     """A killed port sweep resumed by a fresh runner ends bit-equal to an
     uninterrupted one."""
     _, ts, _ = stacks("weighted")
-    kw = dict(chunk_periods=16, async_save=async_save)
+    kw = dict(chunk_periods=16, async_save=async_save, method="shared")
     full = TRunner(ts, PERIODS, DURATIONS, str(tmp_path / "full.npz"),
                    **kw).run()
     ck = str(tmp_path / "kill.npz")
@@ -125,23 +126,14 @@ def test_kill_resume_bit_equal(tmp_path, async_save):
 def test_chunking_change_restarts_fresh(tmp_path):
     _, ts, _ = stacks("uniform")
     ck = str(tmp_path / "sweep.npz")
+    kw = dict(method="shared")
     full = TRunner(ts, PERIODS, DURATIONS, str(tmp_path / "ref.npz"),
-                   chunk_periods=16).run()
-    TRunner(ts, PERIODS, DURATIONS, ck, chunk_periods=16).run(max_chunks=2)
-    r2 = TRunner(ts, PERIODS, DURATIONS, ck, chunk_periods=32)
+                   chunk_periods=16, **kw).run()
+    TRunner(ts, PERIODS, DURATIONS, ck, chunk_periods=16,
+            **kw).run(max_chunks=2)
+    r2 = TRunner(ts, PERIODS, DURATIONS, ck, chunk_periods=32, **kw)
     assert r2.next_chunk == 0
     assert_state_equal(full, r2.run())
-
-
-def test_unported_paths_raise(tmp_path):
-    _, ts, _ = stacks("uniform")
-    with pytest.raises(NotImplementedError):
-        TRunner(ts, PERIODS, DURATIONS, str(tmp_path / "a.npz"),
-                method="fast")
-    mixed = ts._replace(time=ts.time + torch.arange(
-        len(ts), dtype=ts.time.dtype)[:, None])
-    with pytest.raises(NotImplementedError):
-        TRunner(mixed, PERIODS, DURATIONS, str(tmp_path / "b.npz")).run()
 
 
 @pytest.mark.parametrize("regime", ["uniform", "weighted"])
