@@ -3,42 +3,52 @@
     python3 chip_smoke.py
 
 Phases:
-  1. build the CUDA kernels (K-F, K-W, K-U) from the checkout's sources,
-     one nvcc per source, all started together;
+  1. build the CUDA kernels (K-F, K-WF, K-W, K-U) from the checkout's
+     sources, one nvcc per source, all started together;
   2. hold each kernel against its plain torch version on the card at a
      small shape, in float64 (exact logic) and float32, over both edge
      modes and objectives, and at the tile-edge grid where a period needs
      one bin more than the host count (rows sized from the bound: equal;
-     sized from the count: NaN, as the plain versions give);
+     sized from the count: NaN, as the plain versions give); the fused
+     kernels give the same bits on two runs;
   3. uniform main path at full size: a 2048-file synthetic TESS sector
      written with the port's FITS writer, streamed through
      StreamingStackLoader into SweepRunner(method="shared") (K-F);
   4. weighted main path at full size: a SPOC-like in-memory stack
-     (per-cadence dy, ~3% masked cadences) through SweepRunner (K-W);
+     (per-cadence dy, ~3% masked cadences) through SweepRunner (K-WF);
+     then its first chunk through bls_power_shared_batch on both routes,
+     each a path of its own: fold_impl="fused" (K-WF) and "staged" (the
+     one-hot fold and K-W), whose winners must agree;
   6. the long-baseline uniform sweeps, 2048 curves, 4,096 periods in four
-     chunks each: one 27-d sector (19,440 cadences) over 1-9 d, where K-F
-     takes every chunk (the last at its 16-curve tile), and two
-     consecutive sectors (38,880 cadences) over 1-18 d, whose last chunk
-     needs more rows than a 16-curve K-F tile holds and takes the staged
-     route (torch fold + K-U); each chunk's route is checked against the
-     rule;
+     chunks each, K-F on every chunk: one 27-d sector (19,440 cadences)
+     over 1-9 d, and two consecutive sectors (38,880 cadences) over
+     1-18 d; each chunk's route is checked against the rule; then the
+     two-sector chunk 4 through bls_power_shared_batch on both routes,
+     each a path of its own: "fused" (K-F) and "staged" (the torch fold
+     and K-U);
   7. the mixed-grid sweep: 2048 SPOC-like curves on four sector grids,
-     one shared-grid search per grid (K-W), held against four single-grid
+     one shared-grid search per grid (K-WF), held against four single-grid
      sweeps of the same rows;
   8. the per-curve methods, SweepRunner(method="fast") and "exact", at
      2048 x 8192 (plain torch, no kernel);
   5. each kernel against its plain version at its main path's shapes, in
      float64 and float32, timed in float32, with its bound (the larger of
      bytes over the memory rate and operations over the float32 rate):
-     K-F and K-W on the 8,192-cadence batch, K-U on the two-sector
-     sweep's staged chunk, and K-F (float32) at its 16-curve tile on the
-     one- and two-sector sweeps' chunks that run it so; and K-F at the
-     tile it gets against the staged route on the same inputs, at the
-     one-sector sweep's longest periods (16 curves), at 16.4-16.9 d on
-     one sector and at the two-sector sweep's longest periods (8).
-Each main path (3, 4, 6, 7, 8) runs with every launch count set to 0
-just before it and read just after; a path fails if a kernel it needs
-never launched or a plain version ran.
+     K-F, K-WF and K-W on the 8,192-cadence batch, K-U on the two-sector
+     sweep's chunk 4, K-F (float32) on both long sweeps' chunk 4; K-WF
+     against the staged weighted route (one-hot GEMM, cumsum, K-W) on the
+     same inputs; and the fused kernel against the staged route at the
+     route points: one sector's longest periods (1,865 rows), 16.4-16.9 d
+     on one sector (3,445 rows), two sectors' longest periods (3,665
+     rows), and both regimes where a fused block holds one warp (the
+     staged routes at SweepRunner's 8 periods per call, sliced to the
+     free memory).
+Each path (the sweeps of phases 3, 4, 6, 7 and 8 on the automatic route,
+and the four forced-route runs of phases 4 and 6) runs with every launch
+count set to 0 just before it and read just after; a path fails if a
+kernel it needs never launched, a kernel of another route did, or a
+plain version ran.  The kernels line gives each kernel's launches summed
+over the paths and, under ``launches_by_path``, each path's own.
 
 Prints the card, a JSON line of kernel records, and as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero on any failure, and
@@ -135,7 +145,7 @@ def check_inputs(dtype, B=256, n=2048, P=257, seed=7):
     """Shared-grid inputs at the check shape: injected transits, per-
     cadence dy with ~3% masked cadences, the north-star durations."""
     import torch
-    from lightkurve_tpu_torch.ops.bls import _weighted_fold
+    from lightkurve_tpu_torch.ops.bls_fused_weighted import weighted_fold
     from lightkurve_tpu_torch.ops.bls_fused import (max_nbins_bound,
                                                     uniform_fold)
     from tools import make_sector as ms
@@ -167,7 +177,7 @@ def check_inputs(dtype, B=256, n=2048, P=257, seed=7):
     total = WWY.sum(0)
     folds, ufolds = {}, {}
     for wrap in (True, False):
-        parts = [_weighted_fold(ts, WWY, pc[i:i + 64], d_phase, nbins,
+        parts = [weighted_fold(ts, WWY, pc[i:i + 64], d_phase, nbins,
                                 max_nbp, max(k_durs), wrap)
                  for i in range(0, P, 64)]
         folds[wrap] = (torch.cat([c for c, _ in parts]).contiguous(),
@@ -179,7 +189,7 @@ def check_inputs(dtype, B=256, n=2048, P=257, seed=7):
     return dict(ts=ts, Y0=Y0, pc=pc, k_durs=k_durs,
                 dur_values=tuple(float(d) for d in DURATIONS),
                 d_phase=d_phase, nbins=nbins, max_nbp=max_nbp, total=total,
-                folds=folds, ufolds=ufolds)
+                WWY=WWY, folds=folds, ufolds=ufolds)
 
 
 def compare(name, got, want, f64):
@@ -233,51 +243,74 @@ def compare(name, got, want, f64):
 
 
 def phase_kernels():
-    """K-F, K-W and K-U against their plain versions, both edge modes and
-    both objectives, float64 then float32.  Returns per-kernel f32
-    errors."""
+    """K-F, K-WF, K-W and K-U against their plain versions, both edge
+    modes and both objectives, float64 then float32.  Returns per-kernel
+    f32 errors."""
     import torch
-    from lightkurve_tpu_torch.ops import bls_fused, bls_window
-    errs = {"K-F": 0.0, "K-W": 0.0, "K-U": 0.0}
+    from lightkurve_tpu_torch.ops import (bls_fused, bls_fused_weighted,
+                                          bls_window)
+    errs = {"K-F": 0.0, "K-WF": 0.0, "K-W": 0.0, "K-U": 0.0}
     for dtype in (torch.float64, torch.float32):
         f64 = dtype == torch.float64
         x = check_inputs(dtype)
         C, npad, twoB = x["folds"][True][0].shape
-        log(f"check {dtype}: B={twoB // 2} n={x['ts'].shape[0]} P={C} "
+        B = twoB // 2
+        log(f"check {dtype}: B={B} n={x['ts'].shape[0]} P={C} "
             f"nbins={x['nbins']} k_durs={x['k_durs']}")
         common = (x["k_durs"], x["dur_values"], x["d_phase"])
+        W, WY = (x["WWY"][:, :B].contiguous(), x["WWY"][:, B:].contiguous())
         for wrap in (True, False):
             for like in (True, False):
                 tag = f"{'wrap' if wrap else 'astropy'}/" \
                       f"{'likelihood' if like else 'snr'}"
-                got = bls_fused.fused_scan_uniform(
-                    x["ts"], x["Y0"], x["pc"], *common, x["nbins"],
-                    x["max_nbp"], like, wrap)
-                want = bls_fused.fused_scan_uniform_plain(
-                    x["ts"], x["Y0"], x["pc"], *common, x["nbins"],
-                    x["max_nbp"], like, wrap)
-                torch.cuda.synchronize()
-                e, _ = compare(f"K-F {tag}", got, want, f64)
-                csum, nbp = x["folds"][wrap]
-                got = bls_window.window_scan(csum, nbp, x["pc"], x["total"],
-                                             *common, like)
-                want = bls_window.window_scan_plain(
-                    csum, nbp, x["pc"], x["total"], *common, like)
-                torch.cuda.synchronize()
-                e2, _ = compare(f"K-W {tag}", got, want, f64)
-                cs_y, cs_n, unbp = x["ufolds"][wrap]
-                uargs = (cs_y, cs_n, unbp, x["pc"], x["Y0"].sum(0),
-                         float(x["Y0"].shape[0]), *common, like)
-                got = bls_window.window_scan_uniform(*uargs)
-                want = bls_window.window_scan_uniform_plain(*uargs)
-                torch.cuda.synchronize()
-                e3, _ = compare(f"K-U {tag}", got, want, f64)
+                e = {}
+                for name, kern, plain, args in (
+                        ("K-F", bls_fused.fused_scan_uniform,
+                         bls_fused.fused_scan_uniform_plain,
+                         (x["ts"], x["Y0"], x["pc"], *common, x["nbins"],
+                          x["max_nbp"], like, wrap)),
+                        ("K-WF", bls_fused_weighted.fused_scan_weighted,
+                         bls_fused_weighted.fused_scan_weighted_plain,
+                         (x["ts"], W, WY, x["pc"], *common, x["nbins"],
+                          x["max_nbp"], like, wrap)),
+                        ("K-W", bls_window.window_scan,
+                         bls_window.window_scan_plain,
+                         (*x["folds"][wrap], x["pc"], x["total"], *common,
+                          like)),
+                        ("K-U", bls_window.window_scan_uniform,
+                         bls_window.window_scan_uniform_plain,
+                         (*x["ufolds"][wrap], x["pc"], x["Y0"].sum(0),
+                          float(x["Y0"].shape[0]), *common, like))):
+                    got, want = kern(*args), plain(*args)
+                    torch.cuda.synchronize()
+                    e[name], _ = compare(f"{name} {tag}", got, want, f64)
                 if not f64:
-                    errs["K-F"] = max(errs["K-F"], e)
-                    errs["K-W"] = max(errs["K-W"], e2)
-                    errs["K-U"] = max(errs["K-U"], e3)
+                    for name, v in e.items():
+                        errs[name] = max(errs[name], v)
     check_tile_edge()
+    check_deterministic()
     return errs
+
+
+def check_deterministic():
+    """The fused kernels sum in a fixed order (no float atomics): two runs
+    on the same inputs give the same bits."""
+    import torch
+    from lightkurve_tpu_torch.ops import bls_fused, bls_fused_weighted
+    x = check_inputs(torch.float32)
+    B = x["Y0"].shape[1]
+    common = (x["k_durs"], x["dur_values"], x["d_phase"], x["nbins"],
+              x["max_nbp"])
+    W, WY = (x["WWY"][:, :B].contiguous(), x["WWY"][:, B:].contiguous())
+    for name, fn, args in (
+            ("K-F", bls_fused.fused_scan_uniform,
+             (x["ts"], x["Y0"], x["pc"], *common)),
+            ("K-WF", bls_fused_weighted.fused_scan_weighted,
+             (x["ts"], W, WY, x["pc"], *common))):
+        a, b = fn(*args), fn(*args)
+        if not all(torch.equal(a[f], b[f]) for f in a):
+            raise AssertionError(f"{name}: two runs differ")
+    log("  K-F and K-WF: two runs on the same inputs are bit-identical")
 
 
 def check_tile_edge(B=256, n=2048, seed=11):
@@ -288,8 +321,9 @@ def check_tile_edge(B=256, n=2048, seed=11):
     plain version; with rows sized from the count alone that period is
     NaN in kernel and plain version alike, and the others are unchanged."""
     import torch
-    from lightkurve_tpu_torch.ops import bls_fused, bls_window
-    from lightkurve_tpu_torch.ops.bls import _weighted_fold
+    from lightkurve_tpu_torch.ops import (bls_fused, bls_fused_weighted,
+                                          bls_window)
+    from lightkurve_tpu_torch.ops.bls_fused_weighted import weighted_fold
     from tools import make_sector as ms
     dt = torch.float64
     rng = np.random.default_rng(seed)
@@ -306,19 +340,24 @@ def check_tile_edge(B=256, n=2048, seed=11):
     Y0 = torch.as_tensor((Y - Y.mean(1, keepdims=True)).T.copy(), dtype=dt,
                          device="cuda")
     pc = torch.as_tensor(periods, dtype=dt, device="cuda")
-    WWY = torch.cat([torch.ones_like(Y0), Y0], 1)
+    W = torch.ones_like(Y0)
+    WWY = torch.cat([W, Y0], 1)
     common = (k_durs, dvals, d_phase)
 
     def run(rows_bound):
-        csum, nbp = _weighted_fold(ts, WWY, pc, d_phase, nbins, rows_bound,
-                                   max(k_durs))
+        csum, nbp = weighted_fold(ts, WWY, pc, d_phase, nbins, rows_bound,
+                                  max(k_durs))
         args = (csum, nbp, pc, WWY.sum(0), *common)
         fargs = (ts, Y0, pc, *common, nbins, rows_bound)
+        wargs = (ts, W, Y0, pc, *common, nbins, rows_bound)
         cs_y, cs_n, unbp = bls_fused.uniform_fold(ts, Y0, pc, d_phase, nbins,
                                                   rows_bound, max(k_durs))
         uargs = (cs_y, cs_n, unbp, pc, Y0.sum(0), float(n), *common)
         return {"K-F": (bls_fused.fused_scan_uniform(*fargs),
                         bls_fused.fused_scan_uniform_plain(*fargs)),
+                "K-WF": (bls_fused_weighted.fused_scan_weighted(*wargs),
+                         bls_fused_weighted.fused_scan_weighted_plain(
+                             *wargs)),
                 "K-W": (bls_window.window_scan(*args),
                         bls_window.window_scan_plain(*args)),
                 "K-U": (bls_window.window_scan_uniform(*uargs),
@@ -460,6 +499,9 @@ def spoc_like_stack(B=2048, seed=2024, dtype=None):
 
 
 def phase_weighted(tmp, B=2048, n_periods=4096, chunk_periods=2048):
+    """Phase 4: the weighted sweep (K-WF).  Returns its numbers and, as
+    ``route_check``, the stack and its first chunk's periods for
+    :func:`compare_routes`."""
     from lightkurve_tpu_torch.parallel.checkpoint import SweepRunner
     from tools import make_sector as ms
     stack, p_inj = spoc_like_stack(B)
@@ -481,23 +523,85 @@ def phase_weighted(tmp, B=2048, n_periods=4096, chunk_periods=2048):
         f"recovered {share:.4f}; {peak_memory()}")
     if share < RECOVERY_SHARE:
         raise AssertionError(f"weighted recovery {share} < {RECOVERY_SHARE}")
-    return dict(seconds=sweep_s, rate=rate, recovered=share)
+    return dict(seconds=sweep_s, rate=rate, recovered=share,
+                route_check=(stack, periods[:chunk_periods]))
+
+
+def compare_routes(name, stack, pvals):
+    """One SweepRunner chunk of ``stack`` at the periods ``pvals`` through
+    the entry point ``bls_power_shared_batch`` on both routes, called as
+    SweepRunner's step calls it, each route a path of its own
+    (:func:`drive`): ``fold_impl="fused"`` must launch K-F (K-WF for
+    weights) and no other kernel, ``"staged"`` K-U (K-W) and no other.
+    The per-curve winners must be the same period, duration and transit
+    time in >= 99.9% of curves, with power within rtol 1e-3 where they
+    are (the float32 bars).  Logs each route's seconds; returns each
+    path's launches."""
+    import torch
+    from lightkurve_tpu_torch.config import numpy_dtype
+    from lightkurve_tpu_torch.ops.bls import bls_power_shared_batch
+    from lightkurve_tpu_torch.parallel.checkpoint import (_FIELDS,
+                                                          _chunk_nbins,
+                                                          _k_max,
+                                                          _reduce_winner)
+    dtype = stack.flux.dtype
+    np_dtype = numpy_dtype(dtype)
+    d_phase = float(DURATIONS.min()) / OVERSAMPLE
+    pvals = np.asarray(pvals).astype(np_dtype)
+    dy = torch.where(stack.mask, stack.flux_err,
+                     torch.tensor(torch.inf, dtype=dtype, device="cuda"))
+    err = stack.flux_err
+    uniform = bool(torch.all(stack.mask)) and bool(
+        torch.all(err == err[:, :1]))
+
+    def run(impl):
+        start_sweep()
+        t0 = time.time()
+        out = bls_power_shared_batch(
+            stack.time[0].to(dtype), stack.flux, dy, pvals,
+            DURATIONS.astype(np_dtype), oversample=OVERSAMPLE,
+            d_phase=d_phase,
+            nbins=_chunk_nbins(pvals, d_phase, _k_max(DURATIONS, d_phase)),
+            chunk=8, uniform_weights=uniform, fold_impl=impl)
+        stacked = _reduce_winner(out, len(pvals)).cpu().numpy()
+        return dict(zip(_FIELDS, stacked)), time.time() - t0
+
+    win, secs, runs = {}, {}, {}
+    for impl, kern in zip(("fused", "staged"), ("K-F", "K-U") if uniform
+                          else ("K-WF", "K-W")):
+        path = f"{name}, {impl} route"
+        (win[impl], secs[impl]), runs[path] = drive(
+            path, run, impl, expect=(kern,),
+            forbid=tuple(k for k in kernel_table() if k != kern))
+    a, b = win["fused"], win["staged"]
+    same = ((a["period"] == b["period"]) & (a["duration"] == b["duration"])
+            & (a["transit_time"] == b["transit_time"]))
+    share = float(same.mean())
+    rel = float(np.max(np.abs(a["power"][same] - b["power"][same])
+                       / np.abs(b["power"][same]))) if same.any() else 0.0
+    log(f"{name}: fused route {secs['fused']:.3f}s, staged route "
+        f"{secs['staged']:.3f}s for {len(pvals)} periods; identical winners "
+        f"in {share:.6f} of {len(same)} curves, max rel power error "
+        f"{rel:.3g}")
+    if share < F32_WINNER_SHARE or rel > F32_RTOL:
+        raise AssertionError(f"{name}: the two routes' winners differ")
+    return runs
 
 
 # ---------------------------------------------------------------------------
 # phase 5: kernels against plain, and their times, at the main path's shapes
 # ---------------------------------------------------------------------------
 def main_shape_inputs(dtype, P, B=2048):
-    """Both kernels' inputs as the main path gives them: B curves x 8192
+    """The kernels' inputs as the main path gives them: B curves x 8192
     cadences (the SPOC-like batch), the P longest periods of the uniform
     cell's grid (the most bins), the north-star durations, the bin count
     SweepRunner's step picks for them and the host bound ops.bls sizes
-    the kernels' rows with; the weighted fold in SweepRunner's chunks of
-    8 periods."""
+    the kernels' rows with; K-W's prefix sums from the weighted fold in
+    SweepRunner's calls of 8 periods."""
     import torch
     from lightkurve_tpu_torch.config import numpy_dtype
-    from lightkurve_tpu_torch.ops.bls import _weighted_fold
     from lightkurve_tpu_torch.ops.bls_fused import max_nbins_bound
+    from lightkurve_tpu_torch.ops.bls_fused_weighted import weighted_fold
     from tools import make_sector as ms
     stack, _ = spoc_like_stack(B, seed=5, dtype=dtype)
     t = ms.time_grid()
@@ -514,47 +618,53 @@ def main_shape_inputs(dtype, P, B=2048):
     ts = stack.time[0] - stack.time[0].min()
     Y = stack.flux
     Y0 = (Y - Y.mean(1, keepdim=True)).T.contiguous()
-    W = torch.where(stack.mask, 1.0 / stack.flux_err ** 2, 0.0)
-    W = W / W.mean()
-    mu = (W * Y).sum(1, keepdim=True) / W.sum(1, keepdim=True)
-    WWY = torch.cat([W.T, (W * (Y - mu)).T], 1).contiguous()
-    total = WWY.sum(0)
-
-    def fold():
-        return [_weighted_fold(ts, WWY, pc[i:i + 8], d_phase, nbins,
-                               max_nbp, k_max) for i in range(0, P, 8)]
-
-    parts = fold()
+    Wn = torch.where(stack.mask, 1.0 / stack.flux_err ** 2, 0.0)
+    Wn = Wn / Wn.mean()
+    mu = (Wn * Y).sum(1, keepdim=True) / Wn.sum(1, keepdim=True)
+    W, WY = Wn.T.contiguous(), (Wn * (Y - mu)).T.contiguous()
+    WWY = torch.cat([W, WY], 1)
+    parts = [weighted_fold(ts, WWY, pc[i:i + 8], d_phase, nbins, max_nbp,
+                           k_max) for i in range(0, P, 8)]
     csum = torch.cat([c for c, _ in parts]).contiguous()
     nbp = torch.cat([b for _, b in parts]).contiguous()
-    del parts
+    del parts, stack, WWY
     common = (k_durs, tuple(float(d) for d in DURATIONS), d_phase)
     return dict(fold_args=(ts, Y0, pc, *common, nbins, max_nbp, True, True,
                            8),
-                win_args=(csum, nbp, pc, total, *common, True), fold=fold,
+                weighted_args=(ts, W, WY, pc, *common, nbins, max_nbp, True,
+                               True, 8),
+                win_args=(csum, nbp, pc, torch.cat([W.sum(0), WY.sum(0)]),
+                          *common, True),
                 desc=f"B={B} N={ms.N} P={P} (periods {p_host[0]:.4f}-"
                      f"{p_host[-1]:.4f} d, {max_nbp} bins, fold sized for "
                      f"{nbins}) {dtype}")
 
 
 def phase_main_shapes():
-    """Each kernel against its plain version on the same inputs at the main
-    path's shapes, float64 (64 periods) then float32 (256 periods); the
-    float32 pair timed plain, kernel, kernel, plain.  Returns the float32
-    max |power error|, (kernel ms, plain ms) and (bound ms, bound by) per
-    kernel."""
+    """K-F, K-WF and K-W against their plain versions on the same inputs at
+    the main path's shapes, float64 (64 periods) then float32 (256
+    periods); the float32 pair timed plain, kernel, kernel, plain, and
+    K-WF against the staged weighted route (one-hot GEMM, cumsum and K-W
+    in SweepRunner's calls of 8 periods) on the same inputs.  Returns the
+    float32 max |power error|, (kernel ms, plain ms) and (bound ms, bound
+    by) per kernel."""
     import torch
-    from lightkurve_tpu_torch.ops import bls_fused, bls_window
+    from lightkurve_tpu_torch.ops import (bls_fused, bls_fused_weighted,
+                                          bls_window)
     errs, times, bounds = {}, {}, {}
     for dtype, P in ((torch.float64, 64), (torch.float32, 256)):
         f64 = dtype == torch.float64
         x = main_shape_inputs(dtype, P)
         log(f"main shapes: {x['desc']}")
-        for name, kern, plain, args in (
+        for name, kern, plain, args, bound in (
                 ("K-F", bls_fused.fused_scan_uniform,
-                 bls_fused.fused_scan_uniform_plain, x["fold_args"]),
+                 bls_fused.fused_scan_uniform_plain, x["fold_args"],
+                 bound_fused),
+                ("K-WF", bls_fused_weighted.fused_scan_weighted,
+                 bls_fused_weighted.fused_scan_weighted_plain,
+                 x["weighted_args"], bound_weighted_fused),
                 ("K-W", bls_window.window_scan, bls_window.window_scan_plain,
-                 x["win_args"])):
+                 x["win_args"], bound_weighted)):
             got, want = kern(*args), plain(*args)
             torch.cuda.synchronize()
             e, _ = compare(f"{name} main shapes", got, want, f64)
@@ -563,14 +673,43 @@ def phase_main_shapes():
                 continue
             errs[name] = e
             times[name] = time_pair(name, kern, plain, args)
-            bounds[name] = (bound_fused(*args) if name == "K-F"
-                            else bound_weighted(*args))
+            bounds[name] = bound(*args)
+            log(f"bound {name}: {bounds[name][0]:.6f} ms "
+                f"({bounds[name][1]})")
         if not f64:
-            log(f"times weighted fold (one-hot matmul + cumsum, torch): "
-                f"{cuda_time_ms(x['fold']):.3f} ms for the same {P} periods")
+            rows_cap = x["fold_args"][7] + max(x["fold_args"][3]) - 1
+            for name, weighted, kern in (
+                    ("K-F", False, bls_fused.fused_scan_uniform),
+                    ("K-WF", True, bls_fused_weighted.fused_scan_weighted)):
+                warps, blocks = bls_fused.fused_block(rows_cap, dtype,
+                                                      "cuda", weighted)
+                log(f"{name} block at {rows_cap} rows: {warps} warps, "
+                    f"{blocks} resident blocks per SM ({warps * blocks} "
+                    f"warps per SM, occupancy calculator)")
+                fused_breakdown(name, kern, x["weighted_args" if weighted
+                                              else "fold_args"], weighted)
+            route_times(x, weighted=True, tag="weighted main shapes")
         del x
         torch.cuda.empty_cache()
     return errs, times, bounds
+
+
+def fused_breakdown(name, kern, args, weighted):
+    """Where a fused kernel's time goes: the same call timed with all the
+    durations, with the first duration only (the window scan's share) and
+    with a quarter of the cadences (the fold's share)."""
+    cols = 2 if weighted else 1
+    ts, data, rest = args[0], args[1:1 + cols], args[1 + cols:]
+    one = rest[:1] + (rest[1][:1], rest[2][:1]) + rest[3:]
+    q = ts.shape[0] // 4
+    quarter = (ts[:q].contiguous(),) + tuple(c[:q].contiguous()
+                                             for c in data) + rest
+    full = cuda_time_ms(lambda: kern(*args))
+    dur1 = cuda_time_ms(lambda: kern(ts, *data, *one))
+    quart = cuda_time_ms(lambda: kern(*quarter))
+    log(f"{name} breakdown: {full:.3f} ms with {len(rest[1])} durations "
+        f"and {ts.shape[0]} cadences, {dur1:.3f} ms with the first "
+        f"duration only, {quart:.3f} ms with {q} cadences")
 
 
 def time_pair(name, kern, plain, args, run_plain=None):
@@ -595,7 +734,7 @@ def time_pair(name, kern, plain, args, run_plain=None):
 # ---------------------------------------------------------------------------
 PEAK_BYTES_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_F32_S = 67e12          # H100 SXM float32 outside the tensor cores
-#: operations per window and curve of the weighted scan (K-W), whose
+#: operations per window and curve of the weighted scan (K-W, K-WF), whose
 #: weights differ per curve: two prefix differences, w_out, the two
 #: reciprocals and their sum, depth (two products, one difference), the
 #: objective (two products) and the running-maximum compare
@@ -630,19 +769,42 @@ def _uniform_scan_ops(B, windows):
     return (B * OPS_UNIFORM_CURVE + OPS_UNIFORM_WINDOW) * windows
 
 
+def _fold_ops(n, nbp, k_max, wrap):
+    """Adds per column of one fold over the periods: one deposit per
+    sample, the prefix of every row, and in wrap mode one add per wrap row
+    (the extension rows are total + prefix; no second deposit is
+    needed)."""
+    rows = int(np.sum(nbp + k_max - 1))
+    return n * len(nbp) + rows + (k_max - 1) * len(nbp) * bool(wrap)
+
+
 def bound_fused(ts, Y0, pc, k_durs, dur_values, d_phase, nbins, max_nbp,
                 like=True, wrap=True, chunk=8):
-    """K-F: reads the flux (n, B) and times once; per period it deposits
-    every sample (twice with the wrap copy) into each curve's rows and the
-    shared count rows, takes their prefix and scans the windows."""
+    """K-F: reads the flux (n, B) and times once; per period it folds every
+    sample into each curve's column and the shared count column
+    (:func:`_fold_ops`) and scans the windows."""
     from lightkurve_tpu_torch.ops.bls_fused import nbins_per_period
     n, B = Y0.shape
     item = Y0.element_size()
     nbp = nbins_per_period(pc, d_phase).cpu().numpy()
-    rows = int(np.sum(nbp + max(k_durs) - 1))
-    fold = (B + 1) * ((2 if wrap else 1) * n * len(nbp) + rows)
+    fold = (B + 1) * _fold_ops(n, nbp, max(k_durs), wrap)
     return _bound((n * B + n + B) * item + _outputs_bytes(len(nbp), B, item),
                   fold + _uniform_scan_ops(B, _windows(nbp, k_durs)))
+
+
+def bound_weighted_fused(ts, W, WY, pc, k_durs, dur_values, d_phase, nbins,
+                         max_nbp, like=True, wrap=True, chunk=8):
+    """K-WF: reads W, WY (n, B) and the times once; per period it folds
+    every sample into each curve's two columns (:func:`_fold_ops`) and
+    scans the windows at 12 operations per window and curve."""
+    from lightkurve_tpu_torch.ops.bls_fused import nbins_per_period
+    n, B = W.shape
+    item = W.element_size()
+    nbp = nbins_per_period(pc, d_phase).cpu().numpy()
+    fold = 2 * B * _fold_ops(n, nbp, max(k_durs), wrap)
+    return _bound((2 * n * B + n + 2 * B) * item
+                  + _outputs_bytes(len(nbp), B, item),
+                  fold + B * OPS_WEIGHTED * _windows(nbp, k_durs))
 
 
 def bound_weighted(csum, nbp, pc, total, k_durs, dur_values, d_phase,
@@ -669,7 +831,8 @@ def bound_uniform(cs_y, cs_n, nbp, pc, tot_y, n_total, k_durs, dur_values,
 
 # ---------------------------------------------------------------------------
 # phase 5, second half: the long-baseline sweeps' shapes (K-U on the staged
-# route, K-F at its 16-curve tile)
+# route of the two-sector sweep's chunk 4, K-F on both sweeps' last chunks)
+# and the route points
 # ---------------------------------------------------------------------------
 LONG_N = 19_440             # 27.0 d of two-minute cadences: one TESS sector
 SECTOR_DAYS = 27.4          # one TESS sector: the offset between sectors
@@ -677,6 +840,9 @@ LONG_GRID = (1.0, 9.0, 4096)
 #: two consecutive sectors (the second starts 27.4 d after the first),
 #: searched to baseline/3
 TWO_SECTOR_GRID = (1.0, 18.0, 4096)
+#: the route point where a fused block holds one warp in float32 (27,065
+#: rows): periods near 134.7 d at two sectors' cadences, 16 of them
+NARROW_GRID = (134.6, 134.7, 16)
 
 
 def sector_times(n_sectors=1):
@@ -710,11 +876,14 @@ def long_sector_stack(B=2048, seed=2027, dtype=None, n_sectors=1,
     return stack, p_inj
 
 
-def long_inputs(dtype, n_sectors, p_host, B=2048):
+def long_inputs(dtype, n_sectors, p_host, B=2048, weighted=False):
     """Uniform inputs of a long-baseline sweep (:func:`long_sector_stack`,
     B curves on ``n_sectors`` sectors) at the host periods ``p_host``, with
     the bin count SweepRunner's step picks for them and rows from the host
-    bound; ``fused_args`` are K-F's arguments in SweepRunner's form."""
+    bound; ``fused_args`` are K-F's arguments in SweepRunner's form.  With
+    ``weighted``, also K-WF's (``weighted_args``): per-cadence weights
+    1/dy^2 (dy 0.7-1.3 x the noise, normalised to mean 1) with ~3% of the
+    cadences masked."""
     import torch
     from lightkurve_tpu_torch.config import numpy_dtype
     from lightkurve_tpu_torch.ops.bls_fused import max_nbins_bound
@@ -728,16 +897,28 @@ def long_inputs(dtype, n_sectors, p_host, B=2048):
     nbins = _chunk_nbins(p_host, d_phase, _k_max(DURATIONS, d_phase))
     max_nbp = max_nbins_bound(p_host, d_phase, dtype)
     ts = stack.time[0] - stack.time[0].min()
-    Y0 = (stack.flux - stack.flux.mean(1, keepdim=True)).T.contiguous()
-    del stack
+    Y = stack.flux
+    Y0 = (Y - Y.mean(1, keepdim=True)).T.contiguous()
     common = (k_durs, tuple(float(d) for d in DURATIONS), d_phase)
-    return dict(ts=ts, Y0=Y0, pc=pc, p_host=p_host, common=common,
-                nbins=nbins, max_nbp=max_nbp,
-                fused_args=(ts, Y0, pc, *common, nbins, max_nbp, True, True,
-                            8),
-                desc=f"B={B} N={ts.shape[0]} P={len(p_host)} (periods "
-                     f"{p_host[0]:.4f}-{p_host[-1]:.4f} d, {max_nbp} bins, "
-                     f"{max_nbp + max(k_durs) - 1} rows) {dtype}")
+    x = dict(ts=ts, Y0=Y0, pc=pc, p_host=p_host, common=common,
+             nbins=nbins, max_nbp=max_nbp,
+             fused_args=(ts, Y0, pc, *common, nbins, max_nbp, True, True,
+                         8),
+             desc=f"B={B} N={ts.shape[0]} P={len(p_host)} (periods "
+                  f"{p_host[0]:.4f}-{p_host[-1]:.4f} d, {max_nbp} bins, "
+                  f"{max_nbp + max(k_durs) - 1} rows) {dtype}")
+    if weighted:
+        rng = np.random.default_rng(6)
+        Wn = torch.as_tensor(rng.uniform(0.7, 1.3, Y.shape) ** -2.0,
+                             dtype=dtype, device="cuda")
+        Wn = torch.where(torch.as_tensor(rng.random(Y.shape) >= 0.03,
+                                         device="cuda"), Wn, 0.0)
+        Wn = Wn / Wn.mean()
+        mu = (Wn * Y).sum(1, keepdim=True) / Wn.sum(1, keepdim=True)
+        x["weighted_args"] = (ts, Wn.T.contiguous(),
+                              (Wn * (Y - mu)).T.contiguous(), pc, *common,
+                              nbins, max_nbp, True, True, 8)
+    return x
 
 
 def uniform_window_args(x):
@@ -757,52 +938,60 @@ def uniform_window_args(x):
             True)
 
 
-def fused_tile(x):
-    """Curves per block K-F runs for the inputs ``x`` on this card."""
-    from lightkurve_tpu_torch.ops import bls_fused
-    rows_cap = x["max_nbp"] + max(x["common"][0]) - 1
-    optin = bls_fused.shared_memory_optin(x["Y0"].device)
-    tile = bls_fused.FUSED_TILE
-    while not bls_fused.fused_tile_fits(rows_cap, x["Y0"].dtype, optin, tile):
-        tile //= 2
-    return tile
-
-
-def route_times(x):
-    """K-F at the tile it gets against the staged route (the torch fold and
-    K-U in SweepRunner's 8-period calls) on the inputs ``x``, timed staged,
-    K-F, K-F, staged; logs the rows, the tile and the route 'auto' takes."""
-    from lightkurve_tpu_torch.ops import bls_fused
-    from lightkurve_tpu_torch.ops.bls import _staged_scan_uniform, fold_route
-    args = x["fused_args"][:-3] + (True,)
-    staged = lambda: _staged_scan_uniform(  # noqa: E731
-        *args, chunk=8, wrap=True)
-    fused = lambda: bls_fused.fused_scan_uniform(  # noqa: E731
-        *args, wrap=True, chunk=8)
-    s1 = cuda_time_ms(staged, reps=2)
-    f1 = cuda_time_ms(fused, reps=2)
-    f2 = cuda_time_ms(fused, reps=2)
-    s2 = cuda_time_ms(staged, reps=2)
-    route = fold_route("auto", x["max_nbp"], max(x["common"][0]),
-                       x["Y0"].dtype, x["Y0"].device)
-    log(f"routes at {x['desc']}: auto takes {route!r}; K-F at a "
-        f"{fused_tile(x)}-curve tile {f1:.3f}/{f2:.3f} ms, staged route "
-        f"(fold + K-U, 8 periods per call) {s1:.3f}/{s2:.3f} ms")
+def route_times(x, weighted=False, tag="", reps=2, chunk=8):
+    """The fused kernel (K-F, or K-WF with ``weighted``) against the staged
+    route (the torch fold with K-U, or with K-W, ``chunk`` periods per
+    call) on the same inputs ``x``, timed staged, fused, fused, staged;
+    checks that both give the same winners (the float32 bars) and logs the
+    rows, the fused block and the route 'auto' takes.  Returns (best fused
+    ms, best staged ms)."""
+    from lightkurve_tpu_torch.ops import bls_fused, bls_fused_weighted
+    from lightkurve_tpu_torch.ops.bls import (_staged_scan_uniform,
+                                              _staged_scan_weighted,
+                                              fold_route)
+    if weighted:
+        args = x["weighted_args"][:-3] + (True,)
+        kern, stage = (bls_fused_weighted.fused_scan_weighted,
+                       _staged_scan_weighted)
+    else:
+        args = x["fused_args"][:-3] + (True,)
+        kern, stage = bls_fused.fused_scan_uniform, _staged_scan_uniform
+    staged = lambda: stage(*args, chunk=chunk, wrap=True)  # noqa: E731
+    fused = lambda: kern(*args, wrap=True, chunk=chunk)  # noqa: E731
+    name = "K-WF" if weighted else "K-F"
+    start_sweep()
+    compare(f"{name} against the staged route, {tag}", fused(), staged(),
+            False)
+    s1 = cuda_time_ms(staged, reps=reps)
+    f1 = cuda_time_ms(fused, reps=reps)
+    f2 = cuda_time_ms(fused, reps=reps)
+    s2 = cuda_time_ms(staged, reps=reps)
+    Y, k_durs, max_nbp = args[1], args[3 + weighted], args[7 + weighted]
+    k_max = max(k_durs)
+    route = fold_route("auto", max_nbp, k_max, Y.dtype, Y.device, weighted)
+    warps, blocks = bls_fused.fused_block(max_nbp + k_max - 1, Y.dtype,
+                                          Y.device, weighted)
+    log(f"routes, {tag}, at {x['desc']}: auto takes {route!r}; {name} at "
+        f"a {warps}-warp block ({blocks} per SM) {f1:.3f}/{f2:.3f} ms, "
+        f"staged route (up to {chunk} periods per call) {s1:.3f}/{s2:.3f} "
+        f"ms; {peak_memory()}")
+    return min(f1, f2), min(s1, s2)
 
 
 def phase_long_shapes(slice_periods=32):
-    """K-U where the main path runs it, the two-sector sweep's staged
-    chunk 4 (2048 x 38,880, its longest periods): against its plain version
-    in float64 (64 periods) then float32 (256 periods in one launch; the
-    plain version in slices of 32), timed, with its time per 8-period
-    launch.  K-F against its plain version at its 16-curve tile, float32,
-    where the main path runs it so: the one-sector sweep's chunk 4 and the
-    two-sector sweep's chunk 3.  Both uniform routes timed on the same
-    inputs (:func:`route_times`) at the one-sector sweep's longest periods
-    (K-F at 16 curves), at 16.4-16.9 d on one sector (K-F at 8) and at the
-    two-sector sweep's longest periods (K-F at 8).
-    Returns K-U's float32 max |power error|, (kernel ms, plain ms) and
-    (bound ms, bound by), and K-F's float32 max |power error| here."""
+    """K-U where the main path runs it, the two-sector sweep's chunk 4 on
+    the staged route (2048 x 38,880, its longest periods): against its
+    plain version in float64 (64 periods) then float32 (256 periods in one
+    launch; the plain version in slices of 32), timed, with its time per
+    8-period launch.  K-F against its plain version in float32 at both
+    long sweeps' last chunks (their widest rows).  Both routes of the
+    uniform regime timed on the same inputs (:func:`route_times`) at the
+    one-sector sweep's longest periods (1,865 rows), at 16.4-16.9 d on one
+    sector (3,445 rows) and at the two-sector sweep's longest periods
+    (3,665 rows), and both routes of both regimes where a fused block
+    holds one warp (:data:`NARROW_GRID`).  Returns K-U's float32 max
+    |power error|, (kernel ms, plain ms) and (bound ms, bound by), and
+    K-F's float32 max |power error| here."""
     import torch
     from lightkurve_tpu_torch.ops import bls_fused, bls_window
     kern, plain = (bls_window.window_scan_uniform,
@@ -845,27 +1034,28 @@ def phase_long_shapes(slice_periods=32):
         del args, narrow, cs_y, cs_n
         torch.cuda.empty_cache()
     kf_err = 0.0
-    for n_sectors, p_host in ((1, np.linspace(*LONG_GRID)[-256:]),
-                              (2, two[2048:3072][-256:])):
-        y = long_inputs(torch.float32, n_sectors, p_host)
-        tile = fused_tile(y)
-        if tile != 16:
-            raise AssertionError(f"K-F takes a {tile}-curve tile at "
-                                 f"{y['desc']}, not 16")
+    for y in (long_inputs(torch.float32, 1, np.linspace(*LONG_GRID)[-256:]),
+              x):
         got = bls_fused.fused_scan_uniform(*y["fused_args"])
         want = bls_fused.fused_scan_uniform_plain(*y["fused_args"])
         torch.cuda.synchronize()
-        log(f"long shapes, K-F: {y['desc']}, {tile}-curve tile")
-        kf_err = max(kf_err, compare(f"K-F {tile}-curve tile", got, want,
+        log(f"long shapes, K-F: {y['desc']}")
+        kf_err = max(kf_err, compare("K-F long shapes", got, want,
                                      False)[0])
         del got, want
-        if n_sectors == 1:
-            route_times(y)
+        if y is not x:
+            route_times(y, tag="one sector, its longest periods")
         del y
         torch.cuda.empty_cache()
-    # past K-F's 16-curve tile on one sector's cadences, then on two
-    route_times(long_inputs(torch.float32, 1, np.linspace(16.4, 16.9, 256)))
-    route_times(x)
+    route_times(long_inputs(torch.float32, 1, np.linspace(16.4, 16.9, 256)),
+                tag="one sector at 16.4-16.9 d")
+    route_times(x, tag="two sectors, their longest periods")
+    del x
+    torch.cuda.empty_cache()
+    x = long_inputs(torch.float32, 2, np.linspace(*NARROW_GRID),
+                    weighted=True)
+    route_times(x, tag="one-warp block", reps=1)
+    route_times(x, weighted=True, tag="one-warp block", reps=1)
     del x
     torch.cuda.empty_cache()
     return e, times, bound, kf_err
@@ -897,13 +1087,13 @@ def expected_routes(periods, chunk_periods, dtype):
 
 
 def phase_long_sector(tmp, name, n_sectors, grid, p_max, B=2048,
-                      chunk_periods=1024):
+                      chunk_periods=1024, staged_chunk=None):
     """Phase 6: a long-baseline uniform sweep, 4,096 periods in four
-    chunks: one 27-d sector searched over 1-9 d (K-F takes every chunk,
-    the last at its 16-curve tile), and two consecutive sectors searched
-    over 1-18 d (the last chunk's rows pass K-F's 16-curve tile, so it
-    takes the staged route).  Returns the sweep's numbers and the launches
-    the route rule predicts."""
+    chunks: one 27-d sector searched over 1-9 d, and two consecutive
+    sectors searched over 1-18 d; K-F takes every chunk of both.  Returns
+    the sweep's numbers, the launches the route rule predicts and, with
+    ``staged_chunk``, as ``route_check`` the stack and that chunk's
+    periods for :func:`compare_routes`."""
     import torch
     from lightkurve_tpu_torch.parallel.checkpoint import SweepRunner
     stack, p_inj = long_sector_stack(B, dtype=torch.float32,
@@ -925,19 +1115,22 @@ def phase_long_sector(tmp, name, n_sectors, grid, p_max, B=2048,
         f"{peak_memory()}")
     if share < RECOVERY_SHARE:
         raise AssertionError(f"{name} recovery {share} < {RECOVERY_SHARE}")
-    return dict(seconds=sweep_s, rate=rate, recovered=share,
-                routes=expected_routes(periods, chunk_periods,
-                                       torch.float32))
+    out = dict(seconds=sweep_s, rate=rate, recovered=share,
+               routes=expected_routes(periods, chunk_periods, torch.float32))
+    if staged_chunk is not None:
+        lo = staged_chunk * chunk_periods
+        out["route_check"] = (stack, periods[lo:lo + chunk_periods])
+    return out
 
 
 def check_routes(name, result, launches):
-    """Each chunk went where the route rule sends it."""
+    """Each chunk went where the route rule sends it (the staged route may
+    split a call further to fit device memory, so K-U launches at least
+    once per 8 periods)."""
     want = result["routes"]
-    if any(launches[k] != v for k, v in want.items()):
+    if launches["K-F"] != want["K-F"] or launches["K-U"] < want["K-U"]:
         raise AssertionError(f"{name}: launches {launches}, the route rule "
                              f"gives {want}")
-
-
 
 
 def mixed_grid_stack(B=2048, n_grids=4, seed=2028):
@@ -1063,9 +1256,9 @@ def phase_percurve(tmp, B=2048, n_periods=1024, chunk_periods=512):
 def phase_profile(tmp, B=2048):
     """One SweepRunner chunk per shared-grid cell, traced after a warm-up
     run of the same chunk: the upper 12,500 periods of the uniform cell's
-    grid and the upper 2048 of the weighted cell's (B x 8192), the staged
-    chunk of the two-sector sweep (its last 1,024 periods, B x 38,880)
-    and the upper 2048 periods of the mixed-grid sweep.  Prints device
+    grid and the upper 2048 of the weighted cell's (B x 8192), chunk 4 of
+    the two-sector sweep (its last 1,024 periods, B x 38,880, on the auto
+    route) and the upper 2048 periods of the mixed-grid sweep.  Prints device
     time per kernel and the device's idle share of the chunk's wall time
     (the profiler adds host cost to every launch, so this share is an
     upper bound of the untraced one)."""
@@ -1085,7 +1278,7 @@ def phase_profile(tmp, B=2048):
     weighted, _ = spoc_like_stack(B)
     cells = (("uniform", uniform, np.linspace(1.0, top, 25_000)[12_500:]),
              ("weighted", weighted, np.linspace(1.0, top, 4096)[2048:]),
-             ("two sectors, staged chunk",
+             ("two sectors, chunk 4",
               long_sector_stack(B, n_sectors=2, p_max=17.0)[0],
               np.linspace(*TWO_SECTOR_GRID)[3072:]),
              ("mixed grids", mixed_grid_stack(B)[0],
@@ -1134,17 +1327,20 @@ def phase_profile(tmp, B=2048):
 def kernel_table():
     """Each kernel's wrapper (which counts launches) and plain version
     (which counts calls)."""
-    from lightkurve_tpu_torch.ops import bls_fused, bls_window
+    from lightkurve_tpu_torch.ops import (bls_fused, bls_fused_weighted,
+                                          bls_window)
     return {"K-F": (bls_fused.fused_scan_uniform,
                     bls_fused.fused_scan_uniform_plain),
+            "K-WF": (bls_fused_weighted.fused_scan_weighted,
+                     bls_fused_weighted.fused_scan_weighted_plain),
             "K-W": (bls_window.window_scan, bls_window.window_scan_plain),
             "K-U": (bls_window.window_scan_uniform,
                     bls_window.window_scan_uniform_plain)}
 
 
 def drive(name, fn, *args, expect=(), forbid=()):
-    """Run one main path with every launch and plain-call count set to 0
-    just before it; read the counts just after.  Fails if a kernel in
+    """Run one path with every launch and plain-call count set to 0 just
+    before it; read the counts just after.  Fails if a kernel in
     ``expect`` never launched, one in ``forbid`` did, or any plain version
     ran.  Returns (the path's result, its launches per kernel)."""
     table = kernel_table()
@@ -1171,6 +1367,9 @@ def drive(name, fn, *args, expect=(), forbid=()):
 KERNELS = (
     ("K-F", "K-F fused uniform BLS scan", "lightkurve_tpu_torch/csrc/"
      "bls_fused.cu", "lightkurve_tpu/ops/bls_fused_pallas.py:190"),
+    ("K-WF", "K-WF fused weighted BLS scan", "lightkurve_tpu_torch/csrc/"
+     "bls_weighted_fused.cu", "lightkurve_tpu/ops/bls.py:358-373 (XLA fold) "
+     "+ lightkurve_tpu/ops/bls_window_pallas.py:316"),
     ("K-W", "K-W weighted BLS window scan", "lightkurve_tpu_torch/csrc/"
      "bls_window.cu", "lightkurve_tpu/ops/bls_window_pallas.py:316"),
     ("K-U", "K-U uniform BLS window scan", "lightkurve_tpu_torch/csrc/"
@@ -1203,30 +1402,37 @@ def main():
         return 0
     phase_kernels()
     runs = {}
+    others = lambda *keep: tuple(k for k in kernel_table()  # noqa: E731
+                                 if k not in keep)
     with tempfile.TemporaryDirectory() as tmp:
-        uni, runs["uniform"] = drive("uniform main path (phase 3)",
-                                     phase_uniform, tmp, expect=("K-F",),
-                                     forbid=("K-U",))
-        wei, runs["weighted"] = drive("weighted main path (phase 4)",
-                                      phase_weighted, tmp, expect=("K-W",))
-        lng, runs["long"] = drive("long-sector sweep (phase 6)",
-                                  phase_long_sector, tmp, "long sector", 1,
-                                  LONG_GRID, 8.5, expect=("K-F",))
-        check_routes("long sector", lng, runs["long"])
-        two, runs["two"] = drive("two-sector sweep (phase 6)",
-                                 phase_long_sector, tmp, "two sectors", 2,
-                                 TWO_SECTOR_GRID, 17.0,
-                                 expect=("K-F", "K-U"))
-        check_routes("two sectors", two, runs["two"])
+        path = "uniform main path (phase 3)"
+        uni, runs[path] = drive(path, phase_uniform, tmp, expect=("K-F",),
+                                forbid=others("K-F"))
+        path = "weighted main path (phase 4)"
+        wei, runs[path] = drive(path, phase_weighted, tmp,
+                                expect=("K-WF",), forbid=others("K-WF"))
+        runs.update(compare_routes("weighted, chunk 1",
+                                   *wei.pop("route_check")))
+        path = "long-sector sweep (phase 6)"
+        lng, runs[path] = drive(path, phase_long_sector, tmp, "long sector",
+                                1, LONG_GRID, 8.5, expect=("K-F",),
+                                forbid=others("K-F"))
+        check_routes("long sector", lng, runs[path])
+        path = "two-sector sweep (phase 6)"
+        two, runs[path] = drive(path, lambda: phase_long_sector(
+            tmp, "two sectors", 2, TWO_SECTOR_GRID, 17.0, staged_chunk=3),
+            expect=("K-F",), forbid=others("K-F"))
+        check_routes("two sectors", two, runs[path])
+        runs.update(compare_routes("two sectors, chunk 4",
+                                   *two.pop("route_check")))
         stack, p_inj, per = mixed_grid_stack()
-        mix, runs["mixed"] = drive("mixed-grid sweep (phase 7)",
-                                   phase_mixed_grid, tmp, stack, p_inj,
-                                   expect=("K-W",))
+        path = "mixed-grid sweep (phase 7)"
+        mix, runs[path] = drive(path, phase_mixed_grid, tmp, stack, p_inj,
+                                expect=("K-WF",), forbid=others("K-WF"))
         check_mixed_against_single(tmp, stack, mix, per)
         del stack
-        pcv, runs["per-curve"] = drive("per-curve sweeps (phase 8)",
-                                       phase_percurve, tmp,
-                                       forbid=("K-F", "K-W", "K-U"))
+        path = "per-curve sweeps (phase 8)"
+        pcv, runs[path] = drive(path, phase_percurve, tmp, forbid=others())
     torch.cuda.empty_cache()
     errs, times, bounds = phase_main_shapes()
     errs["K-U"], times["K-U"], bounds["K-U"], kf_err = phase_long_shapes()
@@ -1242,6 +1448,7 @@ def main():
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces,
          "launches": sum(r[key] for r in runs.values()),
+         "launches_by_path": {p: r[key] for p, r in runs.items() if r[key]},
          "max_abs_err": errs[key], "ms": times[key][0],
          "plain_ms": times[key][1], "bound_ms": bounds[key][0],
          "bound_by": bounds[key][1], "library_ms": None}

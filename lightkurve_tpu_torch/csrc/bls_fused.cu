@@ -7,65 +7,51 @@
 // For each (trial period, curve) it computes fold bins
 // ids = clip(trunc(fmod(t, P) * inv_d_phase), 0, nbins - 1), the inclusive bin
 // prefix sums of the mean-shifted flux with the circular wrap extension
-// (each sample deposited at ids and, in wrap mode, again at ids + nbp), the
-// shared count prefix, then the duration-window scan of
-// bls_window_body.cuh.  Nothing but the five (P, B) winner statistics
-// touches device memory.
+// (in wrap mode every sample counts again nbp rows on), the shared count
+// prefix, then the duration-window scan of bls_window_body.cuh.  Nothing
+// but the five (P, B) winner statistics touches device memory.
 //
-// What bounds it on the H100: shared memory.  A block keeps one prefix
-// column of rows = nbp + k_max - 1 values per curve, so a 32-curve tile at
-// the bench grid (about 900 rows in f32) takes ~115 KB of the 227 KB a
-// block may use: one or two warps per SM, and the fold loop (one global
-// load and one shared read-modify-write per sample and curve, in sample
-// order) is latency-bound rather than bandwidth- or FLOP-bound.  Reading
-// the flux costs n x B x 4 bytes per period, served from L2 because the
-// period index is the fastest grid axis and concurrently resident blocks
-// share one curve tile.
+// Design (bls_fold_warp.cuh): one block per (period, W curves), one warp
+// per curve, the fold ids and their lane groups staged once per block for
+// all its warps; each warp deposits 32 consecutive samples at a time into
+// its own prefix column (each group of equal ids summed in a fixed order,
+// then added by one lane: no float atomics), scans it, fills the wrap rows
+// and splits the window scan's start bins over its lanes.  The count
+// column is shared by the block's curves: integer shared atomics on the
+// staged ids, then one warp's scan.  A period whose rows (nbins_p + k_max
+// - 1) exceed rows_cap -- the caller's host bound on nbins_p -- gets NaN
+// statistics, never a silent clamp.
 //
-// Design: grid (periods, curve tiles); the block computes the period's
-// fold ids for a tile of samples into shared memory once, then each thread
-// owns one curve and deposits its samples into its own shared column in
-// sample order: deterministic, no float atomics.  Counts use integer
-// shared atomics (exact, so order-free).  Each thread then takes its
-// column's prefix sum and runs the window scan sequentially.  The tile
-// width halves (32, 16, ...) until the block fits in shared memory, and
-// the kernel masks the ragged edge of B and n itself.  The block's rows
-// are sized from the caller's host bound on nbins_p (rows_cap); a period
-// whose nbins_p exceeds it gets NaN statistics, never a silent clamp.
-//
-// Later work: the step-matrix product cs = A.Y on the tensor cores (wgmma,
-// TMA loads, Y resident in shared memory across a persistent period loop),
-// which turns the fold from a latency-bound scatter into a dense product.
+// What bounds it on the H100: the bound chip_smoke.py computes is the
+// count-based window arithmetic (~7 operations per window and curve) and
+// one add per deposit; the kernel is far from it.  Most of its time is the
+// fold: every period re-reads its curves' flux (n x B values, from L2: the
+// period index is the fastest grid axis, so concurrently resident blocks
+// share one curve tile) and does a shared read-modify-write per group of
+// equal ids; the rest is the window scan, whose count terms every warp
+// of a block recomputes.  Each curve's prefix column lives in shared
+// memory, so the block narrows as the rows grow (PERF.md).
 #include <cuda_runtime.h>
 
-#include "bls_window_body.cuh"
+#include "bls_fold_warp.cuh"
 
 namespace {
 
-constexpr int kMaxTile = 32;
-constexpr int kIdTile = 512;    // samples whose fold ids are staged at once
-
 template <typename T>
-size_t smem_bytes(int rows_cap, int tb) {
-  return (size_t)rows_cap * tb * sizeof(T) + (size_t)rows_cap * sizeof(int) +
-         (size_t)kIdTile * sizeof(int);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kMaxTile)
-fused_uniform_kernel(const T* __restrict__ ts, const T* __restrict__ Y,
+__global__ void __launch_bounds__(kLkMaxWarps * 32)
+fused_uniform_kernel(const T* __restrict__ ts, const T* __restrict__ Yt,
                      const T* __restrict__ tot_y, const T* __restrict__ pc,
                      const int* __restrict__ nbins_p, int n, int B, int nbins,
                      int k_max, int rows_cap, LkDurations durs, T d_phase,
                      T inv_d_phase, T n_total, int likelihood, int wrap,
-                     T* power, T* depth,
-                     T* n_in, T* t0, T* dur) {
+                     T* power, T* depth, T* n_in, T* t0, T* dur) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int tb = blockDim.x;
-  const int tid = threadIdx.x;
+  const int warps = blockDim.x / 32;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
   const int p = blockIdx.x;
-  const int b = blockIdx.y * tb + tid;
+  const int b = blockIdx.y * warps + warp;
   const bool active = b < B;
+  const size_t o = (size_t)p * B + b;
   const int nbp = nbins_p[p];
   const T period = pc[p];
   const int rows = nbp + k_max - 1;
@@ -73,91 +59,77 @@ fused_uniform_kernel(const T* __restrict__ ts, const T* __restrict__ Y,
     // the caller's bound on nbins_p was too low: windows would reach past
     // the shared rows, so give NaN rather than a truncated search (the
     // test is the same for the whole block, before any barrier)
-    if (active) {
-      const size_t o = (size_t)p * B + b;
+    if (active && lane == 0)
       power[o] = depth[o] = n_in[o] = t0[o] = dur[o] = (T)NAN;
-    }
     return;
   }
 
-  T* hist = reinterpret_cast<T*>(smem_raw);             // [rows_cap][tb]
-  int* cnt = reinterpret_cast<int*>(hist + (size_t)rows_cap * tb);
-  int* sid = cnt + rows_cap;                             // [kIdTile]
-  __shared__ int seg_total[kMaxTile];
+  T* col = reinterpret_cast<T*>(smem_raw) + (size_t)warp * rows_cap;
+  int* cnt = reinterpret_cast<int*>(reinterpret_cast<T*>(smem_raw) +
+                                    (size_t)warps * rows_cap);
+  int* sid = cnt + rows_cap;                                // [kLkIdTile]
+  unsigned* speer = reinterpret_cast<unsigned*>(sid + kLkIdTile);
+  int* srun = reinterpret_cast<int*>(speer + kLkIdTile);    // [kLkIdTile / 32]
 
-  for (int r = 0; r < rows; ++r) hist[(size_t)r * tb + tid] = (T)0;
-  for (int r = tid; r < rows; r += tb) cnt[r] = 0;
+  for (int r = lane; r < rows; r += 32) col[r] = (T)0;
+  for (int r = threadIdx.x; r < rows; r += blockDim.x) cnt[r] = 0;
   __syncthreads();
 
-  for (int i0 = 0; i0 < n; i0 += kIdTile) {
-    const int m = min(kIdTile, n - i0);
-    for (int i = tid; i < m; i += tb) {
-      const T phase = fmod(ts[i0 + i], period);
-      // 1/d_phase is rounded in T on the host: the reference computes the
-      // bin position as this product, not as a division
-      int id = (int)lk_mul(phase, inv_d_phase);   // truncating cast
-      id = min(max(id, 0), nbins - 1);
-      sid[i] = id;
-      if (id < rows) atomicAdd(&cnt[id], 1);
-      if (wrap && id + nbp < rows) atomicAdd(&cnt[id + nbp], 1);
-    }
+  const T* y = Yt + (size_t)(active ? b : 0) * n;
+  for (int i0 = 0; i0 < n; i0 += kLkIdTile) {
+    const int m = min(kLkIdTile, n - i0);
+    lk_stage_fold_ids<T>(ts + i0, m, period, inv_d_phase, nbins, rows, sid,
+                         speer, srun, cnt);
     __syncthreads();
-    if (active) {
-      const T* y = Y + (size_t)i0 * B + b;
-#pragma unroll 8
-      for (int i = 0; i < m; ++i) {
-        const int id = sid[i];
-        const T v = y[(size_t)i * B];
-        if (id < rows) hist[(size_t)id * tb + tid] += v;
-        if (wrap && id + nbp < rows) hist[(size_t)(id + nbp) * tb + tid] += v;
-      }
-    }
+    if (active)
+      lk_deposit_tile<T, 1>(y + i0, nullptr, m, sid, speer, srun, col,
+                            nullptr);
     __syncthreads();
   }
 
-  // count prefix: each thread scans one segment, thread 0 scans the totals
-  const int seg = (rows + tb - 1) / tb;
-  const int lo = min(tid * seg, rows), hi = min(lo + seg, rows);
-  int acc = 0;
-  for (int r = lo; r < hi; ++r) { acc += cnt[r]; cnt[r] = acc; }
-  seg_total[tid] = acc;
-  __syncthreads();
-  if (tid == 0) {
-    int run = 0;
-    for (int s = 0; s < tb; ++s) { const int v = seg_total[s]; seg_total[s] = run; run += v; }
+  if (warp == 0) {
+    lk_warp_prefix<int>(cnt, rows);
+    if (wrap) lk_wrap_rows<int>(cnt, nbp, rows);
+  }
+  if (active) {
+    lk_warp_prefix<T>(col, rows);
+    if (wrap) lk_wrap_rows<T>(col, nbp, rows);
   }
   __syncthreads();
-  for (int r = lo; r < hi; ++r) cnt[r] += seg_total[tid];
-  __syncthreads();
-
   if (!active) return;
-  T run = (T)0;
-  for (int r = 0; r < rows; ++r) {
-    run += hist[(size_t)r * tb + tid];
-    hist[(size_t)r * tb + tid] = run;
+
+  const T ty = tot_y[b];
+  const bool like = likelihood != 0;
+  T best_v = lk_neg_inf<T>();
+  int best_arg = 0, best_j = 0;
+  for (int j = 0; j < durs.n; ++j) {
+    const int k = durs.k[j];
+    T v = lk_neg_inf<T>();
+    int arg = 0;
+    if (k <= nbp) {
+      int lo, hi;
+      lk_lane_range(nbp, &lo, &hi);
+      lk_uniform_window_best<T, int>(col, 1, cnt, k, lo, hi, ty, n_total,
+                                     like, &v, &arg);
+    }
+    lk_warp_first_max<T>(&v, &arg);
+    if (j == 0 || v > best_v) { best_v = v; best_arg = arg; best_j = j; }
   }
-  const size_t o = (size_t)p * B + b;
-  lk_uniform_window_scan<T, int>(hist + tid, tb, cnt, nbp, rows, period,
-                                 tot_y[b], n_total, durs, d_phase,
-                                 likelihood != 0, power + o, depth + o,
-                                 n_in + o, t0 + o, dur + o);
-}
-
-int max_shared_optin(int dev) {
-  int v = 0;
-  if (cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
-    return 0;
-  return v;
-}
-
-int current_shared_optin() {
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-  return max_shared_optin(dev);
+  if (lane == 0)
+    lk_uniform_window_finish<T, int>(col, 1, cnt, best_v, best_arg, best_j,
+                                     period, ty, n_total, durs, d_phase,
+                                     power + o, depth + o, n_in + o, t0 + o,
+                                     dur + o);
 }
 
 template <typename T>
-int launch(const T* ts, const T* Y, const T* tot_y, const T* pc,
+cudaError_t block_of(int rows_cap, int* warps, int* blocks) {
+  return lk_fold_block(fused_uniform_kernel<T>, rows_cap, sizeof(T),
+                       sizeof(int), warps, blocks);
+}
+
+template <typename T>
+int launch(const T* ts, const T* Yt, const T* tot_y, const T* pc,
            const int* nbins_p, int n, int B, int P, int nbins, int k_max,
            int rows_cap, const int* k_durs, const double* dur_values,
            int n_durs, double d_phase, double inv_d_phase, int likelihood,
@@ -172,18 +144,14 @@ int launch(const T* ts, const T* Y, const T* tot_y, const T* pc,
     durs.k[j] = k_durs[j];
     durs.value[j] = dur_values[j];
   }
-  const size_t limit = (size_t)current_shared_optin();
-  int tb = kMaxTile;
-  while (tb > 1 && smem_bytes<T>(rows_cap, tb) > limit) tb /= 2;
-  const size_t smem = smem_bytes<T>(rows_cap, tb);
-  if (smem > limit) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_uniform_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  int warps = 0, blocks = 0;
+  cudaError_t err = block_of<T>(rows_cap, &warps, &blocks);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(P, (B + tb - 1) / tb);
-  fused_uniform_kernel<T><<<grid, tb, smem, (cudaStream_t)stream>>>(
-      ts, Y, tot_y, pc, nbins_p, n, B, nbins, k_max, rows_cap, durs,
+  const size_t smem = lk_fold_smem_bytes(rows_cap, warps, sizeof(T),
+                                         sizeof(int));
+  dim3 grid(P, (B + warps - 1) / warps);
+  fused_uniform_kernel<T><<<grid, 32 * warps, smem, (cudaStream_t)stream>>>(
+      ts, Yt, tot_y, pc, nbins_p, n, B, nbins, k_max, rows_cap, durs,
       (T)d_phase, (T)inv_d_phase, (T)n, likelihood, wrap, power, depth, n_in,
       t0, dur);
   return (int)cudaGetLastError();
@@ -194,11 +162,21 @@ int launch(const T* ts, const T* Y, const T* tot_y, const T* pc,
 extern "C" {
 
 // Shared memory a block may opt in to on device ``dev`` (bytes; 0 on
-// error): the limit the launch below sizes its tile against, for the
-// host's choice between this kernel and the staged route.
-int lk_max_shared_optin(int dev) { return max_shared_optin(dev); }
+// error): the limit the fused kernels size their blocks against, for the
+// host's choice between them and the staged routes.
+int lk_max_shared_optin(int dev) { return lk_shared_optin(dev); }
 
-int lk_bls_fused_uniform_f32(const float* ts, const float* Y,
+// The block K-F launches with at ``rows_cap`` rows (``f64``: the double
+// kernel): its width in warps and its resident blocks per SM by the
+// occupancy calculator.
+int lk_bls_fused_uniform_block(int f64, int rows_cap, int* warps,
+                               int* blocks) {
+  return (int)(f64 ? block_of<double>(rows_cap, warps, blocks)
+                   : block_of<float>(rows_cap, warps, blocks));
+}
+
+// ``Yt`` is the mean-shifted flux as (B, n), one curve per row.
+int lk_bls_fused_uniform_f32(const float* ts, const float* Yt,
                              const float* tot_y, const float* pc,
                              const int* nbins_p, int n, int B, int P,
                              int nbins, int k_max, int rows_cap,
@@ -208,13 +186,13 @@ int lk_bls_fused_uniform_f32(const float* ts, const float* Y,
                              int wrap, float* power, float* depth,
                              float* n_in, float* t0, float* dur,
                              void* stream) {
-  return launch<float>(ts, Y, tot_y, pc, nbins_p, n, B, P, nbins, k_max,
+  return launch<float>(ts, Yt, tot_y, pc, nbins_p, n, B, P, nbins, k_max,
                        rows_cap, k_durs, dur_values, n_durs, d_phase,
-                       inv_d_phase, likelihood, wrap, power, depth, n_in, t0,
-                       dur, stream);
+                       inv_d_phase, likelihood, wrap, power, depth,
+                       n_in, t0, dur, stream);
 }
 
-int lk_bls_fused_uniform_f64(const double* ts, const double* Y,
+int lk_bls_fused_uniform_f64(const double* ts, const double* Yt,
                              const double* tot_y, const double* pc,
                              const int* nbins_p, int n, int B, int P,
                              int nbins, int k_max, int rows_cap,
@@ -224,10 +202,10 @@ int lk_bls_fused_uniform_f64(const double* ts, const double* Y,
                              int wrap, double* power, double* depth,
                              double* n_in, double* t0, double* dur,
                              void* stream) {
-  return launch<double>(ts, Y, tot_y, pc, nbins_p, n, B, P, nbins, k_max,
+  return launch<double>(ts, Yt, tot_y, pc, nbins_p, n, B, P, nbins, k_max,
                         rows_cap, k_durs, dur_values, n_durs, d_phase,
-                        inv_d_phase, likelihood, wrap, power, depth, n_in,
-                        t0, dur, stream);
+                        inv_d_phase, likelihood, wrap, power, depth,
+                        n_in, t0, dur, stream);
 }
 
 }  // extern "C"

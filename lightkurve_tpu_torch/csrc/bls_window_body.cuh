@@ -4,8 +4,8 @@
 // pair on one thread: every start bin r < nbp and every duration k <= nbp
 // in the static duration list, over inclusive bin prefix sums whose
 // circular wrap extension rows [nbp, nbp + k_max - 1) are already filled
-// in.  The uniform scan is also split into its per-duration range search
-// and its winner reconstruction, so several threads can share one pair.
+// in.  Both scans are also split into their per-duration range search and
+// their winner reconstruction, so several threads can share one pair.
 //
 // Semantics are those of the staged scans in lightkurve_tpu/ops/bls.py
 // (_bls_shared_scan_uniform for counts, _bls_shared_scan for weights):
@@ -140,49 +140,81 @@ __device__ void lk_uniform_window_scan(
 // curve, row r at [r * stride]; tw / twy: the curve's totals.  Outputs
 // power, depth and the RAW w_in at each duration's first argmax (depth
 // uses the substituted weights 1 where the window is invalid), as the
-// staged scan picks them.
+// staged scan picks them.  Split, as the uniform body is, into the range
+// search of one duration and the per-duration keep, so several threads
+// can share one (period, curve).
+//
+// lk_weighted_window_best: the windows of ONE duration k starting at bins
+// [r_lo, r_hi); *v / *arg hold the first maximum (strict >), or -inf / 0.
+template <typename T>
+__device__ __forceinline__ void lk_weighted_window_best(
+    const T* cw, const T* cwy, int stride, int k, int r_lo, int r_hi, T tw,
+    T twy, bool likelihood, T* v_out, int* arg_out) {
+  T v = lk_neg_inf<T>();
+  int arg = 0;
+  for (int r = r_lo; r < r_hi; ++r) {
+    const size_t hi = (size_t)(r + k - 1) * stride;
+    const T w_in = cw[hi] - (r > 0 ? cw[(size_t)(r - 1) * stride] : (T)0);
+    const T w_out = tw - w_in;
+    if (!(w_in > (T)0 && w_out > (T)0)) continue;
+    const T wy_in = cwy[hi] - (r > 0 ? cwy[(size_t)(r - 1) * stride] : (T)0);
+    const T wy_out = twy - wy_in;
+    const T depth = wy_out / w_out - wy_in / w_in;
+    const T obj = likelihood ? ((T)0.5 * w_in) * depth * depth
+                             : depth * lk_rsqrt((T)1 / w_in + (T)1 / w_out);
+    if (obj > v) { v = obj; arg = r; }
+  }
+  *v_out = v;
+  *arg_out = arg;
+}
+
+// The running best over durations: duration j (k bins, first maximum v at
+// start bin arg) replaces the best when it is the first or strictly
+// greater; its statistics are reconstructed from the prefix sums.
+template <typename T>
+struct LkWeightedBest {
+  T v, depth, w_in, t0, dur;
+};
+
+template <typename T>
+__device__ __forceinline__ void lk_weighted_window_keep(
+    const T* cw, const T* cwy, int stride, int nbp, int k, bool first, T v,
+    int arg, T tw, T twy, T period, T d_phase, T dur_value,
+    LkWeightedBest<T>* best) {
+  if (!(first || v > best->v)) return;
+  const size_t hi = (size_t)(arg + k - 1) * stride;
+  const T w_in = cw[hi] - (arg > 0 ? cw[(size_t)(arg - 1) * stride] : (T)0);
+  const T wy_in = cwy[hi] - (arg > 0 ? cwy[(size_t)(arg - 1) * stride] : (T)0);
+  const T w_out = tw - w_in;
+  const T wy_out = twy - wy_in;
+  const bool ok = arg < nbp && k <= nbp && w_in > (T)0 && w_out > (T)0;
+  best->v = v;
+  best->depth = wy_out / (ok ? w_out : (T)1) - wy_in / (ok ? w_in : (T)1);
+  best->w_in = w_in;
+  best->t0 = lk_transit_time<T>(arg, k, d_phase, period);
+  best->dur = dur_value;
+}
+
+// The whole weighted scan of one (period, curve) on one thread.
 template <typename T>
 __device__ void lk_weighted_window_scan(
     const T* cw, const T* cwy, int stride, int nbp, T period, T tw, T twy,
     const LkDurations& durs, T d_phase, bool likelihood,
     T* out_power, T* out_depth, T* out_w_in, T* out_t0, T* out_dur) {
-  T best_v = lk_neg_inf<T>(), best_depth = 0, best_w_in = 0, best_t0 = 0;
-  T best_dur = 0;
+  LkWeightedBest<T> best = {lk_neg_inf<T>(), 0, 0, 0, 0};
   for (int j = 0; j < durs.n; ++j) {
     const int k = durs.k[j];
     T v = lk_neg_inf<T>();
     int arg = 0;
-    if (k <= nbp) {
-      for (int r = 0; r < nbp; ++r) {
-        const size_t hi = (size_t)(r + k - 1) * stride;
-        const T w_in = cw[hi] - (r > 0 ? cw[(size_t)(r - 1) * stride] : (T)0);
-        const T w_out = tw - w_in;
-        if (!(w_in > (T)0 && w_out > (T)0)) continue;
-        const T wy_in = cwy[hi] - (r > 0 ? cwy[(size_t)(r - 1) * stride] : (T)0);
-        const T wy_out = twy - wy_in;
-        const T depth = wy_out / w_out - wy_in / w_in;
-        const T obj = likelihood ? ((T)0.5 * w_in) * depth * depth
-                                 : depth * lk_rsqrt((T)1 / w_in + (T)1 / w_out);
-        if (obj > v) { v = obj; arg = r; }
-      }
-    }
-    if (j == 0 || v > best_v) {
-      const size_t hi = (size_t)(arg + k - 1) * stride;
-      const T w_in = cw[hi] - (arg > 0 ? cw[(size_t)(arg - 1) * stride] : (T)0);
-      const T wy_in = cwy[hi] - (arg > 0 ? cwy[(size_t)(arg - 1) * stride] : (T)0);
-      const T w_out = tw - w_in;
-      const T wy_out = twy - wy_in;
-      const bool ok = arg < nbp && k <= nbp && w_in > (T)0 && w_out > (T)0;
-      best_v = v;
-      best_depth = wy_out / (ok ? w_out : (T)1) - wy_in / (ok ? w_in : (T)1);
-      best_w_in = w_in;
-      best_t0 = lk_transit_time<T>(arg, k, d_phase, period);
-      best_dur = (T)durs.value[j];
-    }
+    if (k <= nbp)
+      lk_weighted_window_best<T>(cw, cwy, stride, k, 0, nbp, tw, twy,
+                                 likelihood, &v, &arg);
+    lk_weighted_window_keep<T>(cw, cwy, stride, nbp, k, j == 0, v, arg, tw,
+                               twy, period, d_phase, (T)durs.value[j], &best);
   }
-  *out_power = best_v;
-  *out_depth = best_depth;
-  *out_w_in = best_w_in;
-  *out_t0 = best_t0;
-  *out_dur = best_dur;
+  *out_power = best.v;
+  *out_depth = best.depth;
+  *out_w_in = best.w_in;
+  *out_t0 = best.t0;
+  *out_dur = best.dur;
 }

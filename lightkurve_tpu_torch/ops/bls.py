@@ -4,25 +4,31 @@ Counterpart of ``lightkurve_tpu/ops/bls.py``.
 
 **Shared time grid** (:func:`bls_power_shared_batch`).  Every curve of the
 batch shares one time grid, so the fold of samples into phase bins is the
-same for every curve at each trial period.  Two regimes:
+same for every curve at each trial period.  Two regimes, each with two
+routes chosen on the host from shapes before any launch (``fold_impl``,
+:func:`fold_route`): a fused kernel (fold, prefix sums and window scan in
+one launch per call, one warp per (period, curve), while a block of one
+warp fits the card's shared memory), or the staged route (a torch one-hot
+fold, a cumsum and a window kernel), whose limit is device memory
+instead.  Either takes the flux as (n, B) views of the (B, n) batch, the
+layout the fused kernels read, so neither route copies it to change
+layout.
 
 * **uniform** -- every curve's weights are constant in time (``dy=None``
   or one ``dy`` per curve).  Box statistics then depend only on counts,
   and each curve's weight re-enters as a scalar rescale
-  (:func:`_uniform_stats_rescale`).  Two routes, chosen on the host from
-  shapes before any launch (``fold_impl``): kernel K-F
-  (:mod:`.bls_fused`: fold, prefix sums and window scan in one kernel,
-  while a tile of 16 or more curves fits the card's shared memory), or the
-  staged route: the one-hot fold of :func:`.bls_fused.uniform_fold` in
-  torch and the window kernel K-U (:func:`.bls_window.window_scan_uniform`),
-  whose limit is device memory instead: the fold holds about
+  (:func:`_uniform_stats_rescale`).  Fused: kernel K-F (:mod:`.bls_fused`).
+  Staged: :func:`.bls_fused.uniform_fold` and the window kernel K-U
+  (:func:`.bls_window.window_scan_uniform`); the fold holds about
   ``npad * n * (2 + itemsize)`` bytes per period, and the route takes as
   many periods per call as half the free memory holds, at least one
   (:func:`staged_slice`).
 * **weighted** -- per-sample ``dy`` and masked samples (``dy = inf``), as
-  real mission data has.  The fold is a one-hot matrix product over
-  ``[w | w*y]`` followed by a cumulative sum, both plain torch in full
-  float32 (TF32 off); the window scan is kernel K-W (:mod:`.bls_window`).
+  real mission data has.  Fused: kernel K-WF (:mod:`.bls_fused_weighted`).
+  Staged: the one-hot product over ``[w | w*y]`` and its cumulative sum
+  (:func:`.bls_fused_weighted.weighted_fold`, full float32, TF32 off) and
+  the window kernel K-W (:mod:`.bls_window`), as many periods per call as
+  half the free memory holds (:func:`staged_slice`).
 
 **Per curve** (:func:`bls_power`, exact; :func:`bls_power_binned`, fast):
 each curve folds on its own time grid, in plain torch with the curves as
@@ -37,9 +43,9 @@ import numpy as np
 import torch
 
 from ..config import numpy_dtype
-from .bls_fused import (fold_ids, fold_rows, full_f32_matmul,
-                        fused_scan_uniform, fused_tile_fits, max_nbins_bound,
-                        nbins_per_period, shared_memory_optin, uniform_fold)
+from .bls_fused import (fold_rows, fused_fits, fused_scan_uniform,
+                        max_nbins_bound, uniform_fold)
+from .bls_fused_weighted import fused_scan_weighted, weighted_fold
 from .bls_window import window_scan, window_scan_uniform
 
 __all__ = ["bls_power_shared_batch", "bls_power", "bls_power_direct",
@@ -47,58 +53,49 @@ __all__ = ["bls_power_shared_batch", "bls_power", "bls_power_direct",
 
 FOLD_IMPLS = ("auto", "fused", "staged")
 
-#: the narrowest K-F tile (curves per block) that "auto" still takes.
-#: ``chip_smoke.py`` phase 5 times K-F at 16 and at 8 curves against the
-#: staged route on the same inputs; PERF.md section 6 has the times.
-FUSED_MIN_TILE = 16
 
-
-def _weighted_fold(ts, WWY, pc, d_phase, nbins, max_nbins_p, k_max,
-                   wrap=True):
-    """Inclusive bin prefix sums (C, npad, 2B) of the circular
-    double-deposit fold of ``WWY`` (n, 2B) at periods ``pc`` (C,), and the
-    per-period bin counts (C,).  Every sample lands at its fold bin and,
-    in wrap mode, again ``nbins_p`` rows later, so windows that cross the
-    period edge read their wrapped head from the extension rows.  The rows
-    are sized from ``max_nbins_p`` (:func:`.bls_fused.max_nbins_bound`),
-    which can exceed ``nbins`` by one."""
-    npad = fold_rows(nbins, max_nbins_p, k_max)
-    rows = torch.arange(npad, device=WWY.device, dtype=torch.int32)
-    nbp = nbins_per_period(pc, d_phase)
-    ids = fold_ids(ts, pc, d_phase, nbins)                     # (C, n)
-    onehot = ids[:, None, :] == rows[None, :, None]            # (C, npad, n)
-    if wrap:
-        # the astropy edge mode leaves the extension rows empty, so edge
-        # windows truncate against zeros
-        onehot = onehot | ((ids + nbp[:, None])[:, None, :]
-                           == rows[None, :, None])
-    with full_f32_matmul(WWY.device):
-        hist = torch.matmul(onehot.to(WWY.dtype), WWY)         # (C, npad, 2B)
-    return torch.cumsum(hist, dim=1), nbp
+def _staged_scan_weighted(ts, W, WY, periods, k_durs, dur_values, d_phase,
+                          nbins, max_nbins_p, use_likelihood, chunk, wrap):
+    """The staged weighted route: the torch fold
+    (:func:`.bls_fused_weighted.weighted_fold`: one-hot product and cumsum)
+    then K-W, ``chunk`` periods at a time, fewer where the fold's memory
+    would pass the device's free memory (:func:`staged_slice`).  Returns a
+    dict of (P, B) tensors, as
+    :func:`.bls_fused_weighted.fused_scan_weighted` does."""
+    n, B = W.shape
+    WWY = torch.cat([W, WY], dim=1)                            # (n, 2B)
+    total = WWY.sum(0)                                         # (2B,)
+    npad = fold_rows(nbins, max_nbins_p, max(k_durs))
+    step = staged_slice(chunk, npad, n, 2 * B, W.element_size(),
+                        _free_device_bytes(W.device))
+    parts = []
+    for i in range(0, periods.shape[0], step):
+        pc = periods[i:i + step]
+        csum, nbp = weighted_fold(ts, WWY, pc, d_phase, nbins, max_nbins_p,
+                                  max(k_durs), wrap)
+        parts.append(window_scan(csum, nbp, pc, total, k_durs, dur_values,
+                                 d_phase, use_likelihood))
+        del csum
+    return {f: torch.cat([p[f] for p in parts]) for f in parts[0]}
 
 
 def _bls_shared_scan(ts, W, WY, periods, k_durs, dur_values, d_phase, nbins,
-                     max_nbins_p, use_likelihood, chunk, wrap=True):
+                     max_nbins_p, use_likelihood, chunk, wrap=True,
+                     fold_impl="auto"):
     """Weighted shared-grid scan.  W, WY (n, B); returns a dict of (B, P)
     tensors (power is the raw window objective; the caller recomputes it
     from log_likelihood or depth_snr)."""
-    B = W.shape[1]
-    WWY = torch.cat([W, WY], dim=1)                            # (n, 2B)
-    total = WWY.sum(0)                                         # (2B,)
-    parts = []
-    for i in range(0, periods.shape[0], chunk):
-        pc = periods[i:i + chunk]
-        csum, nbp = _weighted_fold(ts, WWY, pc, d_phase, nbins, max_nbins_p,
-                                   max(k_durs), wrap)
-        best = window_scan(csum, nbp, pc, total, k_durs, dur_values, d_phase,
-                           use_likelihood)
-        w_in_b = best.pop("w_in")
-        w_out_b = total[:B] - w_in_b
-        best["depth_err"] = torch.sqrt(1.0 / w_in_b + 1.0 / w_out_b)
-        best["depth_snr"] = best["depth"] / best["depth_err"]
-        best["log_likelihood"] = 0.5 * w_in_b * best["depth"] ** 2
-        parts.append(best)
-    return {f: torch.cat([p[f] for p in parts]).T for f in parts[0]}
+    route = fold_route(fold_impl, max_nbins_p, max(k_durs), W.dtype,
+                       W.device, weighted=True)
+    scan = fused_scan_weighted if route == "fused" else _staged_scan_weighted
+    best = scan(ts, W, WY, periods, k_durs, dur_values, d_phase, nbins,
+                max_nbins_p, use_likelihood, chunk=chunk, wrap=wrap)
+    w_in_b = best.pop("w_in")
+    w_out_b = W.sum(0) - w_in_b
+    best["depth_err"] = torch.sqrt(1.0 / w_in_b + 1.0 / w_out_b)
+    best["depth_snr"] = best["depth"] / best["depth_err"]
+    best["log_likelihood"] = 0.5 * w_in_b * best["depth"] ** 2
+    return {f: v.T for f, v in best.items()}
 
 
 def _uniform_stats_rescale(best, n_in_b, c_b, n_total, use_likelihood):
@@ -121,36 +118,40 @@ def _uniform_stats_rescale(best, n_in_b, c_b, n_total, use_likelihood):
     return best
 
 
-def fold_route(fold_impl, max_nbins_p, k_max, dtype, device):
-    """The uniform regime's route for one call: ``"fused"`` (K-F) or
-    ``"staged"`` (the torch fold and K-U).  ``"auto"`` takes K-F when a
-    block of :data:`FUSED_MIN_TILE` curves, with the rows this call's
-    periods need (``max_nbins_p + k_max - 1``), fits the shared memory a
-    block may opt in to on ``device`` (K-F itself runs the widest tile up
-    to 32 curves that fits), and the staged route otherwise.  Decided on
-    the host from shapes, before any launch; an explicit choice is
-    returned as given."""
+def fold_route(fold_impl, max_nbins_p, k_max, dtype, device,
+               weighted=False):
+    """The route of one call: ``"fused"`` (K-F, or K-WF when ``weighted``)
+    or ``"staged"`` (the torch fold and K-U, or K-W).  ``"auto"`` takes
+    the fused kernel when a block of one warp with the rows this call's
+    periods need (``max_nbins_p + k_max - 1``) fits the shared memory of
+    ``device`` (:func:`.bls_fused.fused_fits`; the kernel then picks its
+    own width), and the staged route otherwise: ``chip_smoke.py`` phase 5
+    times both routes at the route points, and the fused kernels were
+    faster at every one, a one-warp block included (PERF.md section 6).
+    Decided on the host from shapes, before any launch; an explicit
+    choice is returned as given."""
     if fold_impl not in FOLD_IMPLS:
         raise ValueError(f"fold_impl must be one of {FOLD_IMPLS} "
                          f"(got {fold_impl!r})")
     if fold_impl != "auto":
         return fold_impl
     rows_cap = int(max_nbins_p) + int(k_max) - 1
-    fits = fused_tile_fits(rows_cap, dtype, shared_memory_optin(device),
-                           FUSED_MIN_TILE)
-    return "fused" if fits else "staged"
+    return ("fused" if fused_fits(rows_cap, dtype, device, weighted)
+            else "staged")
 
 
 #: share of the device's free memory one call of the staged fold may take
 STAGED_MEMORY_SHARE = 0.5
 
 
-def staged_fold_bytes(npad, n, B, itemsize):
-    """Device bytes :func:`.bls_fused.uniform_fold` holds for one period:
-    its one-hot (npad, n) as bool and in the data dtype, the count
-    compare (npad, n) as bool, and the histogram and its prefix
-    (npad, B)."""
-    return npad * n * (2 + itemsize) + 2 * npad * B * itemsize
+def staged_fold_bytes(npad, n, cols, itemsize):
+    """Device bytes a staged fold holds for one period: its one-hot
+    (npad, n) as bool and in the data dtype, a second (npad, n) compare
+    as bool (the count prefix of :func:`.bls_fused.uniform_fold`, the wrap
+    deposit of :func:`.bls_fused_weighted.weighted_fold`), and the
+    histogram and its prefix (npad, cols): ``cols`` is B for the uniform
+    fold's flux, 2B for the weighted fold's ``[w | w*y]``."""
+    return npad * n * (2 + itemsize) + 2 * npad * cols * itemsize
 
 
 def _free_device_bytes(device):
@@ -164,7 +165,7 @@ def _free_device_bytes(device):
                    - torch.cuda.memory_allocated(device))
 
 
-def staged_slice(chunk, npad, n, B, itemsize, free_bytes):
+def staged_slice(chunk, npad, n, cols, itemsize, free_bytes):
     """Periods per call of the staged fold: at most ``chunk``, at least
     one, and no more than :data:`STAGED_MEMORY_SHARE` of ``free_bytes``
     holds (``None``: ``chunk``).  One period that does not fit still runs,
@@ -172,7 +173,7 @@ def staged_slice(chunk, npad, n, B, itemsize, free_bytes):
     if free_bytes is None:
         return chunk
     fit = int(STAGED_MEMORY_SHARE * free_bytes
-              // staged_fold_bytes(npad, n, B, itemsize))
+              // staged_fold_bytes(npad, n, cols, itemsize))
     return max(1, min(chunk, fit))
 
 
@@ -291,12 +292,11 @@ def bls_power_shared_batch(t, Y, dy, periods, durations, oversample=10,
         tiles) so short periods don't pay for the longest period's bins.
     edge_mode : 'wrap' (circular windows across the period edge) or
         'astropy' (edge windows truncate against empty padding bins).
-    fold_impl : the uniform regime's route (:func:`fold_route`):
-        ``"auto"`` (K-F while a 16-curve tile fits the card's shared
-        memory for the periods of the call, or of each ``bucket`` group;
-        the staged route otherwise), ``"fused"`` (K-F; raises where one
-        curve's rows do not fit) or ``"staged"`` (the torch fold and
-        K-U).
+    fold_impl : the route of either regime (:func:`fold_route`):
+        ``"auto"`` (the fused kernel while a block of one warp fits the
+        card's shared memory for the periods of the call, or of each
+        ``bucket`` group; the staged route otherwise), ``"fused"`` (K-F or K-WF; raises where one curve's rows
+        do not fit) or ``"staged"`` (the torch fold and K-U or K-W).
 
     Returns a dict of (B, P) tensors: power, depth, depth_err, depth_snr,
     log_likelihood, duration, transit_time, period.
@@ -360,20 +360,19 @@ def bls_power_shared_batch(t, Y, dy, periods, durations, oversample=10,
     dvals = tuple(float(d) for d in durations_np)
     k_max = max(k_durs)
 
+    # (n, B) views of (B, n) tensors: the layout the fused kernels read,
+    # and one the staged folds' products take as it is
     if uniform_weights:
-        Y0 = (Y - mu).T.contiguous()
-        scan, cols = _bls_shared_scan_uniform, (Y0, c_b)
-        route_kw = dict(fold_impl=fold_impl)
+        scan, cols = _bls_shared_scan_uniform, ((Y - mu).T, c_b)
     else:
-        scan, cols = _bls_shared_scan, (Wn.T.contiguous(),
-                                        (Wn * (Y - mu)).T.contiguous())
-        route_kw = {}
+        scan, cols = _bls_shared_scan, (Wn.T, (Wn * (Y - mu)).T)
 
     def run(p_sub, p_sub_host, nb):
         # the host copy bounds the bins per period without a device read
         max_nbp = max_nbins_bound(p_sub_host, d_phase, dtype)
         return scan(ts, *cols, p_sub, k_durs, dvals, float(d_phase), int(nb),
-                    max_nbp, use_likelihood, chunk, wrap=wrap, **route_kw)
+                    max_nbp, use_likelihood, chunk, wrap=wrap,
+                    fold_impl=fold_impl)
 
     if bucket:
         groups, order = _bucket_periods(p_host, d_phase, k_max)

@@ -33,12 +33,13 @@ from .bls_window import (_check_cuda, _undersized, durations_args,
 __all__ = ["fused_scan_uniform", "fused_scan_uniform_plain", "fold_ids",
            "nbins_per_period", "max_nbins_bound", "inv_d_phase",
            "uniform_fold", "fold_rows", "full_f32_matmul",
-           "fused_smem_bytes", "fused_tile_fits", "shared_memory_optin",
-           "FUSED_TILE"]
+           "fused_smem_bytes", "fused_fits", "fused_block",
+           "check_fused_rows", "shared_memory_optin", "FUSED_TILE"]
 
-#: curves per K-F block at full width (``kMaxTile`` in csrc/bls_fused.cu)
+#: curves (warps) per fused block at most (``kLkMaxWarps`` in
+#: csrc/bls_fold_warp.cuh)
 FUSED_TILE = 32
-_ID_TILE = 512          # fold ids K-F stages per block (``kIdTile``)
+_ID_TILE = 512          # samples a fused block stages ids for (``kLkIdTile``)
 
 _FIELDS = ("power", "depth", "n_in", "transit_time", "duration")
 
@@ -85,24 +86,61 @@ def fold_rows(nbins, max_nbins_p, k_max):
     return -(-(max(nbins, max_nbins_p) + k_max - 1) // 128) * 128
 
 
-def fused_smem_bytes(rows_cap, dtype, tile=FUSED_TILE):
-    """Shared memory of one K-F block (``smem_bytes`` in csrc/bls_fused.cu):
-    ``tile`` prefix columns of ``rows_cap`` rows, the count column and the
-    staged fold ids."""
+def fused_smem_bytes(rows_cap, dtype, tile=FUSED_TILE, weighted=False):
+    """Shared memory of one fused block of ``tile`` warps
+    (``lk_fold_smem_bytes`` in csrc/bls_fold_warp.cuh): each warp's prefix
+    columns of ``rows_cap`` rows (one for K-F, two for K-WF), K-F's count
+    column shared by the block, and the staged fold ids and lane masks (8
+    bytes per staged sample) with one flag per run of 32 samples."""
     itemsize = torch.empty((), dtype=dtype).element_size()
-    return rows_cap * tile * itemsize + rows_cap * 4 + _ID_TILE * 4
+    per_row = tile * itemsize * (2 if weighted else 1) + (0 if weighted
+                                                          else 4)
+    return rows_cap * per_row + _ID_TILE * 8 + _ID_TILE // 32 * 4
 
 
-def fused_tile_fits(rows_cap, dtype, smem_optin, tile=FUSED_TILE):
-    """True when a K-F block of ``tile`` curves with ``rows_cap`` rows fits
-    ``smem_optin`` bytes of shared memory (``None``: no limit, the CPU)."""
-    return (smem_optin is None
-            or fused_smem_bytes(rows_cap, dtype, tile) <= smem_optin)
+def fused_fits(rows_cap, dtype, device, weighted=False):
+    """True when a fused block of one warp (one curve) with ``rows_cap``
+    rows fits the shared memory a block may opt in to on ``device``
+    (always on the CPU, which has no limit); ``weighted`` for K-WF's two
+    columns per curve.  The kernels then pick their own width among the
+    widths that fit (:func:`fused_block`)."""
+    optin = shared_memory_optin(device)
+    return optin is None or fused_smem_bytes(rows_cap, dtype, 1,
+                                             weighted) <= optin
+
+
+def fused_block(rows_cap, dtype, device, weighted=False):
+    """The block K-F (or K-WF, ``weighted``) launches with at ``rows_cap``
+    rows on ``device``: (warps per block, resident blocks per SM by the
+    occupancy calculator).  The kernel picks, among the widths that fit
+    the opt-in shared memory, the one with the most resident warps, the
+    widest on ties."""
+    from ._build import check_status, cuda_library
+    lib = cuda_library()
+    fn = (lib.lk_bls_fused_weighted_block if weighted
+          else lib.lk_bls_fused_uniform_block)
+    warps, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device):
+        code = fn(int(dtype == torch.float64), int(rows_cap),
+                  ctypes.byref(warps), ctypes.byref(blocks))
+    check_status(lib, code, "fused block")
+    return warps.value, blocks.value
+
+
+def check_fused_rows(rows_cap, dtype, device, weighted=False):
+    """Raise unless :func:`fused_fits` (the launch would be refused)."""
+    if not fused_fits(rows_cap, dtype, device, weighted):
+        raise ValueError(
+            f"a fused block of one curve with {rows_cap} rows needs "
+            f"{fused_smem_bytes(rows_cap, dtype, 1, weighted)} bytes of "
+            f"shared memory, more than {device} allows: use "
+            f"fold_impl='staged'")
 
 
 def shared_memory_optin(device):
-    """Shared memory (bytes) a block may opt in to on ``device``, as K-F
-    reads it when it sizes its tile; ``None`` for the CPU."""
+    """Shared memory (bytes) a block may opt in to on ``device``, as the
+    fused kernels read it when they size their blocks; ``None`` for the
+    CPU."""
     device = torch.device(device)
     if device.type != "cuda":
         return None
@@ -202,7 +240,10 @@ def fused_scan_uniform(ts, Y0, periods, k_durs, dur_values, d_phase, nbins,
     launch; ``chunk`` is not used there), the plain version on CPU
     tensors.  Same arguments and result as
     :func:`fused_scan_uniform_plain`; ``max_nbins_p`` sizes the kernel's
-    shared memory."""
+    shared memory.  The kernel reads the flux as (B, n), one curve per
+    row: ``Y0`` is best the transposed view of a (B, n) tensor, as
+    ``bls_power_shared_batch`` passes it; any other layout is copied once
+    per call."""
     if Y0.device.type == "cpu":
         return fused_scan_uniform_plain(ts, Y0, periods, k_durs, dur_values,
                                         d_phase, nbins, max_nbins_p,
@@ -213,15 +254,17 @@ def fused_scan_uniform(ts, Y0, periods, k_durs, dur_values, d_phase, nbins,
         raise TypeError(f"Y0 must be float32 or float64 (got {dtype})")
     n, B = Y0.shape
     P = periods.shape[0]
-    _check_cuda("Y0", Y0, dtype)
+    Yt = Y0.T.contiguous()                     # (B, n): coalesced per warp
+    _check_cuda("Y0", Yt, dtype)
     _check_cuda("ts", ts, dtype, (n,))
     _check_cuda("periods", periods, dtype, (P,))
     k_arr, v_arr = durations_args(k_durs, dur_values)
     k_max = int(k_arr.max())
-    tot_y = Y0.sum(0)
-    nbp = nbins_per_period(periods, d_phase)
     # shared-memory rows per block: a period reads nbins_p + k_max - 1 rows
     rows_cap = int(max_nbins_p) + k_max - 1
+    check_fused_rows(rows_cap, dtype, Y0.device)
+    tot_y = Yt.sum(1)
+    nbp = nbins_per_period(periods, d_phase)
     outs = [torch.empty((P, B), dtype=dtype, device=Y0.device)
             for _ in _FIELDS]
     lib = cuda_library()
@@ -229,7 +272,7 @@ def fused_scan_uniform(ts, Y0, periods, k_durs, dur_values, d_phase, nbins,
           else lib.lk_bls_fused_uniform_f64)
     with torch.cuda.device(Y0.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = fn(ts.data_ptr(), Y0.data_ptr(), tot_y.data_ptr(),
+        code = fn(ts.data_ptr(), Yt.data_ptr(), tot_y.data_ptr(),
                   periods.data_ptr(), nbp.data_ptr(), n, B, P, int(nbins),
                   k_max, rows_cap, k_arr.ctypes.data_as(ctypes.c_void_p),
                   v_arr.ctypes.data_as(ctypes.c_void_p), len(k_arr),

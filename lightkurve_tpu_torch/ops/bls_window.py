@@ -39,7 +39,8 @@ import numpy as np
 import torch
 
 __all__ = ["window_scan", "window_scan_plain", "window_scan_uniform",
-           "window_scan_uniform_plain", "transit_time"]
+           "window_scan_uniform_plain", "weighted_scan_staged",
+           "transit_time"]
 
 _FIELDS = ("power", "depth", "w_in", "transit_time", "duration")
 _UNIFORM_FIELDS = ("power", "depth", "n_in", "transit_time", "duration")
@@ -57,9 +58,22 @@ def window_scan_plain(csum, nbins_p, pc, total, k_durs, dur_values, d_phase,
     """Plain torch window scan: the staged form of ``_bls_shared_scan``.
 
     csum (C, npad, 2B), nbins_p (C,) int, pc (C,), total (2B,).  Returns a
-    dict of (C, B) tensors: power, depth, w_in, transit_time, duration.
+    dict of (C, B) tensors: power, depth, w_in, transit_time, duration; a
+    period whose windows would reach past the ``npad`` rows gets NaN.
     """
     window_scan_plain.calls += 1
+    best = weighted_scan_staged(csum, nbins_p, pc, total, k_durs,
+                                dur_values, d_phase, use_likelihood)
+    return _undersized(best, _past_rows(nbins_p, max(k_durs),
+                                        csum.shape[1]))
+
+
+def weighted_scan_staged(csum, nbins_p, pc, total, k_durs, dur_values,
+                         d_phase, use_likelihood=True):
+    """The staged weighted window scan of ``_bls_shared_scan`` in torch:
+    every duration's windows as a roll of the prefix sums, the first
+    maximum over start bins, a later duration only if strictly greater
+    (no row check: see :func:`window_scan_plain`)."""
     C, npad, twoB = csum.shape
     B = twoB // 2
     dtype = csum.dtype
@@ -96,7 +110,7 @@ def window_scan_plain(csum, nbins_p, pc, total, k_durs, dur_values, d_phase,
         else:
             upd = cand["power"] > best["power"]
             best = {f: torch.where(upd, cand[f], best[f]) for f in best}
-    return _undersized(best, _past_rows(nbins_p, max(k_durs), npad))
+    return best
 
 
 def _past_rows(nbins_p, k_max, npad):

@@ -12,7 +12,7 @@ import torch
 
 from lightkurve_tpu.ops import bls as jbls
 from lightkurve_tpu_torch.ops import bls as tbls
-from lightkurve_tpu_torch.ops import bls_fused, bls_window
+from lightkurve_tpu_torch.ops import bls_fused, bls_fused_weighted, bls_window
 
 FIELDS = ("power", "depth", "depth_err", "depth_snr", "log_likelihood",
           "duration", "transit_time", "period")
@@ -120,16 +120,28 @@ def weighted_inputs(rng, B, n):
     return t, Y, dy
 
 
+@pytest.mark.parametrize("fold_impl", ["fused", "staged"])
 @pytest.mark.parametrize("objective", ["likelihood", "snr"])
 @pytest.mark.parametrize("edge_mode", ["wrap", "astropy"])
-def test_weighted_matches_jax(rng, edge_mode, objective):
-    """Weighted path (torch fold + plain version of K-W) ≡ the JAX XLA
-    window scan, per-cadence dy with masked cadences, ragged B."""
+def test_weighted_matches_jax(rng, edge_mode, objective, fold_impl):
+    """Weighted path ≡ the JAX XLA window scan, per-cadence dy with masked
+    cadences, ragged B, on both routes: K-WF's plain version ("fused") and
+    the torch fold + K-W's plain version ("staged")."""
     t, Y, dy = weighted_inputs(rng, 5, 333)
-    a, b = run_both(t, Y, dy, np.linspace(1.2, 4.0, 23),
-                    np.array([0.1, 0.2]), jax_kw=dict(window_impl="xla"),
-                    objective=objective, edge_mode=edge_mode, chunk=4)
-    assert_same(a, b, f"{edge_mode}/{objective}")
+    plain = (bls_fused_weighted.fused_scan_weighted_plain
+             if fold_impl == "fused" else bls_window.window_scan_plain)
+    calls = plain.calls
+    a = jbls.bls_power_shared_batch(t, Y, dy, np.linspace(1.2, 4.0, 23),
+                                    np.array([0.1, 0.2]), window_impl="xla",
+                                    objective=objective, edge_mode=edge_mode,
+                                    chunk=4)
+    b = tbls.bls_power_shared_batch(torch.from_numpy(t), torch.from_numpy(Y),
+                                    dy, np.linspace(1.2, 4.0, 23),
+                                    np.array([0.1, 0.2]), objective=objective,
+                                    edge_mode=edge_mode, chunk=4,
+                                    fold_impl=fold_impl)
+    assert plain.calls > calls
+    assert_same(a, b, f"{edge_mode}/{objective}/{fold_impl}")
 
 
 @pytest.mark.mosaic_interpret
@@ -243,7 +255,8 @@ def test_plain_kernels_match_staged_scans(rng, objective):
     for k in a:
         torch.testing.assert_close(a[k], b[k], rtol=0, atol=0)
     WWY = torch.cat([torch.ones_like(Y0), Y0], 1)
-    csum, nbp = tbls._weighted_fold(ts, WWY, pc, 0.01, 400, 400, 20)
+    csum, nbp = bls_fused_weighted.weighted_fold(ts, WWY, pc, 0.01, 400, 400,
+                                                 20)
     c = bls_window.window_scan(csum, nbp, pc, WWY.sum(0), (10, 20),
                                (0.1, 0.2), 0.01, like)
     assert set(c) == {"power", "depth", "w_in", "transit_time", "duration"}
@@ -267,6 +280,9 @@ def test_wrappers_refuse_non_cuda_devices():
     total = torch.empty((8,), dtype=torch.float32, device=meta)
     with pytest.raises(ValueError, match="CUDA"):
         bls_window.window_scan(csum, nbp, pc, total, (2,), (0.1,), 0.05)
+    with pytest.raises(ValueError, match="CUDA"):
+        bls_fused_weighted.fused_scan_weighted(ts, Y0, Y0, pc, (2,), (0.1,),
+                                               0.05, 40, 40)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -302,7 +318,7 @@ def tile_edge_case():
     return d_phase, periods, durations, k_durs, nbins, bound
 
 
-@pytest.mark.parametrize("kernel", ["fused", "window"])
+@pytest.mark.parametrize("kernel", ["fused", "window", "weighted_fused"])
 def test_tile_edge_period_reads_inside_its_rows(rng, kernel):
     """At the tile edge the rows are sized from the device rule's bound,
     so every window lies inside them and the result is finite; rows sized
@@ -319,9 +335,12 @@ def test_tile_edge_period_reads_inside_its_rows(rng, kernel):
         if kernel == "fused":
             return bls_fused.fused_scan_uniform(ts, Y0, pc, *args, nbins,
                                                 max_nbins_p)
+        if kernel == "weighted_fused":
+            return bls_fused_weighted.fused_scan_weighted(
+                ts, torch.ones_like(Y0), Y0, pc, *args, nbins, max_nbins_p)
         WWY = torch.cat([torch.ones_like(Y0), Y0], 1)
-        csum, nbp = tbls._weighted_fold(ts, WWY, pc, d_phase, nbins,
-                                        max_nbins_p, max(k_durs))
+        csum, nbp = bls_fused_weighted.weighted_fold(
+            ts, WWY, pc, d_phase, nbins, max_nbins_p, max(k_durs))
         assert (csum.shape[1] >= int(nbp.max()) + max(k_durs) - 1) == (
             max_nbins_p == bound)
         return bls_window.window_scan(csum, nbp, pc, WWY.sum(0), *args)

@@ -15,7 +15,7 @@ import torch
 from lightkurve_tpu.ops import bls as jbls
 from lightkurve_tpu.ops import bls_window_pallas as jwin
 from lightkurve_tpu_torch.ops import bls as tbls
-from lightkurve_tpu_torch.ops import bls_fused, bls_window
+from lightkurve_tpu_torch.ops import bls_fused, bls_fused_weighted, bls_window
 from tests.test_torch_bls import transit_batch
 from tests.test_torch_percurve import assert_same
 
@@ -155,61 +155,85 @@ def test_staged_route_matches_jax_pallas_interpret(
     assert_same(a, b, f"{edge_mode}/{objective}/bucket={bucket}")
 
 
-@pytest.mark.parametrize("dtype, full_rows, fits_rows",
-                         [(torch.float32, 1745, 3388),
-                          (torch.float64, 886, 1745)])
-def test_route_rule_at_the_boundary(monkeypatch, dtype, full_rows,
+@pytest.mark.parametrize("dtype, weighted, full_rows, fits_rows",
+                         [(torch.float32, False, 1729, 28536),
+                          (torch.float64, False, 878, 19024),
+                          (torch.float32, True, 891, 28536),
+                          (torch.float64, True, 445, 14268)])
+def test_route_rule_at_the_boundary(monkeypatch, dtype, weighted, full_rows,
                                     fits_rows):
-    """'auto' takes K-F while a block of 16 curves fits the device's opt-in
-    shared memory (232,448 bytes on an H100: 3,388 rows in float32, 1,745
-    in float64; K-F's full 32-curve tile fits 1,745 and 886) and the staged
-    route past it; explicit choices pass through; the CPU has no limit."""
+    """'auto' takes the fused kernel (K-F, or K-WF for weights) while a
+    block of one warp fits the device's opt-in shared memory (232,448
+    bytes on an H100) and the staged route past it; the wrappers refuse
+    the rows 'auto' would not take; a block of 32 warps fits
+    ``full_rows``; explicit choices pass through; the CPU has no limit.  A
+    block holds each warp's prefix columns (one, or two for weights), K-F's
+    shared count column, 512 staged ids and masks and 16 run flags."""
     optin = 232_448
-    assert tbls.FUSED_MIN_TILE == 16
-    assert bls_fused.fused_tile_fits(full_rows, dtype, optin)
-    assert not bls_fused.fused_tile_fits(full_rows + 1, dtype, optin)
-    assert bls_fused.fused_tile_fits(fits_rows, dtype, optin, tile=16)
-    assert not bls_fused.fused_tile_fits(fits_rows + 1, dtype, optin,
-                                         tile=16)
-    assert bls_fused.fused_tile_fits(10 ** 6, dtype, None)
+    cpu = torch.device("cpu")
     itemsize = torch.empty((), dtype=dtype).element_size()
-    assert bls_fused.fused_smem_bytes(full_rows, dtype) == (
-        full_rows * (32 * itemsize + 4) + 512 * 4)
-    monkeypatch.setattr(tbls, "shared_memory_optin", lambda device: optin)
+    per_row = 32 * itemsize * (2 if weighted else 1) + (0 if weighted else 4)
+    assert bls_fused.fused_smem_bytes(full_rows, dtype,
+                                      weighted=weighted) == (
+        full_rows * per_row + 512 * 8 + 16 * 4)
+    assert bls_fused.fused_smem_bytes(full_rows, dtype,
+                                      weighted=weighted) <= optin
+    assert bls_fused.fused_smem_bytes(full_rows + 1, dtype,
+                                      weighted=weighted) > optin
+    assert bls_fused.fused_fits(10 ** 6, dtype, cpu, weighted)
+    monkeypatch.setattr(bls_fused, "shared_memory_optin",
+                        lambda device: optin)
+    assert bls_fused.fused_fits(fits_rows, dtype, cpu, weighted)
+    assert not bls_fused.fused_fits(fits_rows + 1, dtype, cpu, weighted)
+    bls_fused.check_fused_rows(fits_rows, dtype, cpu, weighted)
+    with pytest.raises(ValueError, match="fold_impl='staged'"):
+        bls_fused.check_fused_rows(fits_rows + 1, dtype, cpu, weighted)
     k_max = 66
     for rows, want in ((fits_rows, "fused"), (fits_rows + 1, "staged")):
         max_nbp = rows - k_max + 1
-        assert tbls.fold_route("auto", max_nbp, k_max, dtype,
-                               torch.device("cpu")) == want
+        assert tbls.fold_route("auto", max_nbp, k_max, dtype, cpu,
+                               weighted) == want
     for impl in ("fused", "staged"):
-        assert tbls.fold_route(impl, 10 ** 5, k_max, dtype,
-                               torch.device("cpu")) == impl
+        assert tbls.fold_route(impl, 10 ** 5, k_max, dtype, cpu,
+                               weighted) == impl
     with pytest.raises(ValueError):
-        tbls.fold_route("xla", 100, k_max, dtype, torch.device("cpu"))
+        tbls.fold_route("xla", 100, k_max, dtype, cpu, weighted)
     monkeypatch.undo()
-    assert tbls.fold_route("auto", 10 ** 5, k_max, dtype,
-                           torch.device("cpu")) == "fused"
+    assert tbls.fold_route("auto", 10 ** 5, k_max, dtype, cpu,
+                           weighted) == "fused"
 
 
-def test_auto_route_per_bucket(rng, monkeypatch):
+@pytest.mark.parametrize("weighted", [False, True])
+def test_auto_route_per_bucket(rng, monkeypatch, weighted):
     """With bucket=True each period group goes through the route rule on
-    its own rows: short periods take K-F, long ones the staged route, and
-    the result equals one route for all periods."""
+    its own rows: short periods take the fused kernel's plain version,
+    long ones the staged route, and the result equals one route for all
+    periods (uniform weights: K-F / K-U; per-cadence weights: K-WF /
+    K-W)."""
     B, n = 6, 512
     t = np.arange(n) * 0.01
     Y = torch.from_numpy(1.0 + 1e-3 * rng.normal(size=(B, n)))
+    dy = None
+    fused_plain, staged_plain = (bls_fused.fused_scan_uniform_plain,
+                                 bls_window.window_scan_uniform_plain)
+    if weighted:
+        dy = torch.from_numpy(1e-3 * (1 + rng.random((B, n))))
+        fused_plain, staged_plain = (
+            bls_fused_weighted.fused_scan_weighted_plain,
+            bls_window.window_scan_plain)
     periods = np.linspace(0.3, 2.5, 60)       # 1-3 tiles of 128 rows
     durs = np.array([0.05, 0.1])
-    # a limit that a 16-curve block of up to 256 float64 rows fits
-    optin = bls_fused.fused_smem_bytes(256, torch.float64, tile=16)
-    monkeypatch.setattr(tbls, "shared_memory_optin", lambda device: optin)
-    fused_calls = bls_fused.fused_scan_uniform_plain.calls
-    staged_calls = bls_window.window_scan_uniform_plain.calls
-    got = tbls.bls_power_shared_batch(t, Y, None, periods, durs, chunk=4,
+    # a limit that the narrowest "auto" block of up to 256 float64 rows fits
+    optin = bls_fused.fused_smem_bytes(256, torch.float64, tile=1,
+                                       weighted=weighted)
+    monkeypatch.setattr(bls_fused, "shared_memory_optin",
+                        lambda device: optin)
+    fused_calls, staged_calls = fused_plain.calls, staged_plain.calls
+    got = tbls.bls_power_shared_batch(t, Y, dy, periods, durs, chunk=4,
                                       bucket=True)
-    assert bls_fused.fused_scan_uniform_plain.calls > fused_calls
-    assert bls_window.window_scan_uniform_plain.calls > staged_calls
-    want = tbls.bls_power_shared_batch(t, Y, None, periods, durs, chunk=4,
+    assert fused_plain.calls > fused_calls
+    assert staged_plain.calls > staged_calls
+    want = tbls.bls_power_shared_batch(t, Y, dy, periods, durs, chunk=4,
                                        fold_impl="fused")
     for k in want:
         np.testing.assert_array_equal(got[k].numpy(), want[k].numpy(), k)
@@ -250,6 +274,29 @@ def test_staged_route_slices_periods_to_free_memory(rng, monkeypatch):
     got = tbls.bls_power_shared_batch(t, Y, None, periods, durs, chunk=5,
                                       fold_impl="staged")
     assert bls_window.window_scan_uniform_plain.calls == calls + len(periods)
+    for k in want:
+        np.testing.assert_array_equal(got[k].numpy(), want[k].numpy(), k)
+
+
+def test_staged_weighted_route_slices_periods_to_free_memory(rng,
+                                                             monkeypatch):
+    """The staged weighted route sizes its period slice as the uniform one
+    does, with the fold's two columns per curve ([w | w*y]); the result
+    does not depend on the slice."""
+    npad, n, B = 27136, 38880, 2048           # a one-warp block, float32
+    per = tbls.staged_fold_bytes(npad, n, 2 * B, 4)
+    assert per == npad * n * 6 + 2 * npad * 2 * B * 4
+    assert tbls.staged_slice(8, npad, n, 2 * B, 4, 75 * 2 ** 30) == 5
+    t, Y = transit_batch(rng, 7, 333)
+    dy = 1e-3 * (1 + rng.random(Y.shape))
+    periods = np.linspace(1.2, 4.0, 23)
+    durs = np.array([0.1, 0.2, 0.25])
+    kw = dict(chunk=5, fold_impl="staged", uniform_weights=False)
+    want = tbls.bls_power_shared_batch(t, Y, dy, periods, durs, **kw)
+    monkeypatch.setattr(tbls, "_free_device_bytes", lambda device: 0)
+    calls = bls_window.window_scan_plain.calls
+    got = tbls.bls_power_shared_batch(t, Y, dy, periods, durs, **kw)
+    assert bls_window.window_scan_plain.calls == calls + len(periods)
     for k in want:
         np.testing.assert_array_equal(got[k].numpy(), want[k].numpy(), k)
 
