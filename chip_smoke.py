@@ -3,49 +3,59 @@
     python3 chip_smoke.py
 
 Phases:
-  1. build the CUDA kernels (K-F, K-WF, K-W, K-U) from the checkout's
-     sources, one nvcc per source, all started together;
+  1. build the CUDA kernels (K-F, K-WF, K-W, K-U, K-SF) from the
+     checkout's sources, one nvcc per source, all started together;
   2. hold each kernel against its plain torch version on the card at a
      small shape, in float64 (exact logic) and float32, over both edge
      modes and objectives, and at the tile-edge grid where a period needs
      one bin more than the host count (rows sized from the bound: equal;
-     sized from the count: NaN, as the plain versions give); the fused
-     kernels give the same bits on two runs;
+     sized from the count: NaN, as the plain versions give); K-W and K-U
+     also at a ragged batch (250 curves) and with ten durations up to
+     2.5 d; the fused kernels and K-SF give the same bits on two runs, and
+     K-SF's empty astropy-mode rows repeat the row before them bit for
+     bit;
   3. uniform main path at full size: a 2048-file synthetic TESS sector
      written with the port's FITS writer, streamed through
      StreamingStackLoader into SweepRunner(method="shared") (K-F);
   4. weighted main path at full size: a SPOC-like in-memory stack
      (per-cadence dy, ~3% masked cadences) through SweepRunner (K-WF);
      then its first chunk through bls_power_shared_batch on both routes,
-     each a path of its own: fold_impl="fused" (K-WF) and "staged" (the
-     one-hot fold and K-W), whose winners must agree;
+     each a path of its own: fold_impl="fused" (K-WF) and "staged" (K-SF
+     and K-W), whose winners must agree;
   6. the long-baseline uniform sweeps, 2048 curves, 4,096 periods in four
      chunks each, K-F on every chunk: one 27-d sector (19,440 cadences)
      over 1-9 d, and two consecutive sectors (38,880 cadences) over
      1-18 d; each chunk's route is checked against the rule; then the
      two-sector chunk 4 through bls_power_shared_batch on both routes,
-     each a path of its own: "fused" (K-F) and "staged" (the torch fold
-     and K-U);
+     each a path of its own: "fused" (K-F) and "staged" (K-SF and K-U);
   7. the mixed-grid sweep: 2048 SPOC-like curves on four sector grids,
      one shared-grid search per grid (K-WF), held against four single-grid
      sweeps of the same rows;
   8. the per-curve methods, SweepRunner(method="fast") and "exact", at
      2048 x 8192 (plain torch, no kernel);
+  9. one call past the one-hot fold's old memory ceiling: a year of
+     two-minute cadences (262,800) x 2048 curves in float32, 4 periods
+     near 300 d (~60,000 rows), through bls_power_shared_batch on the
+     automatic route, which must take the staged one (K-SF and K-U); then
+     the same scan against the plain versions on the card, 2 periods per
+     slice;
   5. each kernel against its plain version at its main path's shapes, in
      float64 and float32, timed in float32, with its bound (the larger of
-     bytes over the memory rate and operations over the float32 rate):
-     K-F, K-WF and K-W on the 8,192-cadence batch, K-U on the two-sector
-     sweep's chunk 4, K-F (float32) on both long sweeps' chunk 4; K-WF
-     against the staged weighted route (one-hot GEMM, cumsum, K-W) on the
-     same inputs; and the fused kernel against the staged route at the
-     route points: one sector's longest periods (1,865 rows), 16.4-16.9 d
-     on one sector (3,445 rows), two sectors' longest periods (3,665
-     rows), and both regimes where a fused block holds one warp (the
-     staged routes at SweepRunner's 8 periods per call, sliced to the
-     free memory).
+     bytes over the memory rate and operations over the float32 rate), the
+     staged kernels also per launch at the width the staged route launches
+     them (8 periods) and K-W and K-U with one duration beside all: K-F,
+     K-WF and K-W on the 8,192-cadence batch, K-U and K-SF on the two-sector
+     sweep's chunk 4 (K-SF also against the one-hot fold it replaced, its
+     library yardstick), K-F (float32) on both long sweeps' chunk 4; K-WF
+     against the staged weighted route (K-SF and K-W) on the same inputs;
+     and the fused kernel against the staged route at the route points:
+     one sector's longest periods (1,865 rows), 16.4-16.9 d on one sector
+     (3,445 rows), two sectors' longest periods (3,665 rows), and both
+     regimes where a fused block holds one warp (the staged routes at
+     SweepRunner's 8 periods per call, sliced to the free memory).
 Each path (the sweeps of phases 3, 4, 6, 7 and 8 on the automatic route,
-and the four forced-route runs of phases 4 and 6) runs with every launch
-count set to 0 just before it and read just after; a path fails if a
+the four forced-route runs of phases 4 and 6, and phase 9) runs with every
+launch count set to 0 just before it and read just after; a path fails if a
 kernel it needs never launched, a kernel of another route did, or a
 plain version ran.  The kernels line gives each kernel's launches summed
 over the paths and, under ``launches_by_path``, each path's own.
@@ -56,9 +66,9 @@ when no CUDA device is present.
 
     python3 chip_smoke.py --profile
 
-builds the kernels and profiles one full-size sweep chunk per regime
-instead (torch.profiler: device time per kernel, the device's idle
-share).
+builds the kernels and profiles one full-size sweep chunk per shared-grid
+cell and both forced staged chunks instead (torch.profiler: device time
+per kernel, the device's idle share, each kernel's bound over the chunk).
 """
 import argparse
 import json
@@ -79,6 +89,13 @@ F32_WINNER_SHARE = 0.999
 F32_RTOL = 1e-3
 RECOVERY_SHARE = 0.99
 RECOVERY_RTOL = 0.01
+#: K-SF against its plain version: a prefix row may differ by this share of
+#: its column's sum of |x| (absolute, as a mean-shifted prefix crosses
+#: zero).  The kernel sums each column sequentially and torch's cumsum on
+#: the card by a parallel scan; in float32 the two orders drift apart by
+#: about eps x sqrt(deposits) of the running sum
+F64_FOLD_TOL = 1e-12
+F32_FOLD_TOL = 1e-4
 
 def log(msg):
     print(msg, flush=True)
@@ -192,6 +209,41 @@ def check_inputs(dtype, B=256, n=2048, P=257, seed=7):
                 WWY=WWY, folds=folds, ufolds=ufolds)
 
 
+def compare_fold(name, got, want, X, f64, step=16):
+    """K-SF's result (prefix rows, count prefix, bins per period) against
+    its plain version's on the columns ``X`` (n, cols): the count prefix
+    and the bins exactly, the prefix rows within the fold bar (periods
+    compared ``step`` at a time).  Returns the max |prefix row error|."""
+    import torch
+    (cs, cn, nbp), (ws, wn, wnbp) = got, want
+    if not (torch.equal(cn, wn) and torch.equal(nbp, wnbp)):
+        raise AssertionError(f"{name}: count prefix or bins differ")
+    scale = X.abs().sum(0).clamp(min=torch.finfo(X.dtype).tiny)
+    err = share = 0.0
+    for i in range(0, cs.shape[0], step):
+        d = (cs[i:i + step] - ws[i:i + step]).abs()
+        err = max(err, float(d.max()))
+        share = max(share, float((d / scale).max()))
+    tol = F64_FOLD_TOL if f64 else F32_FOLD_TOL
+    log(f"  {name}: max |prefix error| {err:.3g}, {share:.3g} of the "
+        f"column's sum |x| (bar {tol:g})")
+    if share > tol:
+        raise AssertionError(f"{name}: prefix rows off by {share:.3g} of "
+                             f"the column's sum |x|")
+    return err
+
+
+def check_empty_rows(fold):
+    """K-SF's astropy-mode fold (no wrap deposits): every row from a
+    period's last deposit on holds the same bits, across the segments the
+    kernel cuts its rows into (the exact ties of truncated windows)."""
+    cs, cn, _ = fold
+    tail = (cn == cn[:, -1:])[..., None]
+    if not bool(((cs == cs[:, -1:]) | ~tail).all()):
+        raise AssertionError("K-SF: an empty row differs from the row "
+                             "before it")
+
+
 def compare(name, got, want, f64):
     """Kernel result ``got`` against plain ``want`` (dicts of (C, B)).
     Returns (max |power error| over agreeing cells, max relative error)."""
@@ -244,12 +296,12 @@ def compare(name, got, want, f64):
 
 def phase_kernels():
     """K-F, K-WF, K-W and K-U against their plain versions, both edge
-    modes and both objectives, float64 then float32.  Returns per-kernel
-    f32 errors."""
+    modes and both objectives, and K-SF over both regimes' columns in both
+    edge modes, float64 then float32.  Returns per-kernel f32 errors."""
     import torch
     from lightkurve_tpu_torch.ops import (bls_fused, bls_fused_weighted,
-                                          bls_window)
-    errs = {"K-F": 0.0, "K-WF": 0.0, "K-W": 0.0, "K-U": 0.0}
+                                          bls_staged_fold, bls_window)
+    errs = {"K-F": 0.0, "K-WF": 0.0, "K-W": 0.0, "K-U": 0.0, "K-SF": 0.0}
     for dtype in (torch.float64, torch.float32):
         f64 = dtype == torch.float64
         x = check_inputs(dtype)
@@ -287,16 +339,97 @@ def phase_kernels():
                 if not f64:
                     for name, v in e.items():
                         errs[name] = max(errs[name], v)
+            for cols, X in (("flux", x["Y0"]), ("[w | w*y]", x["WWY"])):
+                args = (x["ts"], X, x["pc"], x["d_phase"], x["nbins"],
+                        x["max_nbp"], max(x["k_durs"]), wrap)
+                got = bls_staged_fold.staged_fold(*args)
+                e = compare_fold(
+                    f"K-SF {'wrap' if wrap else 'astropy'}/{cols}", got,
+                    bls_staged_fold.staged_fold_plain(*args), X, f64)
+                if not f64:
+                    errs["K-SF"] = max(errs["K-SF"], e)
+                if not wrap:
+                    check_empty_rows(got)
+    log("  K-SF: in astropy mode every row past a period's last deposit "
+        "repeats that row bit for bit")
     check_tile_edge()
+    check_ragged()
+    check_long_durations()
     check_deterministic()
     return errs
 
 
-def check_deterministic():
-    """The fused kernels sum in a fixed order (no float atomics): two runs
-    on the same inputs give the same bits."""
+def check_long_durations(B=256, n=2048, seed=13):
+    """K-W and K-U with ten durations up to 2.5 d (k_max 500 bins) at
+    periods of 2.6-2.8 d: past eight durations the scans keep 32 running
+    bests, and where a tile of rows and its 500-row halo outgrow the
+    shared-memory budget (float64 K-W and K-U, float32 K-W) they read
+    their rows from global memory.  Against the plain versions, float64
+    and float32."""
     import torch
-    from lightkurve_tpu_torch.ops import bls_fused, bls_fused_weighted
+    from lightkurve_tpu_torch.ops import bls_fused, bls_window
+    from lightkurve_tpu_torch.ops.bls_fused_weighted import weighted_fold
+    from tools import make_sector as ms
+    rng = np.random.default_rng(seed)
+    t = ms.time_grid()[:n]
+    durations = np.linspace(0.05, 2.5, 10)
+    d_phase = float(durations.min()) / OVERSAMPLE
+    k_durs = tuple(int(d / d_phase + 0.5) for d in durations)
+    common = (k_durs, tuple(float(d) for d in durations), d_phase)
+    periods = np.linspace(2.6, 2.8, 9)
+    nbins = int(np.ceil(periods.max() / d_phase))
+    for dtype in (torch.float64, torch.float32):
+        ts = torch.as_tensor(t - t.min(), dtype=dtype, device="cuda")
+        Y = torch.as_tensor(1.0 + ms.NOISE * rng.standard_normal((n, B)),
+                            dtype=dtype, device="cuda")
+        Y0 = Y - Y.mean(0)
+        pc = torch.as_tensor(periods, dtype=dtype, device="cuda")
+        bound = bls_fused.max_nbins_bound(periods, d_phase, dtype)
+        WWY = torch.cat([torch.ones_like(Y0), Y0], 1)
+        csum, nbp = weighted_fold(ts, WWY, pc, d_phase, nbins, bound,
+                                  max(k_durs))
+        args = (csum, nbp, pc, WWY.sum(0), *common)
+        cs_y, cs_n, unbp = bls_fused.uniform_fold(ts, Y0, pc, d_phase, nbins,
+                                                  bound, max(k_durs))
+        uargs = (cs_y, cs_n, unbp, pc, Y0.sum(0), float(n), *common)
+        f64 = dtype == torch.float64
+        compare(f"K-W ten durations {dtype}", bls_window.window_scan(*args),
+                bls_window.window_scan_plain(*args), f64)
+        compare(f"K-U ten durations {dtype}",
+                bls_window.window_scan_uniform(*uargs),
+                bls_window.window_scan_uniform_plain(*uargs), f64)
+
+
+def check_ragged(B=250):
+    """K-W and K-U on B curves, B not a multiple of a block's 32: the last
+    block's curves past B read nothing and its rows take the per-value
+    copies; float64, against the plain versions."""
+    import torch
+    from lightkurve_tpu_torch.ops import bls_window
+    x = check_inputs(torch.float64)
+    full = x["Y0"].shape[1]
+    common = (x["k_durs"], x["dur_values"], x["d_phase"])
+    for wrap in (True, False):
+        csum, nbp = x["folds"][wrap]
+        csum = torch.cat([csum[..., :B], csum[..., full:full + B]],
+                         -1).contiguous()
+        total = torch.cat([x["total"][:B], x["total"][full:full + B]])
+        args = (csum, nbp, x["pc"], total, *common)
+        compare(f"K-W B={B}", bls_window.window_scan(*args),
+                bls_window.window_scan_plain(*args), True)
+        cs_y, cs_n, unbp = x["ufolds"][wrap]
+        uargs = (cs_y[..., :B].contiguous(), cs_n, unbp, x["pc"],
+                 x["Y0"][:, :B].sum(0), float(x["Y0"].shape[0]), *common)
+        compare(f"K-U B={B}", bls_window.window_scan_uniform(*uargs),
+                bls_window.window_scan_uniform_plain(*uargs), True)
+
+
+def check_deterministic():
+    """The fused kernels and K-SF sum in a fixed order (no float
+    atomics): two runs on the same inputs give the same bits."""
+    import torch
+    from lightkurve_tpu_torch.ops import (bls_fused, bls_fused_weighted,
+                                          bls_staged_fold)
     x = check_inputs(torch.float32)
     B = x["Y0"].shape[1]
     common = (x["k_durs"], x["dur_values"], x["d_phase"], x["nbins"],
@@ -310,7 +443,14 @@ def check_deterministic():
         a, b = fn(*args), fn(*args)
         if not all(torch.equal(a[f], b[f]) for f in a):
             raise AssertionError(f"{name}: two runs differ")
-    log("  K-F and K-WF: two runs on the same inputs are bit-identical")
+    fold = (x["ts"], x["WWY"], x["pc"], x["d_phase"], x["nbins"],
+            x["max_nbp"], max(x["k_durs"]))
+    a, b = bls_staged_fold.staged_fold(*fold), bls_staged_fold.staged_fold(
+        *fold)
+    if not all(torch.equal(u, v) for u, v in zip(a, b)):
+        raise AssertionError("K-SF: two runs differ")
+    log("  K-F, K-WF and K-SF: two runs on the same inputs are "
+        "bit-identical")
 
 
 def check_tile_edge(B=256, n=2048, seed=11):
@@ -527,16 +667,10 @@ def phase_weighted(tmp, B=2048, n_periods=4096, chunk_periods=2048):
                 route_check=(stack, periods[:chunk_periods]))
 
 
-def compare_routes(name, stack, pvals):
+def route_call(stack, pvals, impl):
     """One SweepRunner chunk of ``stack`` at the periods ``pvals`` through
-    the entry point ``bls_power_shared_batch`` on both routes, called as
-    SweepRunner's step calls it, each route a path of its own
-    (:func:`drive`): ``fold_impl="fused"`` must launch K-F (K-WF for
-    weights) and no other kernel, ``"staged"`` K-U (K-W) and no other.
-    The per-curve winners must be the same period, duration and transit
-    time in >= 99.9% of curves, with power within rtol 1e-3 where they
-    are (the float32 bars).  Logs each route's seconds; returns each
-    path's launches."""
+    the entry point ``bls_power_shared_batch``, called as SweepRunner's
+    step calls it, on the route ``impl``; returns the reduced winners."""
     import torch
     from lightkurve_tpu_torch.config import numpy_dtype
     from lightkurve_tpu_torch.ops.bls import bls_power_shared_batch
@@ -553,26 +687,41 @@ def compare_routes(name, stack, pvals):
     err = stack.flux_err
     uniform = bool(torch.all(stack.mask)) and bool(
         torch.all(err == err[:, :1]))
+    out = bls_power_shared_batch(
+        stack.time[0].to(dtype), stack.flux, dy, pvals,
+        DURATIONS.astype(np_dtype), oversample=OVERSAMPLE, d_phase=d_phase,
+        nbins=_chunk_nbins(pvals, d_phase, _k_max(DURATIONS, d_phase)),
+        chunk=8, uniform_weights=uniform, fold_impl=impl)
+    return dict(zip(_FIELDS, _reduce_winner(out, len(pvals)).cpu().numpy()))
+
+
+def compare_routes(name, stack, pvals):
+    """One SweepRunner chunk of ``stack`` at the periods ``pvals`` through
+    the entry point on both routes (:func:`route_call`), each route a path
+    of its own (:func:`drive`): ``fold_impl="fused"`` must launch K-F (K-WF
+    for weights) and no other kernel, ``"staged"`` K-SF and K-U (K-W) and
+    no other.  The per-curve winners must be the same period, duration and
+    transit time in >= 99.9% of curves, with power within rtol 1e-3 where
+    they are (the float32 bars).  Logs each route's seconds; returns each
+    path's launches."""
+    import torch
+    err = stack.flux_err
+    uniform = bool(torch.all(stack.mask)) and bool(
+        torch.all(err == err[:, :1]))
 
     def run(impl):
         start_sweep()
         t0 = time.time()
-        out = bls_power_shared_batch(
-            stack.time[0].to(dtype), stack.flux, dy, pvals,
-            DURATIONS.astype(np_dtype), oversample=OVERSAMPLE,
-            d_phase=d_phase,
-            nbins=_chunk_nbins(pvals, d_phase, _k_max(DURATIONS, d_phase)),
-            chunk=8, uniform_weights=uniform, fold_impl=impl)
-        stacked = _reduce_winner(out, len(pvals)).cpu().numpy()
-        return dict(zip(_FIELDS, stacked)), time.time() - t0
+        return route_call(stack, pvals, impl), time.time() - t0
 
     win, secs, runs = {}, {}, {}
-    for impl, kern in zip(("fused", "staged"), ("K-F", "K-U") if uniform
-                          else ("K-WF", "K-W")):
+    for impl, kerns in (("fused", ("K-F",) if uniform else ("K-WF",)),
+                        ("staged", ("K-SF", "K-U") if uniform
+                         else ("K-SF", "K-W"))):
         path = f"{name}, {impl} route"
         (win[impl], secs[impl]), runs[path] = drive(
-            path, run, impl, expect=(kern,),
-            forbid=tuple(k for k in kernel_table() if k != kern))
+            path, run, impl, expect=kerns,
+            forbid=tuple(k for k in kernel_table() if k not in kerns))
     a, b = win["fused"], win["staged"]
     same = ((a["period"] == b["period"]) & (a["duration"] == b["duration"])
             & (a["transit_time"] == b["transit_time"]))
@@ -645,13 +794,14 @@ def phase_main_shapes():
     the main path's shapes, float64 (64 periods) then float32 (256
     periods); the float32 pair timed plain, kernel, kernel, plain, and
     K-WF against the staged weighted route (one-hot GEMM, cumsum and K-W
-    in SweepRunner's calls of 8 periods) on the same inputs.  Returns the
-    float32 max |power error|, (kernel ms, plain ms) and (bound ms, bound
-    by) per kernel."""
+    in SweepRunner's calls of 8 periods) on the same inputs; K-W also per
+    8-period launch, the width the staged route launches it at.  Returns
+    the float32 max |power error|, (kernel ms, plain ms), (bound ms, bound
+    by) and, for K-W, (ms, bound ms) per 8-period launch."""
     import torch
     from lightkurve_tpu_torch.ops import (bls_fused, bls_fused_weighted,
                                           bls_window)
-    errs, times, bounds = {}, {}, {}
+    errs, times, bounds, launches = {}, {}, {}, {}
     for dtype, P in ((torch.float64, 64), (torch.float32, 256)):
         f64 = dtype == torch.float64
         x = main_shape_inputs(dtype, P)
@@ -676,6 +826,10 @@ def phase_main_shapes():
             bounds[name] = bound(*args)
             log(f"bound {name}: {bounds[name][0]:.6f} ms "
                 f"({bounds[name][1]})")
+            if name == "K-W":
+                launches[name] = launch_time(
+                    name, kern, bound, first_periods(args, (0, 1, 2)))
+                scan_breakdown(name, kern, args, 4)
         if not f64:
             rows_cap = x["fold_args"][7] + max(x["fold_args"][3]) - 1
             for name, weighted, kern in (
@@ -691,7 +845,36 @@ def phase_main_shapes():
             route_times(x, weighted=True, tag="weighted main shapes")
         del x
         torch.cuda.empty_cache()
-    return errs, times, bounds
+    return errs, times, bounds, launches
+
+
+def first_periods(args, per_period, k=8):
+    """``args`` cut to their first ``k`` periods: the entries at the
+    indices ``per_period`` have one row per period."""
+    return tuple(a[:k] if i in per_period else a for i, a in enumerate(args))
+
+
+def launch_time(name, kern, bound, args):
+    """A kernel's time for one launch on ``args`` (the staged route's
+    width) and its bound there; returns (ms, bound ms)."""
+    ms = cuda_time_ms(lambda: kern(*args))
+    b = bound(*args)
+    log(f"{name} per launch at the staged route's width: {ms:.3f} ms, "
+        f"bound {b[0]:.6f} ms ({b[1]})")
+    return ms, b[0]
+
+
+def scan_breakdown(name, kern, args, k_at):
+    """Where a window scan's time goes: the same call timed with all the
+    durations and with the first only (``args[k_at]`` and the next entry
+    are the durations' bins and values): the bytes it moves do not depend
+    on the durations, its window arithmetic does."""
+    one = args[:k_at] + (args[k_at][:1], args[k_at + 1][:1]) + args[
+        k_at + 2:]
+    full = cuda_time_ms(lambda: kern(*args))
+    dur1 = cuda_time_ms(lambda: kern(*one))
+    log(f"{name} breakdown: {full:.3f} ms with {len(args[k_at])} "
+        f"durations, {dur1:.3f} ms with the first duration only")
 
 
 def fused_breakdown(name, kern, args, weighted):
@@ -829,10 +1012,26 @@ def bound_uniform(cs_y, cs_n, nbp, pc, tot_y, n_total, k_durs, dur_values,
                   _uniform_scan_ops(B, _windows(nbp, k_durs)))
 
 
+def bound_staged_fold(ts, X, pc, d_phase, nbins, max_nbp, k_max, wrap=True):
+    """K-SF: per period it reads the row of ``X`` (n, cols) of each of its
+    m deposits (counted from this run's fold: the samples, and in wrap
+    mode those of the first npad - nbins_p rows again) and its int32
+    source, the npad + 1 row starts, and writes npad prefix rows; one add
+    per value read."""
+    from lightkurve_tpu_torch.ops.bls_fused import fold_rows
+    from lightkurve_tpu_torch.ops.bls_staged_fold import fold_deposits
+    cols, item = X.shape[1], X.element_size()
+    npad = fold_rows(nbins, max_nbp, k_max)
+    _, row_start, _ = fold_deposits(ts, pc, d_phase, nbins, npad, wrap)
+    m, C = int(row_start[:, -1].sum()), pc.shape[0]
+    return _bound((m + C * npad) * cols * item + (m + C * (npad + 1)) * 4,
+                  m * cols)
+
+
 # ---------------------------------------------------------------------------
-# phase 5, second half: the long-baseline sweeps' shapes (K-U on the staged
-# route of the two-sector sweep's chunk 4, K-F on both sweeps' last chunks)
-# and the route points
+# phase 5, second half: the long-baseline sweeps' shapes (K-U and K-SF on
+# the staged route of the two-sector sweep's chunk 4, K-F on both sweeps'
+# last chunks) and the route points
 # ---------------------------------------------------------------------------
 LONG_N = 19_440             # 27.0 d of two-minute cadences: one TESS sector
 SECTOR_DAYS = 27.4          # one TESS sector: the offset between sectors
@@ -922,14 +1121,14 @@ def long_inputs(dtype, n_sectors, p_host, B=2048, weighted=False):
 
 
 def uniform_window_args(x):
-    """K-U's arguments for the inputs ``x`` of :func:`long_inputs`: the
-    uniform fold in SweepRunner's calls of 8 periods, concatenated."""
+    """K-U's arguments for the inputs ``x`` of :func:`long_inputs`: K-SF's
+    fold in SweepRunner's calls of 8 periods, concatenated."""
     import torch
-    from lightkurve_tpu_torch.ops.bls_fused import uniform_fold
+    from lightkurve_tpu_torch.ops.bls_staged_fold import staged_fold
     ts, Y0, pc, common = x["ts"], x["Y0"], x["pc"], x["common"]
     k_durs, _, d_phase = common
-    parts = [uniform_fold(ts, Y0, pc[i:i + 8], d_phase, x["nbins"],
-                          x["max_nbp"], max(k_durs))
+    parts = [staged_fold(ts, Y0, pc[i:i + 8], d_phase, x["nbins"],
+                         x["max_nbp"], max(k_durs))
              for i in range(0, pc.shape[0], 8)]
     cs_y, cs_n, nbp = (torch.cat([p[j] for p in parts]).contiguous()
                        for j in range(3))
@@ -978,25 +1177,71 @@ def route_times(x, weighted=False, tag="", reps=2, chunk=8):
     return min(f1, f2), min(s1, s2)
 
 
+def fold_times(x, slice_periods=8):
+    """K-SF on the inputs ``x`` of :func:`long_inputs`, all periods in one
+    launch, against its plain version and the one-hot fold it replaced
+    (:func:`uniform_fold`, one matrix product and a cumsum: its library
+    yardstick), both in slices of ``slice_periods``; timed plain, kernel,
+    kernel, plain, then the one-hot fold; also per 8-period launch.
+    Returns its float32 max |prefix error|, (kernel ms, plain ms), (bound
+    ms, bound by), the one-hot fold's ms and (ms, bound ms) per launch."""
+    import torch
+    from lightkurve_tpu_torch.ops.bls_fused import uniform_fold
+    from lightkurve_tpu_torch.ops.bls_staged_fold import (staged_fold,
+                                                          staged_fold_plain)
+    ts, Y0, pc = x["ts"], x["Y0"], x["pc"]
+    k_durs, _, d_phase = x["common"]
+    args = (ts, Y0, pc, d_phase, x["nbins"], x["max_nbp"], max(k_durs))
+
+    def sliced(fn):
+        def run():
+            parts = [fn(ts, Y0, pc[i:i + slice_periods], *args[3:])
+                     for i in range(0, pc.shape[0], slice_periods)]
+            return tuple(torch.cat([p[j] for p in parts]) for j in range(3))
+        return run
+
+    plain, onehot = sliced(staged_fold_plain), sliced(uniform_fold)
+    got = staged_fold(*args)
+    err = compare_fold("K-SF long shapes", got, plain(), Y0, False)
+    compare_fold("K-SF against the one-hot fold", got, onehot(), Y0, False)
+    del got
+    torch.cuda.empty_cache()
+    times = time_pair("K-SF", staged_fold, None, args, run_plain=plain)
+    library = cuda_time_ms(onehot, reps=1)
+    bound = bound_staged_fold(*args)
+    log(f"K-SF at {x['desc']}: {times[0]:.3f} ms for {pc.shape[0]} periods "
+        f"in one launch, bound {bound[0]:.3f} ms ({bound[1]}); the one-hot "
+        f"fold (GEMM + cumsum, {slice_periods} periods per call) "
+        f"{library:.3f} ms, {library / times[0]:.1f}x the kernel")
+    per = launch_time("K-SF", staged_fold, bound_staged_fold,
+                      first_periods(args, (2,)))
+    return err, times, bound, library, per
+
+
 def phase_long_shapes(slice_periods=32):
-    """K-U where the main path runs it, the two-sector sweep's chunk 4 on
-    the staged route (2048 x 38,880, its longest periods): against its
-    plain version in float64 (64 periods) then float32 (256 periods in one
-    launch; the plain version in slices of 32), timed, with its time per
-    8-period launch.  K-F against its plain version in float32 at both
-    long sweeps' last chunks (their widest rows).  Both routes of the
+    """K-U and K-SF where the main path runs them, the two-sector sweep's
+    chunk 4 on the staged route (2048 x 38,880, its longest periods):
+    against their plain versions in float64 (64 periods) then float32 (256
+    periods in one launch; the plain versions in slices), timed, with
+    their times per 8-period launch and K-SF's one-hot yardstick
+    (:func:`fold_times`).  K-F against its plain version in float32 at
+    both long sweeps' last chunks (their widest rows).  Both routes of the
     uniform regime timed on the same inputs (:func:`route_times`) at the
     one-sector sweep's longest periods (1,865 rows), at 16.4-16.9 d on one
     sector (3,445 rows) and at the two-sector sweep's longest periods
     (3,665 rows), and both routes of both regimes where a fused block
-    holds one warp (:data:`NARROW_GRID`).  Returns K-U's float32 max
-    |power error|, (kernel ms, plain ms) and (bound ms, bound by), and
-    K-F's float32 max |power error| here."""
+    holds one warp (:data:`NARROW_GRID`).  Returns per kernel (K-U, K-SF)
+    its float32 max error, (kernel ms, plain ms), (bound ms, bound by) and
+    (ms, bound ms) per 8-period launch, K-SF's one-hot ms, and K-F's
+    float32 max |power error| here."""
     import torch
     from lightkurve_tpu_torch.ops import bls_fused, bls_window
+    from lightkurve_tpu_torch.ops.bls_staged_fold import (staged_fold,
+                                                          staged_fold_plain)
     kern, plain = (bls_window.window_scan_uniform,
                    bls_window.window_scan_uniform_plain)
     two = np.linspace(*TWO_SECTOR_GRID)
+    out = {}
     for dtype, P in ((torch.float64, 64), (torch.float32, 256)):
         f64 = dtype == torch.float64
         x = long_inputs(dtype, 2, two[-P:])
@@ -1018,21 +1263,29 @@ def phase_long_shapes(slice_periods=32):
         e, _ = compare("K-U long shapes", got, want, f64)
         del got, want
         if f64:
+            for i in range(0, P, 8):
+                fold = (x["ts"], x["Y0"], pc[i:i + 8], x["common"][2],
+                        x["nbins"], x["max_nbp"], max(x["common"][0]))
+                compare_fold(f"K-SF long shapes, periods {i}-{i + 7}",
+                             staged_fold(*fold), staged_fold_plain(*fold),
+                             x["Y0"], True)
             del x, args, cs_y, cs_n
             torch.cuda.empty_cache()
             continue
         times = time_pair("K-U", kern, plain, args, plain_sliced)
         bound = bound_uniform(*args)
-        narrow = tuple(a[:8] for a in args[:4]) + args[4:]
-        per_launch = cuda_time_ms(lambda: kern(*narrow))
         tiles = -(-cs_y.shape[2] // 32)
         log(f"K-U launch width: grid ({P}, {tiles}) blocks of 32 x 8 "
             f"threads for {P} periods, (8, {tiles}) at the main path's 8 "
-            f"periods per call: {per_launch:.3f} ms per "
-            f"8-period launch, {times[0]:.3f} ms for {P} periods in one "
+            f"periods per call; {times[0]:.3f} ms for {P} periods in one "
             f"launch; bound {bound[0]:.3f} ms ({bound[1]})")
-        del args, narrow, cs_y, cs_n
+        out["K-U"] = (e, times, bound, launch_time(
+            "K-U", kern, bound_uniform, first_periods(args, (0, 1, 2, 3))))
+        scan_breakdown("K-U", kern, args, 6)
+        del args, cs_y, cs_n
         torch.cuda.empty_cache()
+        fe, ftimes, fbound, library, fper = fold_times(x)
+        out["K-SF"] = (fe, ftimes, fbound, fper)
     kf_err = 0.0
     for y in (long_inputs(torch.float32, 1, np.linspace(*LONG_GRID)[-256:]),
               x):
@@ -1058,7 +1311,7 @@ def phase_long_shapes(slice_periods=32):
     route_times(x, weighted=True, tag="one-warp block", reps=1)
     del x
     torch.cuda.empty_cache()
-    return e, times, bound, kf_err
+    return out, library, kf_err
 
 
 # ---------------------------------------------------------------------------
@@ -1251,17 +1504,149 @@ def phase_percurve(tmp, B=2048, n_periods=1024, chunk_periods=512):
 
 
 # ---------------------------------------------------------------------------
+# phase 9: one call past the one-hot fold's old memory ceiling
+# ---------------------------------------------------------------------------
+#: a year of two-minute cadences
+YEAR_N = 262_800
+#: 4 periods near 300 d: ~60,000 rows, 1.6e10 rows x cadences, where one
+#: period of the one-hot fold (npad x n x 5 bytes) passed 80 GB
+CEILING_GRID = (299.9, 300.1, 4)
+
+
+def phase_past_ceiling(B=2048, seed=2030):
+    """Phase 9: bls_power_shared_batch on the automatic route at 262,800
+    cadences x 2048 curves (uniform weights, float32), 4 periods near
+    300 d: no fused block fits, so the staged route (K-SF and K-U) takes
+    it.  Logs the time and the peak memory; returns the inputs and the
+    result for :func:`check_past_ceiling`."""
+    import torch
+    from lightkurve_tpu_torch.ops.bls import bls_power_shared_batch
+    from tools import make_sector as ms
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    t = (torch.arange(YEAR_N, dtype=torch.float64, device="cuda")
+         * (2.0 / 60 / 24) + ms.T_OFFSET)
+    Y = 1.0 + ms.NOISE * torch.randn((B, YEAR_N), generator=gen,
+                                     device="cuda", dtype=torch.float32)
+    periods = np.linspace(*CEILING_GRID)
+    start_sweep()
+    t0 = time.time()
+    out = bls_power_shared_batch(t, Y, None, periods, DURATIONS,
+                                 oversample=OVERSAMPLE, chunk=8)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    for f, v in out.items():
+        if tuple(v.shape) != (B, len(periods)) or not bool(
+                torch.isfinite(v).all()):
+            raise AssertionError(f"past the ceiling: {f} not finite of "
+                                 f"shape {(B, len(periods))}")
+    log(f"past the ceiling: B={B} N={YEAR_N} P={len(periods)} (periods "
+        f"{periods[0]}-{periods[-1]} d) in {secs:.3f}s; {peak_memory()}")
+    return dict(t=t, Y=Y, periods=periods, out=out, seconds=secs)
+
+
+def check_past_ceiling(x, slice_periods=2):
+    """The staged scan of phase 9's inputs (K-SF and K-U) against the plain
+    versions on the card, ``slice_periods`` periods per slice (the float32
+    bars); the entry point's depths and durations are the scan's."""
+    import torch
+    from lightkurve_tpu_torch.ops.bls import _staged_scan_uniform
+    from lightkurve_tpu_torch.ops.bls_fused import max_nbins_bound
+    from lightkurve_tpu_torch.ops.bls_staged_fold import staged_fold_plain
+    from lightkurve_tpu_torch.ops.bls_window import window_scan_uniform_plain
+    t, Y, out = x["t"], x["Y"], x["out"]
+    p_host = x["periods"].astype(np.float32)
+    pc = torch.as_tensor(p_host, device="cuda")
+    ts = (t - t.min()).to(Y.dtype)
+    Y0 = (Y - Y.mean(1, keepdim=True)).T
+    d_phase = float(DURATIONS.min()) / OVERSAMPLE
+    k_durs = tuple(int(max(int(d / d_phase + 0.5), 1)) for d in DURATIONS)
+    dvals = tuple(float(d) for d in DURATIONS)
+    nbins = int(np.ceil(float(np.max(p_host)) / d_phase))
+    max_nbp = max_nbins_bound(p_host, d_phase, Y.dtype)
+    got = _staged_scan_uniform(ts, Y0, pc, k_durs, dvals, d_phase, nbins,
+                               max_nbp, True, 8, True)
+    Yc, tot_y, parts = Y0.contiguous(), Y0.sum(0), []
+    for i in range(0, len(p_host), slice_periods):
+        cs_y, cs_n, nbp = staged_fold_plain(ts, Yc, pc[i:i + slice_periods],
+                                            d_phase, nbins, max_nbp,
+                                            max(k_durs))
+        parts.append(window_scan_uniform_plain(
+            cs_y, cs_n, nbp, pc[i:i + slice_periods], tot_y,
+            float(Y.shape[1]), k_durs, dvals, d_phase))
+        del cs_y, cs_n
+    want = {f: torch.cat([p[f] for p in parts]) for f in parts[0]}
+    compare("past the ceiling, staged scan", got, want, False)
+    for f in ("depth", "duration"):
+        if not torch.equal(out[f], got[f].T):
+            raise AssertionError(f"past the ceiling: the entry point's {f} "
+                                 f"is not the staged scan's")
+
+
+# ---------------------------------------------------------------------------
 # --profile: one full-size sweep chunk per regime under torch.profiler
 # ---------------------------------------------------------------------------
+def chunk_bounds(stack, periods, impl, launch_periods=8):
+    """Each kernel's bound over one chunk's launches (:func:`route_call`):
+    the fused kernel's one launch, or the staged route's launches of
+    ``launch_periods`` periods, K-SF's and the window scan's each summed
+    over them."""
+    import torch
+    from lightkurve_tpu_torch.config import numpy_dtype
+    from lightkurve_tpu_torch.ops.bls_fused import (fold_rows,
+                                                    max_nbins_bound,
+                                                    nbins_per_period)
+    from lightkurve_tpu_torch.parallel.checkpoint import _chunk_nbins, _k_max
+    dtype = stack.flux.dtype
+    B, n = stack.flux.shape
+    err = stack.flux_err
+    uniform = bool(torch.all(stack.mask)) and bool(
+        torch.all(err == err[:, :1]))
+    d_phase = float(DURATIONS.min()) / OVERSAMPLE
+    p_host = np.asarray(periods).astype(numpy_dtype(dtype))
+    k_durs = tuple(int(max(int(d / d_phase + 0.5), 1)) for d in DURATIONS)
+    common = (k_durs, tuple(float(d) for d in DURATIONS), d_phase)
+    nbins = _chunk_nbins(p_host, d_phase, _k_max(DURATIONS, d_phase))
+    max_nbp = max_nbins_bound(p_host, d_phase, dtype)
+    pc = torch.as_tensor(p_host, device="cuda")
+    t = stack.time[0].to(dtype)
+    ts = (t - t.min()).to(dtype)
+    meta = lambda *shape: torch.empty(shape, dtype=dtype,  # noqa: E731
+                                      device="meta")
+    if impl == "auto":
+        if uniform:
+            return {"K-F": bound_fused(ts, meta(n, B), pc, *common, nbins,
+                                       max_nbp)[0]}
+        return {"K-WF": bound_weighted_fused(ts, meta(n, B), meta(n, B), pc,
+                                             *common, nbins, max_nbp)[0]}
+    npad = fold_rows(nbins, max_nbp, max(k_durs))
+    cols = B if uniform else 2 * B
+    window = "K-U" if uniform else "K-W"
+    total = {"K-SF": 0.0, window: 0.0}
+    for i in range(0, len(p_host), launch_periods):
+        p = pc[i:i + launch_periods]
+        C, nbp = p.shape[0], nbins_per_period(p, d_phase)
+        total["K-SF"] += bound_staged_fold(ts, meta(n, cols), p, d_phase,
+                                           nbins, max_nbp, max(k_durs))[0]
+        total[window] += (
+            bound_uniform(meta(C, npad, B), meta(C, npad), nbp, p,
+                          meta(B), float(n), *common)[0] if uniform
+            else bound_weighted(meta(C, npad, cols), nbp, p, meta(cols),
+                                *common)[0])
+    return total
+
+
 def phase_profile(tmp, B=2048):
     """One SweepRunner chunk per shared-grid cell, traced after a warm-up
     run of the same chunk: the upper 12,500 periods of the uniform cell's
     grid and the upper 2048 of the weighted cell's (B x 8192), chunk 4 of
     the two-sector sweep (its last 1,024 periods, B x 38,880, on the auto
-    route) and the upper 2048 periods of the mixed-grid sweep.  Prints device
-    time per kernel and the device's idle share of the chunk's wall time
-    (the profiler adds host cost to every launch, so this share is an
-    upper bound of the untraced one)."""
+    route) and the upper 2048 periods of the mixed-grid sweep; and the two
+    forced staged chunks of phases 4 and 6 (the weighted cell's first 2048
+    periods, the two-sector chunk 4) through the entry point
+    (:func:`route_call`).  Prints device time per kernel, the device's
+    idle share of the chunk's wall time (the profiler adds host cost to
+    every launch, so this share is an upper bound of the untraced one) and
+    each kernel's bound over the chunk's launches (single-grid cells)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -1276,19 +1661,28 @@ def phase_profile(tmp, B=2048):
         np.tile(t, (B, 1)), flux, np.full_like(flux, ms.NOISE),
         np.ones(flux.shape, bool), device="cuda", dtype=torch.float32)
     weighted, _ = spoc_like_stack(B)
-    cells = (("uniform", uniform, np.linspace(1.0, top, 25_000)[12_500:]),
-             ("weighted", weighted, np.linspace(1.0, top, 4096)[2048:]),
-             ("two sectors, chunk 4",
-              long_sector_stack(B, n_sectors=2, p_max=17.0)[0],
-              np.linspace(*TWO_SECTOR_GRID)[3072:]),
+    two = long_sector_stack(B, n_sectors=2, p_max=17.0)[0]
+    weighted_grid = np.linspace(1.0, top, 4096)
+    cells = (("uniform", uniform, np.linspace(1.0, top, 25_000)[12_500:],
+              "auto"),
+             ("weighted", weighted, weighted_grid[2048:], "auto"),
+             ("two sectors, chunk 4", two,
+              np.linspace(*TWO_SECTOR_GRID)[3072:], "auto"),
+             ("two sectors, chunk 4, staged route", two,
+              np.linspace(*TWO_SECTOR_GRID)[3072:], "staged"),
+             ("weighted, chunk 1, staged route", weighted,
+              weighted_grid[:2048], "staged"),
              ("mixed grids", mixed_grid_stack(B)[0],
-              mixed_grid_periods()[2048:]))
-    for i, (name, stack, periods) in enumerate(cells):
+              mixed_grid_periods()[2048:], "auto"))
+    for i, (name, stack, periods, impl) in enumerate(cells):
         def chunk(tag):
-            SweepRunner(stack, periods, DURATIONS,
-                        os.path.join(tmp, f"profile_{i}_{tag}.npz"),
-                        chunk_periods=len(periods), method="shared",
-                        async_save=True).run()
+            if impl == "auto":
+                SweepRunner(stack, periods, DURATIONS,
+                            os.path.join(tmp, f"profile_{i}_{tag}.npz"),
+                            chunk_periods=len(periods), method="shared",
+                            async_save=True).run()
+            else:
+                route_call(stack, periods, impl)
             torch.cuda.synchronize()
 
         chunk("warm")
@@ -1322,20 +1716,26 @@ def phase_profile(tmp, B=2048):
         for k, (us, cnt) in sorted(by_name.items(),
                                    key=lambda kv: -kv[1][0])[:8]:
             log(f"  {us / 1e3:10.3f} ms {us / device:.4f} x{cnt} {k[:100]}")
+        if name != "mixed grids":
+            log(f"  bounds over the chunk's launches: " + ", ".join(
+                f"{k} {v:.3f} ms" for k, v in
+                chunk_bounds(stack, periods, impl).items()))
 
 
 def kernel_table():
     """Each kernel's wrapper (which counts launches) and plain version
     (which counts calls)."""
     from lightkurve_tpu_torch.ops import (bls_fused, bls_fused_weighted,
-                                          bls_window)
+                                          bls_staged_fold, bls_window)
     return {"K-F": (bls_fused.fused_scan_uniform,
                     bls_fused.fused_scan_uniform_plain),
             "K-WF": (bls_fused_weighted.fused_scan_weighted,
                      bls_fused_weighted.fused_scan_weighted_plain),
             "K-W": (bls_window.window_scan, bls_window.window_scan_plain),
             "K-U": (bls_window.window_scan_uniform,
-                    bls_window.window_scan_uniform_plain)}
+                    bls_window.window_scan_uniform_plain),
+            "K-SF": (bls_staged_fold.staged_fold,
+                     bls_staged_fold.staged_fold_plain)}
 
 
 def drive(name, fn, *args, expect=(), forbid=()):
@@ -1374,6 +1774,9 @@ KERNELS = (
      "bls_window.cu", "lightkurve_tpu/ops/bls_window_pallas.py:316"),
     ("K-U", "K-U uniform BLS window scan", "lightkurve_tpu_torch/csrc/"
      "bls_window_uniform.cu", "lightkurve_tpu/ops/bls_window_pallas.py:253"),
+    ("K-SF", "K-SF bin-ordered staged BLS fold", "lightkurve_tpu_torch/csrc/"
+     "bls_staged_fold.cu", "lightkurve_tpu/ops/bls.py:340-373 (XLA one-hot "
+     "fold + cumsum)"),
 )
 
 
@@ -1434,8 +1837,17 @@ def main():
         path = "per-curve sweeps (phase 8)"
         pcv, runs[path] = drive(path, phase_percurve, tmp, forbid=others())
     torch.cuda.empty_cache()
-    errs, times, bounds = phase_main_shapes()
-    errs["K-U"], times["K-U"], bounds["K-U"], kf_err = phase_long_shapes()
+    path = "past the one-hot ceiling (phase 9)"
+    big, runs[path] = drive(path, phase_past_ceiling,
+                            expect=("K-SF", "K-U"),
+                            forbid=others("K-SF", "K-U"))
+    check_past_ceiling(big)
+    del big
+    torch.cuda.empty_cache()
+    errs, times, bounds, per_launch = phase_main_shapes()
+    long, library, kf_err = phase_long_shapes()
+    for key, (e, t, b, per) in long.items():
+        errs[key], times[key], bounds[key], per_launch[key] = e, t, b, per
     errs["K-F"] = max(errs["K-F"], kf_err)
     log(f"main paths: uniform {uni['rate']:.6g}, weighted "
         f"{wei['rate']:.6g}, long sector {lng['rate']:.6g}, two sectors "
@@ -1451,7 +1863,10 @@ def main():
          "launches_by_path": {p: r[key] for p, r in runs.items() if r[key]},
          "max_abs_err": errs[key], "ms": times[key][0],
          "plain_ms": times[key][1], "bound_ms": bounds[key][0],
-         "bound_by": bounds[key][1], "library_ms": None}
+         "bound_by": bounds[key][1],
+         "library_ms": library if key == "K-SF" else None,
+         "launch_ms": per_launch.get(key, (None, None))[0],
+         "launch_bound_ms": per_launch.get(key, (None, None))[1]}
         for key, name, source, replaces in KERNELS]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

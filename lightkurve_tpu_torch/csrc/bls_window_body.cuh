@@ -1,11 +1,12 @@
 // Duration-window scan bodies shared by the BLS kernels.
 //
-// The scan functions run the window search for ONE (trial period, curve)
-// pair on one thread: every start bin r < nbp and every duration k <= nbp
-// in the static duration list, over inclusive bin prefix sums whose
-// circular wrap extension rows [nbp, nbp + k_max - 1) are already filled
-// in.  Both scans are also split into their per-duration range search and
-// their winner reconstruction, so several threads can share one pair.
+// The window search of ONE (trial period, curve) pair covers every start
+// bin r < nbp and every duration k <= nbp in the static duration list,
+// over inclusive bin prefix sums whose circular wrap extension rows
+// [nbp, nbp + k_max - 1) are already filled in.  Each regime has its
+// per-duration range search (the fused kernels split it over lanes) and
+// its winner reconstruction (shared with the one-pass scans of
+// bls_window_rows.cuh).
 //
 // Semantics are those of the staged scans in lightkurve_tpu/ops/bls.py
 // (_bls_shared_scan_uniform for counts, _bls_shared_scan for weights):
@@ -111,31 +112,6 @@ __device__ __forceinline__ void lk_uniform_window_finish(
   *out_dur = (T)durs.value[best_j];
 }
 
-// The whole uniform scan of one (period, curve) on one thread.  rows:
-// number of valid prefix rows (windows reaching past it are invalid).
-template <typename T, typename CountT>
-__device__ void lk_uniform_window_scan(
-    const T* cy, int stride, const CountT* cn, int nbp, int rows, T period,
-    T tot_y, T n_total, const LkDurations& durs, T d_phase, bool likelihood,
-    T* out_power, T* out_depth, T* out_n_in, T* out_t0, T* out_dur) {
-  T best_v = lk_neg_inf<T>();
-  int best_arg = 0, best_j = 0;
-  for (int j = 0; j < durs.n; ++j) {
-    const int k = durs.k[j];
-    T v = lk_neg_inf<T>();
-    int arg = 0;
-    if (k <= nbp)
-      lk_uniform_window_best<T, CountT>(cy, stride, cn, k, 0,
-                                        min(nbp, rows - k + 1), tot_y,
-                                        n_total, likelihood, &v, &arg);
-    if (j == 0 || v > best_v) { best_v = v; best_arg = arg; best_j = j; }
-  }
-  lk_uniform_window_finish<T, CountT>(cy, stride, cn, best_v, best_arg,
-                                      best_j, period, tot_y, n_total, durs,
-                                      d_phase, out_power, out_depth, out_n_in,
-                                      out_t0, out_dur);
-}
-
 // Per-sample weights.  cw / cwy: prefixes of sum(w) and sum(w*y) for this
 // curve, row r at [r * stride]; tw / twy: the curve's totals.  Outputs
 // power, depth and the RAW w_in at each duration's first argmax (depth
@@ -193,28 +169,4 @@ __device__ __forceinline__ void lk_weighted_window_keep(
   best->w_in = w_in;
   best->t0 = lk_transit_time<T>(arg, k, d_phase, period);
   best->dur = dur_value;
-}
-
-// The whole weighted scan of one (period, curve) on one thread.
-template <typename T>
-__device__ void lk_weighted_window_scan(
-    const T* cw, const T* cwy, int stride, int nbp, T period, T tw, T twy,
-    const LkDurations& durs, T d_phase, bool likelihood,
-    T* out_power, T* out_depth, T* out_w_in, T* out_t0, T* out_dur) {
-  LkWeightedBest<T> best = {lk_neg_inf<T>(), 0, 0, 0, 0};
-  for (int j = 0; j < durs.n; ++j) {
-    const int k = durs.k[j];
-    T v = lk_neg_inf<T>();
-    int arg = 0;
-    if (k <= nbp)
-      lk_weighted_window_best<T>(cw, cwy, stride, k, 0, nbp, tw, twy,
-                                 likelihood, &v, &arg);
-    lk_weighted_window_keep<T>(cw, cwy, stride, nbp, k, j == 0, v, arg, tw,
-                               twy, period, d_phase, (T)durs.value[j], &best);
-  }
-  *out_power = best.v;
-  *out_depth = best.depth;
-  *out_w_in = best.w_in;
-  *out_t0 = best.t0;
-  *out_dur = best.dur;
 }

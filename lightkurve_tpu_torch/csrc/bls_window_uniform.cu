@@ -6,98 +6,172 @@
 //
 // Input: cs_y (C, npad, B), inclusive bin prefix sums of the mean-shifted
 // flux over the circular double-deposit fold; cs_n (C, npad), the count
-// prefix shared by every curve (both made by ops.bls_fused.uniform_fold:
-// one-hot product, compare-and-sum, cumsum); per-period bin counts
-// nbins_p (C,), periods pc (C,), per-curve totals tot_y (B,).  Output: five
-// (C, B) arrays -- power, depth, n_in, transit time and duration of each
-// (period, curve) winner, COUNT-based (the caller rescales by the curve
-// weight).
+// prefix shared by every curve (both made by K-SF, ops/bls_staged_fold);
+// per-period bin counts nbins_p (C,), periods pc (C,), per-curve totals
+// tot_y (B,).  Output: five (C, B) arrays -- power, depth, n_in, transit
+// time and duration of each (period, curve) winner, COUNT-based (the caller
+// rescales by the curve weight).
 //
-// What bounds it on the H100: bytes.  Every prefix value is needed once
-// (cs_y is C x npad x B values, the count column is shared by all curves),
-// and the window arithmetic is ~12 operations per (start bin, duration,
-// curve), which at D = 6 durations puts the ridge near 18 operations per
-// byte -- below the card's 20 f32 operations per byte, so the floor is the
-// one pass over cs_y.  The window loop re-reads each prefix value 2 x D
-// times; those re-reads hit L1/L2 because a warp's 32 lanes read 32
-// adjacent curves of one row (one 128-byte segment per load).
+// What bounds it on the H100: bytes, one pass over cs_y (C x npad x B
+// values; the count column is shared by all curves).  The first design
+// looped over durations outside and start rows inside, so each thread
+// streamed its curve's column once per duration and read two prefix values
+// per window: a block's 475 KB slab crossed L2 and device memory ~2 x D
+// times, and every thread recomputed the count terms (two divisions) of
+// every window for its own curve.  That ran at 17x the one-pass bound.
 //
-// Design: a block holds 32 curves of one period (lane = threadIdx.x, the
-// fastest axis of cs_y) and kSplits threads per curve (threadIdx.y), each
-// scanning one contiguous run of start bins for every duration.  Per
-// duration the runs are combined in ascending order with strict >, so the
-// first maximum wins exactly as the staged scan's argmax does; over
-// durations a later one wins only if strictly greater.  The split makes a
-// launch of SweepRunner's 8 periods 8 x B/32 blocks of 256 threads rather
-// than the 8 x B/128 blocks of 128 threads one thread per (period, curve)
-// would give (K-W's starvation at that width).  A period whose windows
-// would reach past its npad rows gets NaN statistics.  No dynamic shared
-// memory, no atomics, no allocation; launched on the caller's stream.
+// Design (bls_window_rows.cuh): a block holds 32 curves of one period and 8
+// threads per curve, and walks the start rows in tiles.  Per tile it
+// stages the prefix rows the tile reads into shared memory, and computes
+// the count terms of each (start row, duration) once for all its curves
+// (1/n_out, 1/n_in + 1/n_out, and 0.5 n_in or its reciprocal square root;
+// NaN for an invalid window, which then never wins).  Each thread then
+// takes a contiguous run of the tile's start rows and evaluates every
+// duration at each row: one prefix read, a difference, two products and a
+// compare per window and curve.  What holds it now is instructions, not
+// bytes: that window arithmetic times the durations, and a per-tile cost
+// (the row copies, the count terms, the barriers) as large as one
+// duration's windows, run at about four times the one-pass bound.  A
+// period whose windows would reach past its npad rows gets NaN statistics.
+// No atomics, no allocation; launched on the caller's stream.
 #include <cuda_runtime.h>
 
 #include "bls_window_body.cuh"
+#include "bls_window_rows.cuh"
 
 namespace {
 
-constexpr int kLanes = 32;    // curves per block
-constexpr int kSplits = 8;    // threads per (period, curve)
-
+// The count terms of one (start row, duration), shared by all curves.
 template <typename T>
-__global__ void __launch_bounds__(kLanes * kSplits)
+struct __align__(4 * sizeof(T)) LkCounts {
+  T inv_out, s, m, pad;
+};
+
+template <typename T, int DMAX, bool kStaged>
+__global__ void __launch_bounds__(kLkRowLanes * kLkRowSplits)
 uniform_window_kernel(const T* __restrict__ cs_y, const T* __restrict__ cs_n,
                       const int* __restrict__ nbins_p,
                       const T* __restrict__ pc, const T* __restrict__ tot_y,
-                      int npad, int B, int k_max, LkDurations durs,
-                      T d_phase, T n_total, int likelihood, T* power,
-                      T* depth, T* n_in, T* t0, T* dur) {
-  __shared__ T part_v[kSplits][kLanes];
-  __shared__ int part_arg[kSplits][kLanes];
-  const int c = blockIdx.x;
+                      int npad, int B, int k_max, int row_tile,
+                      LkDurations durs, T d_phase, T n_total, int likelihood,
+                      T* power, T* depth, T* n_in, T* t0, T* dur) {
+  extern __shared__ __align__(32) unsigned char lk_smem[];
+  const int c = blockIdx.y;
   const int lane = threadIdx.x, split = threadIdx.y;
-  const int b = blockIdx.y * kLanes + lane;
+  const int b = blockIdx.x * kLkRowLanes + lane;
   const bool active = b < B;
   const size_t o = (size_t)c * B + b;
   const int nbp = nbins_p[c];
   if (nbp + min(k_max, nbp) - 1 > npad) {
     // a window would read past this period's npad rows: NaN, never a read
-    // into the next period's slab (the test is the same for the whole
-    // block, before any barrier)
+    // into the next period's slab (the same for the whole block)
     if (active && split == 0)
       power[o] = depth[o] = n_in[o] = t0[o] = dur[o] = (T)NAN;
     return;
   }
-  const T* cy = cs_y + (size_t)c * npad * B + (active ? b : 0);
+  const int nd = durs.n;
+  const int b0 = blockIdx.x * kLkRowLanes;
+  const T* cy0 = cs_y + (size_t)c * npad * B + b0;
+  const T* cy = cy0 + (active ? lane : 0);
   const T* cn = cs_n + (size_t)c * npad;
   const T ty = active ? tot_y[b] : (T)0;
   const bool like = likelihood != 0;
-  T best_v = lk_neg_inf<T>();
-  int best_arg = 0, best_j = 0;
-  for (int j = 0; j < durs.n; ++j) {
-    const int k = durs.k[j];
-    T v = lk_neg_inf<T>();
-    int arg = 0;
-    if (active && k <= nbp) {
-      const int r_end = min(nbp, npad - k + 1);
-      const int per = (r_end + kSplits - 1) / kSplits;
-      const int lo = min(split * per, r_end), hi = min(lo + per, r_end);
-      lk_uniform_window_best<T, T>(cy, B, cn, k, lo, hi, ty, n_total, like,
-                                   &v, &arg);
-    }
-    part_v[split][lane] = v;
-    part_arg[split][lane] = arg;
-    __syncthreads();
-    if (split == 0) {
-      for (int s = 1; s < kSplits; ++s) {
-        if (part_v[s][lane] > v) { v = part_v[s][lane]; arg = part_arg[s][lane]; }
+  LkCounts<T>* counts = reinterpret_cast<LkCounts<T>*>(lk_smem);
+  T* tile = reinterpret_cast<T*>(counts + row_tile * nd);
+  // the count prefix rows of the tile, staged with the flux rows
+  T* cn_tile = tile + (row_tile + k_max) * kLkRowLanes;
+  LkTileRows<T, 1, kStaged> rows{tile, {cy0}, B, 0};
+  const int tid = split * kLkRowLanes + lane;
+  T v[DMAX];
+  int arg[DMAX];
+  lk_best_init<T, DMAX>(v, arg);
+  for (int r0 = 0; r0 < nbp; r0 += row_tile) {
+    const int n_start = min(row_tile, nbp - r0);
+    rows.r0 = r0;
+    __syncthreads();  // the previous tile is consumed
+    if (kStaged) {
+      const int n_rows = n_start + k_max;
+      rows.stage(tile, r0, min(kLkRowLanes, B - b0), n_rows, npad);
+      for (int i = tid; i < n_rows; i += kLkRowLanes * kLkRowSplits) {
+        const int r = r0 - 1 + i;
+        if (r >= 0 && r < npad)
+          __pipeline_memcpy_async(&cn_tile[i], &cn[r], sizeof(T));
+        else
+          cn_tile[i] = (T)0;
       }
-      if (j == 0 || v > best_v) { best_v = v; best_arg = arg; best_j = j; }
+      lk_stage_wait();
+      __syncthreads();
+    }
+    for (int e = tid; e < n_start * nd; e += kLkRowLanes * kLkRowSplits) {
+      const int i = e / nd, j = e - i * nd;
+      const int r = r0 + i, k = durs.k[j];
+      LkCounts<T> q = {(T)NAN, (T)NAN, (T)NAN, (T)0};
+      if (k <= nbp) {
+        // prefix rows r - 1 and r + k - 1 (row -1 is 0)
+        const T lo_n = kStaged ? cn_tile[i] : (r > 0 ? cn[r - 1] : (T)0);
+        const T hi_n = kStaged ? cn_tile[i + k] : cn[r + k - 1];
+        const T n_in_w = hi_n - lo_n;
+        const T n_out_w = n_total - n_in_w;
+        if (n_in_w > (T)0 && n_out_w > (T)0) {
+          const T inv_in = (T)1 / n_in_w;
+          const T inv_out = (T)1 / n_out_w;
+          const T s = inv_in + inv_out;
+          q = {inv_out, s, like ? (T)0.5 * n_in_w : lk_rsqrt(s), (T)0};
+        }
+      }
+      counts[i * nd + j] = q;
     }
     __syncthreads();
+    int lo, hi;
+    lk_split_run(n_start, &lo, &hi);
+    for (int i = lo; active && i < hi; ++i) {
+      const T lo_y = rows.get(i, 0);
+#pragma unroll
+      for (int j = 0; j < DMAX; ++j) {
+        if (j < nd && durs.k[j] <= nbp) {
+          const LkCounts<T> q = counts[i * nd + j];
+          const T y_in = rows.get(i + durs.k[j], 0) - lo_y;
+          const T dep = ty * q.inv_out - y_in * q.s;
+          const T obj = like ? q.m * dep * dep : dep * q.m;
+          if (obj > v[j]) {
+            v[j] = obj;
+            arg[j] = r0 + i;
+          }
+        }
+      }
+    }
   }
+  lk_combine_splits<T, DMAX>(v, arg, nd, lk_smem);
   if (split != 0 || !active) return;
+  T best_v = v[0];
+  int best_arg = arg[0], best_j = 0;
+#pragma unroll
+  for (int j = 1; j < DMAX; ++j) {
+    if (j < nd && v[j] > best_v) {
+      best_v = v[j];
+      best_arg = arg[j];
+      best_j = j;
+    }
+  }
   lk_uniform_window_finish<T, T>(cy, B, cn, best_v, best_arg, best_j, pc[c],
                                  ty, n_total, durs, d_phase, power + o,
                                  depth + o, n_in + o, t0 + o, dur + o);
+}
+
+template <typename T, int DMAX, bool kStaged>
+int launch_kernel(const LkRowsPlan& plan, dim3 grid, dim3 block,
+                  cudaStream_t stream, const T* cs_y, const T* cs_n,
+                  const int* nbins_p, const T* pc, const T* tot_y, int npad,
+                  int B, int k_max, const LkDurations& durs, T d_phase,
+                  T n_total, int likelihood, T* power, T* depth, T* n_in,
+                  T* t0, T* dur) {
+  auto kernel = uniform_window_kernel<T, DMAX, kStaged>;
+  const int code = lk_allow_smem(kernel, plan.smem);
+  if (code != 0) return code;
+  kernel<<<grid, block, plan.smem, stream>>>(
+      cs_y, cs_n, nbins_p, pc, tot_y, npad, B, k_max, plan.row_tile, durs,
+      d_phase, n_total, likelihood, power, depth, n_in, t0, dur);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -106,7 +180,8 @@ int launch(const T* cs_y, const T* cs_n, const int* nbins_p, const T* pc,
            const double* dur_values, int n_durs, double d_phase,
            double n_total, int likelihood, T* power, T* depth, T* n_in,
            T* t0, T* dur, void* stream) {
-  if (n_durs < 1 || n_durs > LK_MAX_DURS || C < 1 || B < 1 || npad < 1)
+  if (n_durs < 1 || n_durs > LK_MAX_DURS || C < 1 || C > 65535 || B < 1 ||
+      npad < 1)
     return (int)cudaErrorInvalidValue;
   LkDurations durs;
   durs.n = n_durs;
@@ -117,12 +192,23 @@ int launch(const T* cs_y, const T* cs_n, const int* nbins_p, const T* pc,
     k_max = max(k_max, k_durs[j]);
   }
   if (k_max > npad) return (int)cudaErrorInvalidValue;
-  dim3 grid(C, (B + kLanes - 1) / kLanes);
-  dim3 block(kLanes, kSplits);
-  uniform_window_kernel<T><<<grid, block, 0, (cudaStream_t)stream>>>(
-      cs_y, cs_n, nbins_p, pc, tot_y, npad, B, k_max, durs, (T)d_phase,
-      (T)n_total, likelihood, power, depth, n_in, t0, dur);
-  return (int)cudaGetLastError();
+  const LkRowsPlan plan = lk_rows_plan(
+      k_max, 1, sizeof(T), n_durs * sizeof(LkCounts<T>), sizeof(T));
+  // the curve tiles of one period run side by side: together they read
+  // whole rows of the prefix sums
+  dim3 grid((B + kLkRowLanes - 1) / kLkRowLanes, C);
+  dim3 block(kLkRowLanes, kLkRowSplits);
+  cudaStream_t s = (cudaStream_t)stream;
+#define LK_LAUNCH(DMAX, STAGED)                                              \
+  launch_kernel<T, DMAX, STAGED>(plan, grid, block, s, cs_y, cs_n, nbins_p, \
+                                 pc, tot_y, npad, B, k_max, durs,           \
+                                 (T)d_phase, (T)n_total, likelihood, power, \
+                                 depth, n_in, t0, dur)
+  if (n_durs <= 8)
+    return plan.staged ? LK_LAUNCH(8, true) : LK_LAUNCH(8, false);
+  return plan.staged ? LK_LAUNCH(LK_MAX_DURS, true)
+                     : LK_LAUNCH(LK_MAX_DURS, false);
+#undef LK_LAUNCH
 }
 
 }  // namespace

@@ -132,6 +132,9 @@ def _declare_cuda(lib):
         [P, P, P, P, P, I, I, I, P, P, I, D, D, I] + [P] * 5 + [P])
     lib.lk_bls_window_uniform_f64.argtypes = \
         lib.lk_bls_window_uniform_f32.argtypes
+    lib.lk_bls_staged_fold_f32.argtypes = [P, P, P, I, I, I, I, I, P, P, P]
+    lib.lk_bls_staged_fold_f64.argtypes = \
+        lib.lk_bls_staged_fold_f32.argtypes
     IP = ctypes.POINTER(ctypes.c_int)
     lib.lk_bls_fused_uniform_block.argtypes = [I, I, IP, IP]
     lib.lk_bls_fused_weighted_block.argtypes = [I, I, IP, IP]
@@ -139,6 +142,7 @@ def _declare_cuda(lib):
                lib.lk_bls_fused_uniform_f32, lib.lk_bls_fused_uniform_f64,
                lib.lk_bls_fused_weighted_f32, lib.lk_bls_fused_weighted_f64,
                lib.lk_bls_window_uniform_f32, lib.lk_bls_window_uniform_f64,
+               lib.lk_bls_staged_fold_f32, lib.lk_bls_staged_fold_f64,
                lib.lk_bls_fused_uniform_block,
                lib.lk_bls_fused_weighted_block):
         fn.restype = ctypes.c_int

@@ -8,27 +8,26 @@ same for every curve at each trial period.  Two regimes, each with two
 routes chosen on the host from shapes before any launch (``fold_impl``,
 :func:`fold_route`): a fused kernel (fold, prefix sums and window scan in
 one launch per call, one warp per (period, curve), while a block of one
-warp fits the card's shared memory), or the staged route (a torch one-hot
-fold, a cumsum and a window kernel), whose limit is device memory
-instead.  Either takes the flux as (n, B) views of the (B, n) batch, the
-layout the fused kernels read, so neither route copies it to change
-layout.
+warp fits the card's shared memory), or the staged route (the fold
+kernel K-SF, :mod:`.bls_staged_fold`, then a window kernel), whose limit
+is device memory instead.  Either takes the flux as (n, B) views of the
+(B, n) batch, the layout the fused kernels read; the staged route makes
+one contiguous (n, cols) copy per call for K-SF.
 
 * **uniform** -- every curve's weights are constant in time (``dy=None``
   or one ``dy`` per curve).  Box statistics then depend only on counts,
   and each curve's weight re-enters as a scalar rescale
   (:func:`_uniform_stats_rescale`).  Fused: kernel K-F (:mod:`.bls_fused`).
-  Staged: :func:`.bls_fused.uniform_fold` and the window kernel K-U
-  (:func:`.bls_window.window_scan_uniform`); the fold holds about
-  ``npad * n * (2 + itemsize)`` bytes per period, and the route takes as
-  many periods per call as half the free memory holds, at least one
-  (:func:`staged_slice`).
+  Staged: K-SF and the window kernel K-U
+  (:func:`.bls_window.window_scan_uniform`); the fold holds its prefix
+  rows and its deposit indices (:func:`staged_fold_bytes`) per period,
+  and the route takes as many periods per call as half the free memory
+  holds, at least one (:func:`staged_slice`).
 * **weighted** -- per-sample ``dy`` and masked samples (``dy = inf``), as
   real mission data has.  Fused: kernel K-WF (:mod:`.bls_fused_weighted`).
-  Staged: the one-hot product over ``[w | w*y]`` and its cumulative sum
-  (:func:`.bls_fused_weighted.weighted_fold`, full float32, TF32 off) and
-  the window kernel K-W (:mod:`.bls_window`), as many periods per call as
-  half the free memory holds (:func:`staged_slice`).
+  Staged: K-SF over ``[w | w*y]`` and the window kernel K-W
+  (:mod:`.bls_window`), as many periods per call as half the free memory
+  holds (:func:`staged_slice`).
 
 **Per curve** (:func:`bls_power`, exact; :func:`bls_power_binned`, fast):
 each curve folds on its own time grid, in plain torch with the curves as
@@ -44,8 +43,9 @@ import torch
 
 from ..config import numpy_dtype
 from .bls_fused import (fold_rows, fused_fits, fused_scan_uniform,
-                        max_nbins_bound, uniform_fold)
-from .bls_fused_weighted import fused_scan_weighted, weighted_fold
+                        max_nbins_bound)
+from .bls_fused_weighted import fused_scan_weighted
+from .bls_staged_fold import staged_fold
 from .bls_window import window_scan, window_scan_uniform
 
 __all__ = ["bls_power_shared_batch", "bls_power", "bls_power_direct",
@@ -56,23 +56,22 @@ FOLD_IMPLS = ("auto", "fused", "staged")
 
 def _staged_scan_weighted(ts, W, WY, periods, k_durs, dur_values, d_phase,
                           nbins, max_nbins_p, use_likelihood, chunk, wrap):
-    """The staged weighted route: the torch fold
-    (:func:`.bls_fused_weighted.weighted_fold`: one-hot product and cumsum)
-    then K-W, ``chunk`` periods at a time, fewer where the fold's memory
-    would pass the device's free memory (:func:`staged_slice`).  Returns a
-    dict of (P, B) tensors, as
+    """The staged weighted route: K-SF over ``[w | w*y]``
+    (:func:`.bls_staged_fold.staged_fold`) then K-W, ``chunk`` periods at
+    a time, fewer where the fold's memory would pass the device's free
+    memory (:func:`staged_slice`).  Returns a dict of (P, B) tensors, as
     :func:`.bls_fused_weighted.fused_scan_weighted` does."""
     n, B = W.shape
-    WWY = torch.cat([W, WY], dim=1)                            # (n, 2B)
-    total = WWY.sum(0)                                         # (2B,)
+    WWY = torch.cat([W, WY], dim=1)               # (n, 2B), contiguous
+    total = WWY.sum(0)
     npad = fold_rows(nbins, max_nbins_p, max(k_durs))
     step = staged_slice(chunk, npad, n, 2 * B, W.element_size(),
                         _free_device_bytes(W.device))
     parts = []
     for i in range(0, periods.shape[0], step):
         pc = periods[i:i + step]
-        csum, nbp = weighted_fold(ts, WWY, pc, d_phase, nbins, max_nbins_p,
-                                  max(k_durs), wrap)
+        csum, _, nbp = staged_fold(ts, WWY, pc, d_phase, nbins, max_nbins_p,
+                                   max(k_durs), wrap)
         parts.append(window_scan(csum, nbp, pc, total, k_durs, dur_values,
                                  d_phase, use_likelihood))
         del csum
@@ -121,7 +120,7 @@ def _uniform_stats_rescale(best, n_in_b, c_b, n_total, use_likelihood):
 def fold_route(fold_impl, max_nbins_p, k_max, dtype, device,
                weighted=False):
     """The route of one call: ``"fused"`` (K-F, or K-WF when ``weighted``)
-    or ``"staged"`` (the torch fold and K-U, or K-W).  ``"auto"`` takes
+    or ``"staged"`` (K-SF and K-U, or K-W).  ``"auto"`` takes
     the fused kernel when a block of one warp with the rows this call's
     periods need (``max_nbins_p + k_max - 1``) fits the shared memory of
     ``device`` (:func:`.bls_fused.fused_fits`; the kernel then picks its
@@ -145,13 +144,15 @@ STAGED_MEMORY_SHARE = 0.5
 
 
 def staged_fold_bytes(npad, n, cols, itemsize):
-    """Device bytes a staged fold holds for one period: its one-hot
-    (npad, n) as bool and in the data dtype, a second (npad, n) compare
-    as bool (the count prefix of :func:`.bls_fused.uniform_fold`, the wrap
-    deposit of :func:`.bls_fused_weighted.weighted_fold`), and the
-    histogram and its prefix (npad, cols): ``cols`` is B for the uniform
-    fold's flux, 2B for the weighted fold's ``[w | w*y]``."""
-    return npad * n * (2 + itemsize) + 2 * npad * cols * itemsize
+    """Device bytes a staged fold holds for one period: its prefix rows
+    (npad, cols) (``cols`` is B for the uniform regime's flux, 2B for the
+    weighted regime's ``[w | w*y]``) and its index bytes
+    (:func:`.bls_staged_fold.fold_deposits`): per cadence 64 (its fold
+    bin and wrap row, and for its two deposits the row, the sorted row,
+    the sort's int64 order, its int64 remainder and the int32 source), per
+    row 16 (the searched edge, the int64 and int32 row starts) and the
+    count prefix."""
+    return npad * cols * itemsize + 64 * n + npad * (16 + itemsize)
 
 
 def _free_device_bytes(device):
@@ -179,22 +180,23 @@ def staged_slice(chunk, npad, n, cols, itemsize, free_bytes):
 
 def _staged_scan_uniform(ts, Y0, periods, k_durs, dur_values, d_phase, nbins,
                          max_nbins_p, use_likelihood, chunk, wrap):
-    """The staged uniform route: the torch fold
-    (:func:`.bls_fused.uniform_fold`) then K-U, ``chunk`` periods at a
-    time, fewer where the fold's memory (:func:`staged_fold_bytes`) would
-    pass the device's free memory (:func:`staged_slice`).  Returns a dict
-    of (P, B) count-based statistics, as
+    """The staged uniform route: K-SF (:func:`.bls_staged_fold.staged_fold`,
+    on one contiguous copy of ``Y0`` per call) then K-U, ``chunk`` periods
+    at a time, fewer where the fold's memory (:func:`staged_fold_bytes`)
+    would pass the device's free memory (:func:`staged_slice`).  Returns a
+    dict of (P, B) count-based statistics, as
     :func:`.bls_fused.fused_scan_uniform` does."""
     n, B = Y0.shape
     tot_y = Y0.sum(0)
+    Yc = Y0.contiguous()
     npad = fold_rows(nbins, max_nbins_p, max(k_durs))
     step = staged_slice(chunk, npad, n, B, Y0.element_size(),
                         _free_device_bytes(Y0.device))
     parts = []
     for i in range(0, periods.shape[0], step):
         pc = periods[i:i + step]
-        cs_y, cs_n, nbp = uniform_fold(ts, Y0, pc, d_phase, nbins,
-                                       max_nbins_p, max(k_durs), wrap)
+        cs_y, cs_n, nbp = staged_fold(ts, Yc, pc, d_phase, nbins,
+                                      max_nbins_p, max(k_durs), wrap)
         parts.append(window_scan_uniform(cs_y, cs_n, nbp, pc, tot_y, float(n),
                                          k_durs, dur_values, d_phase,
                                          use_likelihood))
@@ -295,8 +297,9 @@ def bls_power_shared_batch(t, Y, dy, periods, durations, oversample=10,
     fold_impl : the route of either regime (:func:`fold_route`):
         ``"auto"`` (the fused kernel while a block of one warp fits the
         card's shared memory for the periods of the call, or of each
-        ``bucket`` group; the staged route otherwise), ``"fused"`` (K-F or K-WF; raises where one curve's rows
-        do not fit) or ``"staged"`` (the torch fold and K-U or K-W).
+        ``bucket`` group; the staged route otherwise), ``"fused"`` (K-F
+        or K-WF; raises where one curve's rows do not fit) or ``"staged"``
+        (K-SF and K-U or K-W).
 
     Returns a dict of (B, P) tensors: power, depth, depth_err, depth_snr,
     log_likelihood, duration, transit_time, period.
@@ -360,8 +363,8 @@ def bls_power_shared_batch(t, Y, dy, periods, durations, oversample=10,
     dvals = tuple(float(d) for d in durations_np)
     k_max = max(k_durs)
 
-    # (n, B) views of (B, n) tensors: the layout the fused kernels read,
-    # and one the staged folds' products take as it is
+    # (n, B) views of (B, n) tensors: the layout the fused kernels read;
+    # the staged route copies them to contiguous (n, cols) once per call
     if uniform_weights:
         scan, cols = _bls_shared_scan_uniform, ((Y - mu).T, c_b)
     else:

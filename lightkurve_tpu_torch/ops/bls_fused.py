@@ -56,18 +56,18 @@ def inv_d_phase(d_phase, dtype):
 def fold_ids(ts, pc, d_phase, nbins):
     """Fold bins (C, n): exact fmod (never t - floor(t/P)·P, which is off
     by one ulp on bin edges), times the dtype-rounded 1/d_phase, truncating
-    int cast, clip to ``nbins - 1``."""
-    inv = torch.tensor(inv_d_phase(d_phase, ts.dtype), dtype=ts.dtype,
-                       device=ts.device)
+    int cast, clip to ``nbins - 1``.  The reciprocal goes in as a Python
+    number, exact in the dtype: a device tensor made from it would be a
+    blocking host-to-device copy, which waits for the queued work."""
     phase = torch.fmod(ts[None, :], pc[:, None])
+    inv = inv_d_phase(d_phase, ts.dtype)
     return torch.clamp((phase * inv).to(torch.int32), 0, nbins - 1)
 
 
 def nbins_per_period(pc, d_phase):
-    """ceil(pc · (1/d_phase)) in the dtype of ``pc``, as int32."""
-    inv = torch.tensor(inv_d_phase(d_phase, pc.dtype), dtype=pc.dtype,
-                       device=pc.device)
-    return torch.ceil(pc * inv).to(torch.int32)
+    """ceil(pc · (1/d_phase)) in the dtype of ``pc``, as int32 (the
+    reciprocal as in :func:`fold_ids`)."""
+    return torch.ceil(pc * inv_d_phase(d_phase, pc.dtype)).to(torch.int32)
 
 
 def max_nbins_bound(p_host, d_phase, dtype):
@@ -170,8 +170,11 @@ def full_f32_matmul(device):
 
 
 def uniform_fold(ts, Y0, pc, d_phase, nbins, max_nbins_p, k_max, wrap=True):
-    """The staged fold of ``_bls_shared_scan_uniform``: inclusive bin prefix
-    sums of the mean-shifted flux ``Y0`` (n, B) at periods ``pc`` (C,).
+    """The one-hot fold of the uniform regime, the reference's XLA fold
+    written in torch: inclusive bin prefix sums of the mean-shifted flux
+    ``Y0`` (n, B) at periods ``pc`` (C,).  The staged fold
+    (:mod:`.bls_staged_fold`) computes the same function without the
+    one-hot; this form stays as its yardstick and test reference.
 
     Every sample lands at its fold bin and, in wrap mode, again
     ``nbins_p`` rows later (the circular extension rows).  The flux sums
@@ -203,8 +206,9 @@ def uniform_fold(ts, Y0, pc, d_phase, nbins, max_nbins_p, k_max, wrap=True):
 
 def _chunk_uniform(ts, Y0, tot_y, pc, k_durs, dur_values, d_phase, nbins,
                    max_nbins_p, use_likelihood, wrap):
-    cs_y, cs_n, nbp = uniform_fold(ts, Y0, pc, d_phase, nbins, max_nbins_p,
-                                   max(k_durs), wrap)
+    from .bls_staged_fold import staged_fold_plain
+    cs_y, cs_n, nbp = staged_fold_plain(ts, Y0, pc, d_phase, nbins,
+                                        max_nbins_p, max(k_durs), wrap)
     best = uniform_scan_staged(cs_y, cs_n, nbp, pc, tot_y, float(Y0.shape[0]),
                                k_durs, dur_values, d_phase, use_likelihood)
     return _undersized(best, nbp > max_nbins_p)
@@ -214,8 +218,10 @@ def fused_scan_uniform_plain(ts, Y0, periods, k_durs, dur_values, d_phase,
                              nbins, max_nbins_p, use_likelihood=True,
                              wrap=True, chunk=16):
     """Plain torch uniform scan: the staged form of
-    ``_bls_shared_scan_uniform`` (one-hot matmul fold, cumsum, shifted
-    windows), ``chunk`` periods at a time.
+    ``_bls_shared_scan_uniform`` (the staged fold's plain version,
+    :func:`.bls_staged_fold.staged_fold_plain`, then shifted windows),
+    ``chunk`` periods at a time; the staged route folds the same way, so
+    on the CPU both routes give the same bits.
 
     ts (n,), Y0 (n, B) mean-shifted flux, periods (P,).  ``max_nbins_p``
     bounds ``nbins_per_period(periods)`` (:func:`max_nbins_bound`); a

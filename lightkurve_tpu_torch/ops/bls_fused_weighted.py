@@ -9,11 +9,13 @@ inclusive bin prefix sums and scans the duration windows::
 
 Counterpart of the reference's ``_bls_shared_scan``
 (``lightkurve_tpu/ops/bls.py``: its XLA fold, then ``window_scan_pallas``).
-The staged form is :func:`weighted_fold` (one-hot product and cumsum, in
-torch) followed by the window scan (K-W, :mod:`.bls_window`);
+The staged form is the staged fold (K-SF, :mod:`.bls_staged_fold`)
+followed by the window scan (K-W, :mod:`.bls_window`);
 :func:`fused_scan_weighted` does both in one CUDA kernel
 (``csrc/bls_weighted_fused.cu``) for CUDA tensors, and runs
-:func:`fused_scan_weighted_plain`, the staged form, for CPU tensors.
+:func:`fused_scan_weighted_plain`, the staged form in plain torch, for CPU
+tensors.  :func:`weighted_fold` is the reference's one-hot fold in torch,
+kept as the staged fold's yardstick.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import torch
 
 from .bls_fused import (check_fused_rows, fold_ids, fold_rows,
                         full_f32_matmul, inv_d_phase, nbins_per_period)
+from .bls_staged_fold import staged_fold_plain
 from .bls_window import (_check_cuda, _undersized, durations_args,
                          weighted_scan_staged)
 
@@ -59,8 +62,10 @@ def weighted_fold(ts, WWY, pc, d_phase, nbins, max_nbins_p, k_max,
 def fused_scan_weighted_plain(ts, W, WY, periods, k_durs, dur_values,
                               d_phase, nbins, max_nbins_p, use_likelihood=True,
                               wrap=True, chunk=16):
-    """Plain torch weighted scan: :func:`weighted_fold` then the staged
-    window scan, ``chunk`` periods at a time.
+    """Plain torch weighted scan: the staged fold's plain version
+    (:func:`.bls_staged_fold.staged_fold_plain`) then the staged window
+    scan, ``chunk`` periods at a time; the staged route folds the same
+    way, so on the CPU both routes give the same bits.
 
     ts (n,), W and WY (n, B) weights and weighted mean-shifted flux,
     periods (P,).  ``max_nbins_p`` bounds ``nbins_per_period(periods)``; a
@@ -73,8 +78,8 @@ def fused_scan_weighted_plain(ts, W, WY, periods, k_durs, dur_values,
     parts = []
     for i in range(0, periods.shape[0], chunk):
         pc = periods[i:i + chunk]
-        csum, nbp = weighted_fold(ts, WWY, pc, d_phase, nbins, max_nbins_p,
-                                  max(k_durs), wrap)
+        csum, _, nbp = staged_fold_plain(ts, WWY, pc, d_phase, nbins,
+                                         max_nbins_p, max(k_durs), wrap)
         best = weighted_scan_staged(csum, nbp, pc, total, k_durs, dur_values,
                                     d_phase, use_likelihood)
         parts.append(_undersized(best, nbp > int(max_nbins_p)))

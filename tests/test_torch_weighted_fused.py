@@ -14,7 +14,8 @@ import torch
 
 from lightkurve_tpu.ops import bls as jbls
 from lightkurve_tpu_torch.ops import bls as tbls
-from lightkurve_tpu_torch.ops import bls_fused, bls_fused_weighted, bls_window
+from lightkurve_tpu_torch.ops import (bls_fused, bls_fused_weighted,
+                                      bls_staged_fold, bls_window)
 from tests.test_torch_bls import transit_batch
 from tests.test_torch_percurve import assert_same
 
@@ -63,8 +64,9 @@ def weighted_inputs(rng, B=5, n=300, masked=0.03):
 @pytest.mark.parametrize("objective", ["likelihood", "snr"])
 @pytest.mark.parametrize("wrap", [True, False])
 def test_weighted_plain_is_fold_then_window_scan(rng, objective, wrap):
-    """K-WF's plain version is the staged weighted fold followed by K-W's
-    plain window scan, bit for bit, in any chunking of the periods."""
+    """K-WF's plain version is the staged fold (K-SF's plain version)
+    followed by K-W's plain window scan, bit for bit, in any chunking of
+    the periods."""
     ts, W, WY, pc, k_durs, dvals, d_phase, nbins, bound = weighted_inputs(
         rng)
     like = objective == "likelihood"
@@ -74,8 +76,8 @@ def test_weighted_plain_is_fold_then_window_scan(rng, objective, wrap):
         chunk=7)
     assert bls_fused_weighted.fused_scan_weighted_plain.calls == calls + 1
     WWY = torch.cat([W, WY], 1)
-    csum, nbp = bls_fused_weighted.weighted_fold(ts, WWY, pc, d_phase, nbins,
-                                                 bound, max(k_durs), wrap)
+    csum, _, nbp = bls_staged_fold.staged_fold_plain(
+        ts, WWY, pc, d_phase, nbins, bound, max(k_durs), wrap)
     want = bls_window.window_scan_plain(csum, nbp, pc, WWY.sum(0), k_durs,
                                         dvals, d_phase, like)
     assert set(got) == set(FIELDS)

@@ -15,7 +15,8 @@ import torch
 from lightkurve_tpu.ops import bls as jbls
 from lightkurve_tpu.ops import bls_window_pallas as jwin
 from lightkurve_tpu_torch.ops import bls as tbls
-from lightkurve_tpu_torch.ops import bls_fused, bls_fused_weighted, bls_window
+from lightkurve_tpu_torch.ops import (bls_fused, bls_fused_weighted,
+                                      bls_staged_fold, bls_window)
 from tests.test_torch_bls import transit_batch
 from tests.test_torch_percurve import assert_same
 
@@ -90,16 +91,17 @@ def test_window_scan_uniform_plain_matches_pallas_interpret(
 @pytest.mark.parametrize("objective", ["likelihood", "snr"])
 @pytest.mark.parametrize("wrap", [True, False])
 def test_fused_plain_is_fold_then_window_scan(rng, objective, wrap):
-    """K-F's plain version is the shared fold followed by K-U's plain
-    window scan, bit for bit: one code path for both routes."""
+    """K-F's plain version is the staged fold (K-SF's plain version)
+    followed by K-U's plain window scan, bit for bit: one code path for
+    both routes."""
     ts, Y0, pc, k_durs, dvals, d_phase, nbins, bound = fold_inputs(
         rng, B=5, n=300)
     like = objective == "likelihood"
     want = bls_fused.fused_scan_uniform_plain(ts, Y0, pc, k_durs, dvals,
                                               d_phase, nbins, bound, like,
                                               wrap, chunk=13)
-    cs_y, cs_n, nbp = bls_fused.uniform_fold(ts, Y0, pc, d_phase, nbins,
-                                             bound, max(k_durs), wrap)
+    cs_y, cs_n, nbp = bls_staged_fold.staged_fold_plain(
+        ts, Y0, pc, d_phase, nbins, bound, max(k_durs), wrap)
     got = bls_window.window_scan_uniform(cs_y, cs_n, nbp, pc, Y0.sum(0),
                                          300.0, k_durs, dvals, d_phase, like)
     assert set(got) == set(WINDOW_FIELDS)
@@ -255,10 +257,15 @@ def test_staged_and_fused_routes_agree_bit_for_bit(rng):
 def test_staged_route_slices_periods_to_free_memory(rng, monkeypatch):
     """The staged route folds as many periods per call as half the free
     device memory holds, at least one; the result does not depend on the
-    slice."""
+    slice.  A period holds its prefix rows and its deposit indices, and
+    nothing that grows with rows x cadences: a year of two-minute
+    cadences folded at 300 d takes about half a gigabyte per period."""
     npad, n, B = 3712, 38880, 2048            # two sectors, float32
     per = tbls.staged_fold_bytes(npad, n, B, 4)
-    assert per == npad * n * 6 + 2 * npad * B * 4
+    assert per == npad * B * 4 + 64 * n + npad * (16 + 4)
+    year = tbls.staged_fold_bytes(60_032, 262_800, B, 4)
+    assert year < 2 ** 29
+    assert tbls.staged_slice(8, 60_032, 262_800, B, 4, 75 * 2 ** 30) == 8
     assert tbls.staged_slice(8, npad, n, B, 4, None) == 8
     assert tbls.staged_slice(8, npad, n, B, 4, 80 * 2 ** 30) == 8
     assert tbls.staged_slice(8, npad, n, B, 4, 6 * per) == 3
@@ -285,8 +292,9 @@ def test_staged_weighted_route_slices_periods_to_free_memory(rng,
     does not depend on the slice."""
     npad, n, B = 27136, 38880, 2048           # a one-warp block, float32
     per = tbls.staged_fold_bytes(npad, n, 2 * B, 4)
-    assert per == npad * n * 6 + 2 * npad * 2 * B * 4
-    assert tbls.staged_slice(8, npad, n, 2 * B, 4, 75 * 2 ** 30) == 5
+    assert per == npad * 2 * B * 4 + 64 * n + npad * (16 + 4)
+    assert tbls.staged_slice(8, npad, n, 2 * B, 4, 75 * 2 ** 30) == 8
+    assert tbls.staged_slice(8, npad, n, 2 * B, 4, 6 * per) == 3
     t, Y = transit_batch(rng, 7, 333)
     dy = 1e-3 * (1 + rng.random(Y.shape))
     periods = np.linspace(1.2, 4.0, 23)
