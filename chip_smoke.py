@@ -16,23 +16,34 @@ Phases:
      bit;
   3. uniform main path at full size: a 2048-file synthetic TESS sector
      written with the port's FITS writer, streamed through
-     StreamingStackLoader into SweepRunner(method="shared") (K-F);
+     StreamingStackLoader into SweepRunner(method="shared");
   4. weighted main path at full size: a SPOC-like in-memory stack
-     (per-cadence dy, ~3% masked cadences) through SweepRunner (K-WF);
-     then its first chunk through bls_power_shared_batch on both routes,
-     each a path of its own: fold_impl="fused" (K-WF) and "staged" (K-SF
-     and K-W), whose winners must agree;
+     (per-cadence dy, ~3% masked cadences) through SweepRunner; then its
+     first chunk through bls_power_shared_batch on both routes, each a
+     path of its own: fold_impl="fused" (K-WF) and "staged" (K-SF and
+     K-W), whose winners must agree, their power gaps within C2's float32
+     rounding bound;
   6. the long-baseline uniform sweeps, 2048 curves, 4,096 periods in four
-     chunks each, K-F on every chunk: one 27-d sector (19,440 cadences)
-     over 1-9 d, and two consecutive sectors (38,880 cadences) over
-     1-18 d; each chunk's route is checked against the rule; then the
+     chunks each: one 27-d sector (19,440 cadences) over 1-9 d, and two
+     consecutive sectors (38,880 cadences) over 1-18 d; then the
      two-sector chunk 4 through bls_power_shared_batch on both routes,
      each a path of its own: "fused" (K-F) and "staged" (K-SF and K-U);
   7. the mixed-grid sweep: 2048 SPOC-like curves on four sector grids,
-     one shared-grid search per grid (K-WF), held against four single-grid
+     one shared-grid search per grid, held against four single-grid
      sweeps of the same rows;
   8. the per-curve methods, SweepRunner(method="fast") and "exact", at
      2048 x 8192 (plain torch, no kernel);
+ 10. flatten, then search: 2048 SPOC-like curves over a 27-d sector
+     (19,440 cadences, a 1-d downlink gap, a stellar trend per curve,
+     outliers, ~3% masked) in float32 through LightCurveStack.flatten
+     (window 901, TF32 flags at PyTorch's defaults; timed, with its peak
+     memory, and at window 101), then SweepRunner(method="shared") over
+     1-9 d in four chunks on the per-cadence weights the flatten leaves;
+     the flatten held float64 on the card against float64 on the CPU (64
+     curves) and float32 against float64 on the card; then the same
+     sector with deep transits and faster rotators, whose recovery after
+     the flatten is logged with lightkurve_tpu's 16 tracked segments and
+     with 64 (the reference flatten's limits);
   9. one call past the one-hot fold's old memory ceiling: a year of
      two-minute cadences (262,800) x 2048 curves in float32, 4 periods
      near 300 d (~60,000 rows), through bls_power_shared_batch on the
@@ -46,19 +57,20 @@ Phases:
      them (8 periods) and K-W and K-U with one duration beside all: K-F,
      K-WF and K-W on the 8,192-cadence batch, K-U and K-SF on the two-sector
      sweep's chunk 4 (K-SF also against the one-hot fold it replaced, its
-     library yardstick), K-F (float32) on both long sweeps' chunk 4; K-WF
-     against the staged weighted route (K-SF and K-W) on the same inputs;
-     and the fused kernel against the staged route at the route points:
-     one sector's longest periods (1,865 rows), 16.4-16.9 d on one sector
-     (3,445 rows), two sectors' longest periods (3,665 rows), and both
-     regimes where a fused block holds one warp (the staged routes at
-     SweepRunner's 8 periods per call, sliced to the free memory).
-Each path (the sweeps of phases 3, 4, 6, 7 and 8 on the automatic route,
-the four forced-route runs of phases 4 and 6, and phase 9) runs with every
-launch count set to 0 just before it and read just after; a path fails if a
-kernel it needs never launched, a kernel of another route did, or a
-plain version ran.  The kernels line gives each kernel's launches summed
-over the paths and, under ``launches_by_path``, each path's own.
+     library yardstick), K-F (float32) on both long sweeps' chunk 4; and
+     both routes at the route points (every chunk of the sweeps of phases
+     3, 4, 6 and 10, the longest of each cadence count also at 256 curves,
+     16.4-16.9 d on one sector, and where a fused block holds one warp):
+     one SweepRunner chunk's wall time per route through the entry point
+     (the staged route at 8 periods per call), the route "auto" takes,
+     the winners per (period, curve) against each other and C2's bound.
+Each path (the sweeps of phases 3, 4, 6, 7, 8 and 10 on the automatic
+route, the four forced-route runs of phases 4 and 6, and phase 9) runs
+with every launch count set to 0 just before it and read just after; a
+path fails if a plain version ran, and a sweep fails unless its launches
+are what the route rule (ops.bls.fold_route) gives its chunks.  The
+kernels line gives each kernel's launches summed over the paths and,
+under ``launches_by_path``, each path's own.
 
 Prints the card, a JSON line of kernel records, and as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero on any failure, and
@@ -67,10 +79,12 @@ when no CUDA device is present.
     python3 chip_smoke.py --profile
 
 builds the kernels and profiles one full-size sweep chunk per shared-grid
-cell and both forced staged chunks instead (torch.profiler: device time
-per kernel, the device's idle share, each kernel's bound over the chunk).
+cell, phase 10's flatten and two forced-route chunks instead
+(torch.profiler: device time per kernel, the device's idle share, each
+kernel's bound over the chunk).
 """
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -577,8 +591,12 @@ def phase_uniform(tmp, B=2048, n_periods=25_000, chunk_periods=12_500):
     start_sweep()
     t0 = time.time()
     best, fluxes = [], []
+    routes = dict.fromkeys(kernel_table(), 0)
     sweep_s = 0.0
     for k, stack in enumerate(loader):
+        for key, v in expected_launches(stack, periods,
+                                        chunk_periods).items():
+            routes[key] += v
         torch.cuda.synchronize()
         t1 = time.time()
         runner = SweepRunner(stack, periods, DURATIONS,
@@ -612,7 +630,7 @@ def phase_uniform(tmp, B=2048, n_periods=25_000, chunk_periods=12_500):
             raise AssertionError(f"streamed batch {k} differs")
     log(f"uniform: {k + 1} streamed batches of {B // 4} equal the "
         f"{B}-curve batch")
-    return dict(seconds=sweep_s, rate=rate, recovered=share)
+    return dict(seconds=sweep_s, rate=rate, recovered=share, routes=routes)
 
 
 def spoc_like_stack(B=2048, seed=2024, dtype=None):
@@ -626,10 +644,7 @@ def spoc_like_stack(B=2048, seed=2024, dtype=None):
     dy = ms.NOISE * rng.uniform(0.7, 1.3, (B, ms.N))
     flux = 1.0 + dy * rng.standard_normal((B, ms.N))
     p_inj = rng.uniform(1.2, 3.5, B)
-    t0_inj = rng.uniform(0, p_inj)
-    for i in range(B):
-        ph = np.mod(t - t0_inj[i] + p_inj[i] / 2, p_inj[i]) - p_inj[i] / 2
-        flux[i, np.abs(ph) < 0.05] -= ms.DEPTH
+    inject_transits(flux, t, p_inj, rng)
     mask = rng.random((B, ms.N)) >= 0.03
     flux[~mask] = 0.0
     stack = LightCurveStack.from_numpy(np.tile(t, (B, 1)), flux,
@@ -639,9 +654,9 @@ def spoc_like_stack(B=2048, seed=2024, dtype=None):
 
 
 def phase_weighted(tmp, B=2048, n_periods=4096, chunk_periods=2048):
-    """Phase 4: the weighted sweep (K-WF).  Returns its numbers and, as
-    ``route_check``, the stack and its first chunk's periods for
-    :func:`compare_routes`."""
+    """Phase 4: the weighted sweep.  Returns its numbers, the launches the
+    route rule gives (:func:`expected_launches`) and, as ``route_check``,
+    the stack and its first chunk's periods for :func:`compare_routes`."""
     from lightkurve_tpu_torch.parallel.checkpoint import SweepRunner
     from tools import make_sector as ms
     stack, p_inj = spoc_like_stack(B)
@@ -664,13 +679,68 @@ def phase_weighted(tmp, B=2048, n_periods=4096, chunk_periods=2048):
     if share < RECOVERY_SHARE:
         raise AssertionError(f"weighted recovery {share} < {RECOVERY_SHARE}")
     return dict(seconds=sweep_s, rate=rate, recovered=share,
+                routes=expected_launches(stack, periods, chunk_periods),
                 route_check=(stack, periods[:chunk_periods]))
+
+
+#: C2: how far two routes' float32 powers may lie apart, relative, where
+#: their winners agree and where they differ.  The routes sum the same
+#: deposits in two orders, and each running sum drifts by about an ulp
+#: per add times the root of its adds; a fold holds at most 2n deposits
+#: per column (each cadence once, and once more into a wrap row).  Two
+#: windows whose powers lie within that of each other may swap places, so
+#: a differing winner's gap is held to the same bound
+ROUTE_GAP_ULPS = 4
+#: differing winners logged one by one per comparison, at most
+ROUTE_GAP_LOG = 32
+
+
+def route_gap_bound(n):
+    """C2's bound on the relative power gap between two routes' winners,
+    for a fold of ``n`` cadences: ``ROUTE_GAP_ULPS`` float32 ulps times
+    the square root of the deposits per column, at most 2n."""
+    return ROUTE_GAP_ULPS * float(np.finfo(np.float32).eps) * np.sqrt(2 * n)
+
+
+def route_gaps(name, a, b, n, keys=("duration", "transit_time")):
+    """C2 on two routes' results ``a``, ``b`` (dicts of arrays of one
+    shape, per (curve, period) or per curve): where the winners (``keys``)
+    agree, the largest relative power error; where they differ, each
+    cell's relative gap between the two winners' powers.  Both are held to
+    :func:`route_gap_bound`; a gap past it is a fold fault.  Logs the
+    differing cells (the first ``ROUTE_GAP_LOG``); returns (agreeing max,
+    largest gap, bound)."""
+    a = {k: np.asarray(v, np.float64) for k, v in a.items()}
+    b = {k: np.asarray(v, np.float64) for k, v in b.items()}
+    fin = np.isfinite(b["power"]) & np.isfinite(a["power"])
+    same = np.ones(fin.shape, bool)
+    for k in keys:
+        same &= a[k] == b[k]
+    rel = np.abs(a["power"] - b["power"]) / np.abs(b["power"])
+    agree = float(rel[fin & same].max()) if (fin & same).any() else 0.0
+    differ = fin & ~same
+    gaps = rel[differ]
+    bound = route_gap_bound(n)
+    for cell in list(zip(*np.nonzero(differ)))[:ROUTE_GAP_LOG]:
+        log(f"  {name}: winners differ at {tuple(int(c) for c in cell)}: "
+            f"power {a['power'][cell]!r} vs {b['power'][cell]!r}, relative "
+            f"gap {rel[cell]:.3g}")
+    gap = float(gaps.max()) if gaps.size else 0.0
+    log(f"  {name}: C2 {int(differ.sum())} of {int(fin.sum())} winners "
+        f"differ, largest relative power gap {gap:.3g}; agreeing winners' "
+        f"max relative power error {agree:.3g}; float32 rounding bound "
+        f"{bound:.3g} ({ROUTE_GAP_ULPS} ulps x sqrt(2 x {n}))")
+    if gap > bound or agree > bound:
+        raise AssertionError(f"{name}: the routes' powers differ past the "
+                             f"float32 rounding bound: a fold fault")
+    return agree, gap, bound
 
 
 def route_call(stack, pvals, impl):
     """One SweepRunner chunk of ``stack`` at the periods ``pvals`` through
     the entry point ``bls_power_shared_batch``, called as SweepRunner's
-    step calls it, on the route ``impl``; returns the reduced winners."""
+    step calls it, on the route ``impl``; returns the (B, P) result and the
+    per-curve winners on the host."""
     import torch
     from lightkurve_tpu_torch.config import numpy_dtype
     from lightkurve_tpu_torch.ops.bls import bls_power_shared_batch
@@ -684,15 +754,22 @@ def route_call(stack, pvals, impl):
     pvals = np.asarray(pvals).astype(np_dtype)
     dy = torch.where(stack.mask, stack.flux_err,
                      torch.tensor(torch.inf, dtype=dtype, device="cuda"))
-    err = stack.flux_err
-    uniform = bool(torch.all(stack.mask)) and bool(
-        torch.all(err == err[:, :1]))
+    uniform = is_uniform(stack)
     out = bls_power_shared_batch(
         stack.time[0].to(dtype), stack.flux, dy, pvals,
         DURATIONS.astype(np_dtype), oversample=OVERSAMPLE, d_phase=d_phase,
         nbins=_chunk_nbins(pvals, d_phase, _k_max(DURATIONS, d_phase)),
         chunk=8, uniform_weights=uniform, fold_impl=impl)
-    return dict(zip(_FIELDS, _reduce_winner(out, len(pvals)).cpu().numpy()))
+    return out, dict(zip(_FIELDS, _reduce_winner(
+        out, len(pvals)).cpu().numpy()))
+
+
+def is_uniform(stack):
+    """Whether SweepRunner searches ``stack`` in the uniform regime (no
+    masked cadence, one flux_err per curve)."""
+    import torch
+    err = stack.flux_err
+    return bool(torch.all(stack.mask)) and bool(torch.all(err == err[:, :1]))
 
 
 def compare_routes(name, stack, pvals):
@@ -702,17 +779,15 @@ def compare_routes(name, stack, pvals):
     for weights) and no other kernel, ``"staged"`` K-SF and K-U (K-W) and
     no other.  The per-curve winners must be the same period, duration and
     transit time in >= 99.9% of curves, with power within rtol 1e-3 where
-    they are (the float32 bars).  Logs each route's seconds; returns each
-    path's launches."""
-    import torch
-    err = stack.flux_err
-    uniform = bool(torch.all(stack.mask)) and bool(
-        torch.all(err == err[:, :1]))
+    they are (the float32 bars), and the power gaps within C2's bound
+    (:func:`route_gaps`).  Logs each route's seconds; returns each path's
+    launches."""
+    uniform = is_uniform(stack)
 
     def run(impl):
         start_sweep()
         t0 = time.time()
-        return route_call(stack, pvals, impl), time.time() - t0
+        return route_call(stack, pvals, impl)[1], time.time() - t0
 
     win, secs, runs = {}, {}, {}
     for impl, kerns in (("fused", ("K-F",) if uniform else ("K-WF",)),
@@ -734,6 +809,8 @@ def compare_routes(name, stack, pvals):
         f"{rel:.3g}")
     if share < F32_WINNER_SHARE or rel > F32_RTOL:
         raise AssertionError(f"{name}: the two routes' winners differ")
+    route_gaps(name, a, b, stack.shape[1],
+               keys=("period", "duration", "transit_time"))
     return runs
 
 
@@ -792,10 +869,9 @@ def main_shape_inputs(dtype, P, B=2048):
 def phase_main_shapes():
     """K-F, K-WF and K-W against their plain versions on the same inputs at
     the main path's shapes, float64 (64 periods) then float32 (256
-    periods); the float32 pair timed plain, kernel, kernel, plain, and
-    K-WF against the staged weighted route (one-hot GEMM, cumsum and K-W
-    in SweepRunner's calls of 8 periods) on the same inputs; K-W also per
-    8-period launch, the width the staged route launches it at.  Returns
+    periods); the float32 pair timed plain, kernel, kernel, plain, with
+    the fused kernels' blocks and breakdowns; K-W also per 8-period
+    launch, the width the staged route launches it at.  Returns
     the float32 max |power error|, (kernel ms, plain ms), (bound ms, bound
     by) and, for K-W, (ms, bound ms) per 8-period launch."""
     import torch
@@ -842,7 +918,6 @@ def phase_main_shapes():
                     f"warps per SM, occupancy calculator)")
                 fused_breakdown(name, kern, x["weighted_args" if weighted
                                               else "fold_args"], weighted)
-            route_times(x, weighted=True, tag="weighted main shapes")
         del x
         torch.cuda.empty_cache()
     return errs, times, bounds, launches
@@ -1064,10 +1139,7 @@ def long_sector_stack(B=2048, seed=2027, dtype=None, n_sectors=1,
     t = sector_times(n_sectors)
     flux = 1.0 + ms.NOISE * rng.standard_normal((B, t.size))
     p_inj = rng.uniform(1.2, p_max, B)
-    t0_inj = rng.uniform(0, p_inj)
-    for i in range(B):
-        ph = np.mod(t - t0_inj[i] + p_inj[i] / 2, p_inj[i]) - p_inj[i] / 2
-        flux[i, np.abs(ph) < 0.05] -= ms.DEPTH
+    inject_transits(flux, t, p_inj, rng)
     stack = LightCurveStack.from_numpy(
         np.broadcast_to(t, (B, t.size)), flux, np.full_like(flux, ms.NOISE),
         np.ones(flux.shape, bool), device="cuda",
@@ -1075,14 +1147,11 @@ def long_sector_stack(B=2048, seed=2027, dtype=None, n_sectors=1,
     return stack, p_inj
 
 
-def long_inputs(dtype, n_sectors, p_host, B=2048, weighted=False):
+def long_inputs(dtype, n_sectors, p_host, B=2048):
     """Uniform inputs of a long-baseline sweep (:func:`long_sector_stack`,
     B curves on ``n_sectors`` sectors) at the host periods ``p_host``, with
     the bin count SweepRunner's step picks for them and rows from the host
-    bound; ``fused_args`` are K-F's arguments in SweepRunner's form.  With
-    ``weighted``, also K-WF's (``weighted_args``): per-cadence weights
-    1/dy^2 (dy 0.7-1.3 x the noise, normalised to mean 1) with ~3% of the
-    cadences masked."""
+    bound; ``fused_args`` are K-F's arguments in SweepRunner's form."""
     import torch
     from lightkurve_tpu_torch.config import numpy_dtype
     from lightkurve_tpu_torch.ops.bls_fused import max_nbins_bound
@@ -1099,25 +1168,13 @@ def long_inputs(dtype, n_sectors, p_host, B=2048, weighted=False):
     Y = stack.flux
     Y0 = (Y - Y.mean(1, keepdim=True)).T.contiguous()
     common = (k_durs, tuple(float(d) for d in DURATIONS), d_phase)
-    x = dict(ts=ts, Y0=Y0, pc=pc, p_host=p_host, common=common,
+    return dict(ts=ts, Y0=Y0, pc=pc, p_host=p_host, common=common,
              nbins=nbins, max_nbp=max_nbp,
              fused_args=(ts, Y0, pc, *common, nbins, max_nbp, True, True,
                          8),
              desc=f"B={B} N={ts.shape[0]} P={len(p_host)} (periods "
                   f"{p_host[0]:.4f}-{p_host[-1]:.4f} d, {max_nbp} bins, "
                   f"{max_nbp + max(k_durs) - 1} rows) {dtype}")
-    if weighted:
-        rng = np.random.default_rng(6)
-        Wn = torch.as_tensor(rng.uniform(0.7, 1.3, Y.shape) ** -2.0,
-                             dtype=dtype, device="cuda")
-        Wn = torch.where(torch.as_tensor(rng.random(Y.shape) >= 0.03,
-                                         device="cuda"), Wn, 0.0)
-        Wn = Wn / Wn.mean()
-        mu = (Wn * Y).sum(1, keepdim=True) / Wn.sum(1, keepdim=True)
-        x["weighted_args"] = (ts, Wn.T.contiguous(),
-                              (Wn * (Y - mu)).T.contiguous(), pc, *common,
-                              nbins, max_nbp, True, True, 8)
-    return x
 
 
 def uniform_window_args(x):
@@ -1137,44 +1194,173 @@ def uniform_window_args(x):
             True)
 
 
-def route_times(x, weighted=False, tag="", reps=2, chunk=8):
-    """The fused kernel (K-F, or K-WF with ``weighted``) against the staged
-    route (the torch fold with K-U, or with K-W, ``chunk`` periods per
-    call) on the same inputs ``x``, timed staged, fused, fused, staged;
-    checks that both give the same winners (the float32 bars) and logs the
-    rows, the fused block and the route 'auto' takes.  Returns (best fused
-    ms, best staged ms)."""
-    from lightkurve_tpu_torch.ops import bls_fused, bls_fused_weighted
-    from lightkurve_tpu_torch.ops.bls import (_staged_scan_uniform,
-                                              _staged_scan_weighted,
-                                              fold_route)
-    if weighted:
-        args = x["weighted_args"][:-3] + (True,)
-        kern, stage = (bls_fused_weighted.fused_scan_weighted,
-                       _staged_scan_weighted)
-    else:
-        args = x["fused_args"][:-3] + (True,)
-        kern, stage = bls_fused.fused_scan_uniform, _staged_scan_uniform
-    staged = lambda: stage(*args, chunk=chunk, wrap=True)  # noqa: E731
-    fused = lambda: kern(*args, wrap=True, chunk=chunk)  # noqa: E731
-    name = "K-WF" if weighted else "K-F"
-    start_sweep()
-    compare(f"{name} against the staged route, {tag}", fused(), staged(),
-            False)
-    s1 = cuda_time_ms(staged, reps=reps)
-    f1 = cuda_time_ms(fused, reps=reps)
-    f2 = cuda_time_ms(fused, reps=reps)
-    s2 = cuda_time_ms(staged, reps=reps)
-    Y, k_durs, max_nbp = args[1], args[3 + weighted], args[7 + weighted]
-    k_max = max(k_durs)
-    route = fold_route("auto", max_nbp, k_max, Y.dtype, Y.device, weighted)
-    warps, blocks = bls_fused.fused_block(max_nbp + k_max - 1, Y.dtype,
-                                          Y.device, weighted)
-    log(f"routes, {tag}, at {x['desc']}: auto takes {route!r}; {name} at "
-        f"a {warps}-warp block ({blocks} per SM) {f1:.3f}/{f2:.3f} ms, "
-        f"staged route (up to {chunk} periods per call) {s1:.3f}/{s2:.3f} "
-        f"ms; {peak_memory()}")
-    return min(f1, f2), min(s1, s2)
+def route_stack(t, weighted, B=2048, seed=2032):
+    """B curves on the times ``t`` for the route points, one box transit
+    each (periods 1.2-8.5 d); ``weighted``: per-cadence dy 0.7-1.3 x the
+    noise and ~3% masked cadences, else one dy and nothing masked."""
+    import torch
+    from lightkurve_tpu_torch.batch import LightCurveStack
+    from tools import make_sector as ms
+    rng = np.random.default_rng(seed)
+    shape = (B, t.size)
+    dy = ms.NOISE * (rng.uniform(0.7, 1.3, shape) if weighted
+                     else np.ones(shape))
+    flux = 1.0 + dy * rng.standard_normal(shape)
+    inject_transits(flux, t, rng.uniform(1.2, 8.5, B), rng)
+    mask = (rng.random(shape) >= 0.03) if weighted else np.ones(shape, bool)
+    flux[~mask] = 0.0
+    return LightCurveStack.from_numpy(np.broadcast_to(t, shape), flux, dy,
+                                      mask, device="cuda",
+                                      dtype=torch.float32)
+
+
+def inject_transits(flux, t, p_inj, rng, depth=None):
+    """Subtract a box transit of 0.1 d and ``depth`` (default the synthetic
+    sector's) at a random epoch from each row of ``flux`` (on the times
+    ``t``) at its period ``p_inj``."""
+    from tools import make_sector as ms
+    t0_inj = rng.uniform(0, p_inj)
+    for i in range(len(flux)):
+        ph = np.mod(t - t0_inj[i] + p_inj[i] / 2, p_inj[i]) - p_inj[i] / 2
+        flux[i, np.abs(ph) < 0.05] -= ms.DEPTH if depth is None else depth
+
+
+def chunk_ranges(grid, chunk_periods):
+    """The (first, last) period of each chunk SweepRunner cuts ``grid``
+    (lo, hi, count) into."""
+    p = np.linspace(*grid)
+    return [(p[lo], p[min(lo + chunk_periods, len(p)) - 1])
+            for lo in range(0, len(p), chunk_periods)]
+
+
+#: the route points' smaller batches, beside the sweeps' 2048 curves
+FEWER_CURVES = (1024, 256)
+
+
+def route_points():
+    """Phase 5's route points: (tag, cadences, weighted, (first, last)
+    period, periods, curves).  Every chunk of the shared sweeps of phases
+    3, 4, 6 and 10 (at 256 of its periods, spread over it: a call's rows
+    come from its longest period), the longest chunk of each cadence count
+    also at 256 curves and the long sweeps' also at 1024, 16.4-16.9 d on
+    one sector (3,445 rows), and both regimes where a fused block holds one
+    warp (:data:`NARROW_GRID`), at 2048 and 256 curves."""
+    from tools import make_sector as ms
+    t = ms.time_grid()
+    top = (t[-1] - t[0]) / 3
+    pts = []
+    for weighted, grid, chunk in ((False, (1.0, top, 25_000), 12_500),
+                                  (True, (1.0, top, 4096), 2048)):
+        for k, span in enumerate(chunk_ranges(grid, chunk)):
+            pts.append((f"8,192 cadences, chunk {k + 1}", 8192, weighted,
+                        span, 256, 2048))
+        pts.append(("8,192 cadences, chunk 2", 8192, weighted, span, 256,
+                    256))
+    for weighted in (False, True):
+        for k, span in enumerate(chunk_ranges(LONG_GRID, 1024)):
+            pts.append((f"one sector, chunk {k + 1}", LONG_N, weighted, span,
+                        256, 2048))
+        for curves in FEWER_CURVES:
+            pts.append(("one sector, chunk 4", LONG_N, weighted, span, 256,
+                        curves))
+        pts.append(("one sector, 16.4-16.9 d", LONG_N, weighted,
+                    (16.4, 16.9), 256, 2048))
+    spans = chunk_ranges(TWO_SECTOR_GRID, 1024)
+    for weighted in (False, True):
+        for k, span in enumerate(spans):
+            if k == len(spans) - 1 or not weighted:
+                pts.append((f"two sectors, chunk {k + 1}", 2 * LONG_N,
+                            weighted, span, 256, 2048))
+        for curves in FEWER_CURVES:
+            pts.append(("two sectors, chunk 4", 2 * LONG_N, weighted,
+                        spans[-1], 256, curves))
+        for curves in (2048, 256):
+            pts.append(("one-warp block", 2 * LONG_N, weighted,
+                        NARROW_GRID[:2], NARROW_GRID[2], curves))
+    return pts
+
+
+def route_point(tag, stack, pvals, reps=2):
+    """Both routes on one SweepRunner chunk of ``stack`` at ``pvals``
+    through the entry point (:func:`route_call`: 8 periods per staged
+    call), each timed by its wall time to its winners on the host, staged,
+    fused, fused, staged after one untimed run of each; the untimed runs'
+    results held against each other per (period, curve): the float32 bars
+    (:func:`compare`) and C2's bound (:func:`route_gaps`).  Logs the rows,
+    the fused block and the route "auto" takes; returns a record."""
+    import torch
+    from lightkurve_tpu_torch.ops import bls_fused
+    from lightkurve_tpu_torch.ops.bls import fold_route
+    from lightkurve_tpu_torch.parallel.checkpoint import _k_max
+
+    def run(impl):
+        start_sweep()
+        t0 = time.perf_counter()
+        out = route_call(stack, pvals, impl)[0]
+        return out, time.perf_counter() - t0
+
+    weighted = not is_uniform(stack)
+    (fo, _), (so, _) = run("fused"), run("staged")
+    T = lambda out: {k: v.T for k, v in out.items()}  # noqa: E731
+    compare(f"routes, {tag}", T(fo), T(so), False)
+    B, n = stack.shape
+    gaps = route_gaps(f"routes, {tag}", {k: v.cpu() for k, v in fo.items()},
+                      {k: v.cpu() for k, v in so.items()}, n)
+    del fo, so
+    times = {"fused": [], "staged": []}
+    for impl in ("staged", "fused", "fused", "staged")[:4 if reps > 1
+                                                        else 2]:
+        times[impl].append(run(impl)[1])
+    fused, staged = min(times["fused"]), min(times["staged"])
+    d_phase = float(DURATIONS.min()) / OVERSAMPLE
+    k_max = _k_max(DURATIONS, d_phase)
+    max_nbp = bls_fused.max_nbins_bound(pvals, d_phase, torch.float32)
+    rows = max_nbp + k_max - 1
+    auto = fold_route("auto", max_nbp, k_max, torch.float32,
+                      stack.device, weighted, curves=B)
+    warps, _ = bls_fused.fused_block(rows, torch.float32, stack.device,
+                                     weighted)
+    best = min(fused, staged)
+    ok = {"fused": fused, "staged": staged}[auto] <= 1.1 * best
+    log(f"route point {tag}, {'weighted' if weighted else 'uniform'}: "
+        f"B={B} N={n} rows={rows} P={len(pvals)} (periods {pvals[0]:.4f}-"
+        f"{pvals[-1]:.4f} d): fused {'/'.join(f'{x:.4f}' for x in times['fused'])} s "
+        f"({warps}-warp block), staged "
+        f"{'/'.join(f'{x:.4f}' for x in times['staged'])} s; faster "
+        f"{'fused' if fused < staged else 'staged'} "
+        f"{max(fused, staged) / best:.2f}x; auto takes {auto!r}, "
+        f"{'within 10% of the faster' if ok else 'more than 10% slower'}; "
+        f"{peak_memory()}")
+    return dict(tag=tag, weighted=weighted, B=B, n=n, rows=rows,
+                fused=fused, staged=staged, auto=auto, ok=ok, gaps=gaps)
+
+
+def phase_routes():
+    """Phase 5's route points (:func:`route_points`), each timed on both
+    routes (:func:`route_point`); logs how many "auto" got within 10% of
+    the faster route and returns the records."""
+    import torch
+    from tools import make_sector as ms
+    grids = {8192: ms.time_grid(), LONG_N: sector_times(1),
+             2 * LONG_N: sector_times(2)}
+    records, stacks = [], {}
+    for tag, n, weighted, (lo, hi), count, B in route_points():
+        if (n, weighted) not in stacks:
+            stacks.clear()
+            torch.cuda.empty_cache()
+            stacks[(n, weighted)] = route_stack(grids[n], weighted)
+        full = stacks[(n, weighted)]
+        stack = full if B == len(full) else full._replace(
+            time=full.time[:B], flux=full.flux[:B],
+            flux_err=full.flux_err[:B], mask=full.mask[:B])
+        records.append(route_point(tag, stack, np.linspace(lo, hi, count),
+                                   reps=1 if count < 256 else 2))
+    stacks.clear()
+    torch.cuda.empty_cache()
+    ok = sum(r["ok"] for r in records)
+    log(f"route points: auto within 10% of the faster route at {ok} of "
+        f"{len(records)}")
+    return records
 
 
 def fold_times(x, slice_periods=8):
@@ -1225,12 +1411,8 @@ def phase_long_shapes(slice_periods=32):
     periods in one launch; the plain versions in slices), timed, with
     their times per 8-period launch and K-SF's one-hot yardstick
     (:func:`fold_times`).  K-F against its plain version in float32 at
-    both long sweeps' last chunks (their widest rows).  Both routes of the
-    uniform regime timed on the same inputs (:func:`route_times`) at the
-    one-sector sweep's longest periods (1,865 rows), at 16.4-16.9 d on one
-    sector (3,445 rows) and at the two-sector sweep's longest periods
-    (3,665 rows), and both routes of both regimes where a fused block
-    holds one warp (:data:`NARROW_GRID`).  Returns per kernel (K-U, K-SF)
+    both long sweeps' last chunks (their widest rows).  Returns per kernel
+    (K-U, K-SF)
     its float32 max error, (kernel ms, plain ms), (bound ms, bound by) and
     (ms, bound ms) per 8-period launch, K-SF's one-hot ms, and K-F's
     float32 max |power error| here."""
@@ -1295,20 +1477,8 @@ def phase_long_shapes(slice_periods=32):
         log(f"long shapes, K-F: {y['desc']}")
         kf_err = max(kf_err, compare("K-F long shapes", got, want,
                                      False)[0])
-        del got, want
-        if y is not x:
-            route_times(y, tag="one sector, its longest periods")
-        del y
+        del got, want, y
         torch.cuda.empty_cache()
-    route_times(long_inputs(torch.float32, 1, np.linspace(16.4, 16.9, 256)),
-                tag="one sector at 16.4-16.9 d")
-    route_times(x, tag="two sectors, their longest periods")
-    del x
-    torch.cuda.empty_cache()
-    x = long_inputs(torch.float32, 2, np.linspace(*NARROW_GRID),
-                    weighted=True)
-    route_times(x, tag="one-warp block", reps=1)
-    route_times(x, weighted=True, tag="one-warp block", reps=1)
     del x
     torch.cuda.empty_cache()
     return out, library, kf_err
@@ -1317,34 +1487,60 @@ def phase_long_shapes(slice_periods=32):
 # ---------------------------------------------------------------------------
 # phases 6-8: the long-sector, mixed-grid and per-curve sweeps at full width
 # ---------------------------------------------------------------------------
-def expected_routes(periods, chunk_periods, dtype):
-    """What the route rule gives each chunk of a uniform shared sweep
-    (SweepRunner pads the last chunk by repeating its last period): the
-    number of chunks on K-F and the K-U launches of the staged chunks (one
-    per 8 periods)."""
+def expected_launches(stack, periods, chunk_periods):
+    """What the route rule (``ops.bls.fold_route``) gives each chunk of
+    SweepRunner(method="shared") over ``stack``: per time grid of its rows
+    (one shared-grid search each) and chunk (the last padded by repeating
+    its last period, as SweepRunner pads it), one launch of the fused
+    kernel, or one launch of K-SF and of the window scan per 8 periods on
+    the staged route.  Returns the launches per kernel."""
     import torch
     from lightkurve_tpu_torch.config import numpy_dtype
     from lightkurve_tpu_torch.ops.bls import fold_route
     from lightkurve_tpu_torch.ops.bls_fused import max_nbins_bound
     from lightkurve_tpu_torch.parallel.checkpoint import _k_max
+    dtype = stack.flux.dtype
+    weighted = not is_uniform(stack)
+    fused, window = ("K-WF", "K-W") if weighted else ("K-F", "K-U")
+    groups = torch.unique(stack.time, dim=0, return_counts=True)[1].tolist()
     d_phase = float(DURATIONS.min()) / OVERSAMPLE
-    fused = staged = 0
+    k_max = _k_max(DURATIONS, d_phase)
+    want = dict.fromkeys(kernel_table(), 0)
     for lo in range(0, len(periods), chunk_periods):
-        chunk = periods[lo:lo + chunk_periods].astype(numpy_dtype(dtype))
-        route = fold_route("auto", max_nbins_bound(chunk, d_phase, dtype),
-                           _k_max(DURATIONS, d_phase), dtype,
-                           torch.device("cuda"))
-        fused += route == "fused"
-        staged += (route == "staged") * -(-chunk_periods // 8)
-    return {"K-F": fused, "K-U": staged}
+        chunk = np.asarray(periods[lo:lo + chunk_periods]).astype(
+            numpy_dtype(dtype))
+        max_nbp = max_nbins_bound(chunk, d_phase, dtype)
+        for curves in groups:
+            if fold_route("auto", max_nbp, k_max, dtype, stack.device,
+                          weighted, curves=curves) == "fused":
+                want[fused] += 1
+            else:
+                want["K-SF"] += -(-chunk_periods // 8)
+                want[window] += -(-chunk_periods // 8)
+    return want
+
+
+def check_routes(name, want, launches):
+    """A sweep path's launches against :func:`expected_launches`: a fused
+    kernel exactly as often as the rule gives it, the staged route's
+    kernels at least once per 8 periods of each staged chunk (a call may
+    split further to fit device memory), and no kernel the rule gives no
+    chunk."""
+    for k, n in want.items():
+        if (launches[k] < n) if n and k in ("K-SF", "K-W", "K-U") else (
+                launches[k] != n):
+            raise AssertionError(f"{name}: launches {launches}, the route "
+                                 f"rule gives {want}")
+    log(f"{name}: launches as the route rule gives them ({want})")
 
 
 def phase_long_sector(tmp, name, n_sectors, grid, p_max, B=2048,
                       chunk_periods=1024, staged_chunk=None):
     """Phase 6: a long-baseline uniform sweep, 4,096 periods in four
     chunks: one 27-d sector searched over 1-9 d, and two consecutive
-    sectors searched over 1-18 d; K-F takes every chunk of both.  Returns
-    the sweep's numbers, the launches the route rule predicts and, with
+    sectors searched over 1-18 d; each chunk takes the route the rule
+    gives it.  Returns the sweep's numbers, the launches the rule gives
+    (:func:`expected_launches`) and, with
     ``staged_chunk``, as ``route_check`` the stack and that chunk's
     periods for :func:`compare_routes`."""
     import torch
@@ -1369,21 +1565,11 @@ def phase_long_sector(tmp, name, n_sectors, grid, p_max, B=2048,
     if share < RECOVERY_SHARE:
         raise AssertionError(f"{name} recovery {share} < {RECOVERY_SHARE}")
     out = dict(seconds=sweep_s, rate=rate, recovered=share,
-               routes=expected_routes(periods, chunk_periods, torch.float32))
+               routes=expected_launches(stack, periods, chunk_periods))
     if staged_chunk is not None:
         lo = staged_chunk * chunk_periods
         out["route_check"] = (stack, periods[lo:lo + chunk_periods])
     return out
-
-
-def check_routes(name, result, launches):
-    """Each chunk went where the route rule sends it (the staged route may
-    split a call further to fit device memory, so K-U launches at least
-    once per 8 periods)."""
-    want = result["routes"]
-    if launches["K-F"] != want["K-F"] or launches["K-U"] < want["K-U"]:
-        raise AssertionError(f"{name}: launches {launches}, the route rule "
-                             f"gives {want}")
 
 
 def mixed_grid_stack(B=2048, n_grids=4, seed=2028):
@@ -1439,7 +1625,8 @@ def phase_mixed_grid(tmp, stack, p_inj, chunk_periods=2048):
     if share < RECOVERY_SHARE:
         raise AssertionError(f"mixed-grid recovery {share} < "
                              f"{RECOVERY_SHARE}")
-    return dict(seconds=sweep_s, rate=rate, recovered=share, state=state)
+    return dict(seconds=sweep_s, rate=rate, recovered=share, state=state,
+                routes=expected_launches(stack, periods, chunk_periods))
 
 
 def check_mixed_against_single(tmp, stack, mixed, per, chunk_periods=2048):
@@ -1583,55 +1770,305 @@ def check_past_ceiling(x, slice_periods=2):
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the batched SG flatten, then the search, at full width
+# ---------------------------------------------------------------------------
+#: phase 10's flatten: 30-h windows (901 two-minute cadences), more than 3x
+#: the longest north-star duration (0.33 d), as TESS users set it
+FLATTEN_KW = dict(window_length=901, polyorder=2, break_tolerance=5,
+                  niters=3, sigma=3)
+#: the mid-sector downlink gap of phase 10's sector
+DOWNLINK_GAP_DAYS = 1.0
+#: phase 10's transits and stellar rotation periods (d)
+FLATTEN_DEPTH = 4e-4
+FLATTEN_ROTATION = (4.0, 10.0)
+#: the card's float64 flatten against the CPU's, and float32 against
+#: float64 on the card (relative, where both masks keep the cadence)
+FLATTEN_F64_RTOL = 1e-9
+FLATTEN_F32_RTOL = 1e-5
+FLATTEN_F32_MASK_SHARE = 0.999
+#: the share of cadences kept by both whose float32 trend is within
+#: FLATTEN_F32_RTOL after every iteration
+FLATTEN_F32_TREND_SHARE = 0.9999
+
+
+@contextlib.contextmanager
+def torch_default_tf32():
+    """PyTorch's default TF32 flags inside the block (float32 matrix
+    products in full precision, cuDNN convolutions allowed TF32), whatever
+    :func:`main` set; restored after."""
+    import torch
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev
+
+
+def flatten_arrays(B=2048, seed=2031, depth=FLATTEN_DEPTH,
+                   rotation=FLATTEN_ROTATION):
+    """Phase 10's SPOC-like batch as host arrays (time, flux, flux_err,
+    mask): B curves over one 27-d sector of two-minute cadences (19,440)
+    with a mid-sector downlink gap; per-cadence dy 0.7-1.3 x 2e-4; a
+    stellar trend per curve (a sinusoid of 0.5-1% at a period in
+    ``rotation`` and a linear drift of up to 0.5% over the sector); one
+    box transit of 0.1 d and ``depth`` each (periods 1.2-8.5 d); ~0.1%
+    outliers at 10 dy; ~3% masked cadences.  Returns the arrays and the
+    injected periods."""
+    from tools import make_sector as ms
+    rng = np.random.default_rng(seed)
+    t = sector_times(1)
+    t[LONG_N // 2:] += DOWNLINK_GAP_DAYS
+    shape = (B, t.size)
+    dy = ms.NOISE * rng.uniform(0.7, 1.3, shape)
+    trend = (1.0 + rng.uniform(0.005, 0.01, (B, 1)) * np.sin(
+        2 * np.pi * t / rng.uniform(*rotation, (B, 1))
+        + rng.uniform(0, 2 * np.pi, (B, 1)))
+        + rng.uniform(-0.005, 0.005, (B, 1)) * (t - t[0]) / (t[-1] - t[0]))
+    flux = np.ones(shape)
+    p_inj = rng.uniform(1.2, 8.5, B)
+    inject_transits(flux, t, p_inj, rng, depth)
+    flux = flux * trend + dy * rng.standard_normal(shape)
+    out = rng.random(shape) < 0.001
+    flux[out] += 10 * dy[out]
+    mask = rng.random(shape) >= 0.03
+    flux[~mask] = 0.0
+    return (np.broadcast_to(t, shape), flux, dy, mask), p_inj
+
+
+def phase_flatten(tmp, B=2048, chunk_periods=1024):
+    """Phase 10: the port's detrend-then-search path on the card.  A
+    float32 stack of :func:`flatten_arrays`, ``LightCurveStack.flatten``
+    (:data:`FLATTEN_KW`, TF32 flags at PyTorch's defaults), timed with its
+    peak memory and again at the class default window (101), then
+    SweepRunner(method="shared") over :data:`LONG_GRID` in four chunks:
+    the flattened flux_err makes the weights per cadence.  Returns the
+    numbers, the launches the route rule gives and the host arrays."""
+    import torch
+    from lightkurve_tpu_torch.batch import LightCurveStack
+    from lightkurve_tpu_torch.parallel.checkpoint import SweepRunner
+    arrays, p_inj = flatten_arrays(B)
+    stack = LightCurveStack.from_numpy(*arrays, device="cuda",
+                                       dtype=torch.float32)
+    with torch_default_tf32():
+        stack.flatten(window_length=31)                      # warm-up
+        start_sweep()
+        t0 = time.perf_counter()
+        flat = stack.flatten(**FLATTEN_KW)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        start_sweep()
+        t0 = time.perf_counter()
+        stack.flatten(**dict(FLATTEN_KW, window_length=101))
+        torch.cuda.synchronize()
+        secs_101 = time.perf_counter() - t0
+    log(f"flatten: B={B} N={stack.shape[1]} float32, window 901: "
+        f"{secs:.3f}s, peak device memory {peak:.3f} GiB allocated (a "
+        f"(B, w, n) float32 tensor would be "
+        f"{B * 901 * stack.shape[1] * 4 / 1e9:.1f} GB); window 101: "
+        f"{secs_101:.3f}s")
+    good = flat.flux[stack.mask]
+    if not bool(torch.isfinite(good).all()):
+        raise AssertionError("flatten: non-finite flattened flux")
+    periods = np.linspace(*LONG_GRID)
+    routes = expected_launches(flat, periods, chunk_periods)
+    start_sweep()
+    t0 = time.perf_counter()
+    runner = SweepRunner(flat, periods, DURATIONS,
+                         os.path.join(tmp, "flatten_search.npz"),
+                         chunk_periods=chunk_periods, method="shared",
+                         async_save=True)
+    state = runner.run()
+    sweep_s = time.perf_counter() - t0
+    share = recovery(state["period"], p_inj)
+    rate = B * len(periods) / sweep_s
+    log(f"flatten -> search: B={B} N={stack.shape[1]} P={len(periods)} in "
+        f"{runner.n_chunks} chunks: sweep {sweep_s:.3f}s ({rate:.6g} "
+        f"curve-period evals/s); median flattened flux "
+        f"{float(good.median()):.6f}; recovered {share:.4f}; "
+        f"{peak_memory()}")
+    if share < RECOVERY_SHARE:
+        raise AssertionError(f"flatten -> search recovery {share} < "
+                             f"{RECOVERY_SHARE}")
+    return dict(flatten_s=secs, flatten_101_s=secs_101, peak_gib=peak,
+                seconds=sweep_s, rate=rate, recovered=share, routes=routes,
+                arrays=arrays)
+
+
+def flatten_limits(tmp, B=2048, chunk_periods=1024):
+    """Where the reference's flatten stops serving the search: phase 10's
+    sector with deep transits (the synthetic sector's 3e-3, which the
+    flatten's clip removes, so each transit's gap splits a segment) and
+    rotation periods of 2-10 d, searched as in phase 10 after
+    ``flatten_batch`` with lightkurve_tpu's 16 tracked segments and with
+    64.  Logs each recovery and how many misses have periods under the
+    window plus a transit (1.35 d: segments between transits shorter than
+    the window take the median fallback); no bar (ROADMAP, queue C)."""
+    import torch
+    from lightkurve_tpu_torch.batch import LightCurveStack
+    from lightkurve_tpu_torch.ops.detrend import flatten_batch
+    from lightkurve_tpu_torch.ops.savgol import savgol_design_matrix
+    from lightkurve_tpu_torch.parallel.checkpoint import SweepRunner
+    from tools import make_sector as ms
+    arrays, p_inj = flatten_arrays(B, depth=ms.DEPTH, rotation=(2.0, 10.0))
+    stack = LightCurveStack.from_numpy(*arrays, device="cuda",
+                                       dtype=torch.float32)
+    kw = FLATTEN_KW
+    H = savgol_design_matrix(kw["window_length"], kw["polyorder"])
+    short = p_inj < (kw["window_length"] * 2.0 / 60 / 24 + 0.1)
+    for max_segments in (16, 64):
+        trend, _ = flatten_batch(stack.time, stack.flux, stack.mask, H,
+                                 kw["break_tolerance"], kw["sigma"],
+                                 niters=kw["niters"],
+                                 max_segments=max_segments)
+        flat = stack._replace(flux=stack.flux / trend,
+                              flux_err=stack.flux_err / trend)
+        state = SweepRunner(flat, np.linspace(*LONG_GRID), DURATIONS,
+                            os.path.join(tmp, f"limits_{max_segments}.npz"),
+                            chunk_periods=chunk_periods,
+                            method="shared").run()
+        hit = np.abs(state["period"] - p_inj) / p_inj < RECOVERY_RTOL
+        log(f"flatten limits: depth {ms.DEPTH:g}, rotation 2-10 d, "
+            f"{max_segments} tracked segments: recovered {hit.mean():.4f}; "
+            f"{int((~hit & short).sum())} of {int((~hit).sum())} misses "
+            f"at periods under 1.35 d ({int(short.sum())} curves)")
+
+
+def check_flatten(arrays, rows=64):
+    """Phase 10's flatten (:func:`~lightkurve_tpu_torch.ops.detrend.
+    flatten_batch` with :data:`FLATTEN_KW`, TF32 flags at PyTorch's
+    defaults) held three ways, each pair on the same inputs (float64
+    runs take the float32-rounded times and fluxes, so a pair differs only
+    in its arithmetic): float64 on the card against float64 on the CPU for
+    ``rows`` curves (trends within :data:`FLATTEN_F64_RTOL`, clipped masks
+    equal); float32 against float64 on the card for the whole batch after
+    one iteration (one compaction and segmentation from the input mask:
+    trends within :data:`FLATTEN_F32_RTOL` at every cadence) and after all
+    of them (masks agreeing on :data:`FLATTEN_F32_MASK_SHARE` of the
+    cadences; trends within :data:`FLATTEN_F32_RTOL` on
+    :data:`FLATTEN_F32_TREND_SHARE` of the cadences both keep, the rest
+    near a clip or a gap decision that an earlier iteration took the other
+    way).  Logs the maxima."""
+    import torch
+    from lightkurve_tpu_torch.ops.detrend import flatten_batch
+    from lightkurve_tpu_torch.ops.savgol import savgol_design_matrix
+    kw = FLATTEN_KW
+    H = savgol_design_matrix(kw["window_length"], kw["polyorder"])
+    t, f, _, m = (np.asarray(a, np.float32) if a.dtype != bool else a
+                  for a in arrays)
+
+    def run(dtype, device, sl=slice(None), niters=kw["niters"]):
+        def put(a, dt):
+            return torch.as_tensor(np.ascontiguousarray(a[sl]), dtype=dt,
+                                   device=device)
+        with torch_default_tf32():
+            return flatten_batch(put(t, dtype), put(f, dtype),
+                                 put(m, torch.bool), H,
+                                 kw["break_tolerance"], kw["sigma"],
+                                 niters=niters)
+
+    def rel(a, b):
+        a, b = a.double().cpu(), b.double().cpu()
+        return torch.nan_to_num((a - b).abs() / b.abs(), nan=np.inf)
+
+    (tc, vc), (th, vh) = (run(torch.float64, dev, slice(0, rows))
+                          for dev in ("cuda", "cpu"))
+    same = torch.equal(vc.cpu(), vh)
+    r64 = float(rel(tc, th).max())
+    log(f"flatten check: float64 card vs CPU, {rows} curves: clipped masks "
+        f"{'equal' if same else 'DIFFER'}, max relative trend error "
+        f"{r64:.3g} (bar {FLATTEN_F64_RTOL:g})")
+    if not same or r64 > FLATTEN_F64_RTOL:
+        raise AssertionError("flatten: float64 on the card differs from the "
+                             "CPU")
+    del tc, vc, th, vh
+    one = float(rel(run(torch.float32, "cuda", niters=1)[0],
+                    run(torch.float64, "cuda", niters=1)[0]).max())
+    t32, v32 = run(torch.float32, "cuda")
+    t64, v64 = run(torch.float64, "cuda")
+    agree = float((v32 == v64).double().mean())
+    both = (v32 & v64).cpu()
+    err = rel(t32, t64)[both]
+    within = float((err <= FLATTEN_F32_RTOL).double().mean())
+    log(f"flatten check: float32 vs float64 on the card, {len(t)} curves: "
+        f"one iteration, max relative trend error {one:.3g} (bar "
+        f"{FLATTEN_F32_RTOL:g}); {kw['niters']} iterations, clipped masks "
+        f"agree on {agree:.6f} of cadences, trends within "
+        f"{FLATTEN_F32_RTOL:g} on {within:.8f} of the cadences both keep "
+        f"(bars {FLATTEN_F32_MASK_SHARE}, {FLATTEN_F32_TREND_SHARE}), max "
+        f"{float(err.max()):.3g}, 99.99th percentile "
+        f"{float(err.kthvalue(int(0.9999 * err.numel())).values):.3g}")
+    if (one > FLATTEN_F32_RTOL or agree < FLATTEN_F32_MASK_SHARE
+            or within < FLATTEN_F32_TREND_SHARE):
+        raise AssertionError("flatten: float32 differs from float64 past "
+                             "the bars")
+
+
+# ---------------------------------------------------------------------------
 # --profile: one full-size sweep chunk per regime under torch.profiler
 # ---------------------------------------------------------------------------
 def chunk_bounds(stack, periods, impl, launch_periods=8):
-    """Each kernel's bound over one chunk's launches (:func:`route_call`):
-    the fused kernel's one launch, or the staged route's launches of
+    """Each kernel's bound over one chunk's launches (:func:`route_call`),
+    summed over the chunk's time grids (one shared-grid search each): the
+    route ``impl`` gives (``"auto"``: the route rule's), the fused
+    kernel's one launch, or the staged route's launches of
     ``launch_periods`` periods, K-SF's and the window scan's each summed
     over them."""
     import torch
     from lightkurve_tpu_torch.config import numpy_dtype
+    from lightkurve_tpu_torch.ops.bls import fold_route
     from lightkurve_tpu_torch.ops.bls_fused import (fold_rows,
                                                     max_nbins_bound,
                                                     nbins_per_period)
     from lightkurve_tpu_torch.parallel.checkpoint import _chunk_nbins, _k_max
     dtype = stack.flux.dtype
-    B, n = stack.flux.shape
-    err = stack.flux_err
-    uniform = bool(torch.all(stack.mask)) and bool(
-        torch.all(err == err[:, :1]))
+    n = stack.shape[1]
+    uniform = is_uniform(stack)
     d_phase = float(DURATIONS.min()) / OVERSAMPLE
     p_host = np.asarray(periods).astype(numpy_dtype(dtype))
     k_durs = tuple(int(max(int(d / d_phase + 0.5), 1)) for d in DURATIONS)
     common = (k_durs, tuple(float(d) for d in DURATIONS), d_phase)
     nbins = _chunk_nbins(p_host, d_phase, _k_max(DURATIONS, d_phase))
     max_nbp = max_nbins_bound(p_host, d_phase, dtype)
+    npad = fold_rows(nbins, max_nbp, max(k_durs))
     pc = torch.as_tensor(p_host, device="cuda")
-    t = stack.time[0].to(dtype)
-    ts = (t - t.min()).to(dtype)
     meta = lambda *shape: torch.empty(shape, dtype=dtype,  # noqa: E731
                                       device="meta")
-    if impl == "auto":
-        if uniform:
-            return {"K-F": bound_fused(ts, meta(n, B), pc, *common, nbins,
-                                       max_nbp)[0]}
-        return {"K-WF": bound_weighted_fused(ts, meta(n, B), meta(n, B), pc,
-                                             *common, nbins, max_nbp)[0]}
-    npad = fold_rows(nbins, max_nbp, max(k_durs))
-    cols = B if uniform else 2 * B
-    window = "K-U" if uniform else "K-W"
-    total = {"K-SF": 0.0, window: 0.0}
-    for i in range(0, len(p_host), launch_periods):
-        p = pc[i:i + launch_periods]
-        C, nbp = p.shape[0], nbins_per_period(p, d_phase)
-        total["K-SF"] += bound_staged_fold(ts, meta(n, cols), p, d_phase,
-                                           nbins, max_nbp, max(k_durs))[0]
-        total[window] += (
-            bound_uniform(meta(C, npad, B), meta(C, npad), nbp, p,
-                          meta(B), float(n), *common)[0] if uniform
-            else bound_weighted(meta(C, npad, cols), nbp, p, meta(cols),
-                                *common)[0])
+    grids, counts = torch.unique(stack.time, dim=0, return_counts=True)
+    total = {}
+
+    def add(kernel, ms):
+        total[kernel] = total.get(kernel, 0.0) + ms
+
+    for t, B in zip(grids.to(dtype), counts.tolist()):
+        ts = t - t.min()
+        route = fold_route(impl, max_nbp, max(k_durs), dtype, stack.device,
+                           not uniform, curves=B)
+        if route == "fused" and uniform:
+            add("K-F", bound_fused(ts, meta(n, B), pc, *common, nbins,
+                                   max_nbp)[0])
+            continue
+        if route == "fused":
+            add("K-WF", bound_weighted_fused(ts, meta(n, B), meta(n, B), pc,
+                                             *common, nbins, max_nbp)[0])
+            continue
+        cols = B if uniform else 2 * B
+        for i in range(0, len(p_host), launch_periods):
+            p = pc[i:i + launch_periods]
+            C, nbp = p.shape[0], nbins_per_period(p, d_phase)
+            add("K-SF", bound_staged_fold(ts, meta(n, cols), p, d_phase,
+                                          nbins, max_nbp, max(k_durs))[0])
+            if uniform:
+                add("K-U", bound_uniform(meta(C, npad, B), meta(C, npad),
+                                         nbp, p, meta(B), float(n),
+                                         *common)[0])
+            else:
+                add("K-W", bound_weighted(meta(C, npad, cols), nbp, p,
+                                          meta(cols), *common)[0])
     return total
 
 
@@ -1640,13 +2077,15 @@ def phase_profile(tmp, B=2048):
     run of the same chunk: the upper 12,500 periods of the uniform cell's
     grid and the upper 2048 of the weighted cell's (B x 8192), chunk 4 of
     the two-sector sweep (its last 1,024 periods, B x 38,880, on the auto
-    route) and the upper 2048 periods of the mixed-grid sweep; and the two
-    forced staged chunks of phases 4 and 6 (the weighted cell's first 2048
-    periods, the two-sector chunk 4) through the entry point
-    (:func:`route_call`).  Prints device time per kernel, the device's
+    route), the upper 2048 periods of the mixed-grid sweep and chunk 4 of
+    phase 10's search of its flattened sector; phase 10's flatten; and
+    the two forced chunks of phases 4 and 6 (the weighted cell's first
+    2048 periods on the staged route, the two-sector chunk 4 on the fused
+    one) through the entry point (:func:`route_call`).  Prints device
+    time per kernel, the device's
     idle share of the chunk's wall time (the profiler adds host cost to
     every launch, so this share is an upper bound of the untraced one) and
-    each kernel's bound over the chunk's launches (single-grid cells)."""
+    each kernel's bound over the chunk's launches."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -1663,20 +2102,28 @@ def phase_profile(tmp, B=2048):
     weighted, _ = spoc_like_stack(B)
     two = long_sector_stack(B, n_sectors=2, p_max=17.0)[0]
     weighted_grid = np.linspace(1.0, top, 4096)
+    sector = LightCurveStack.from_numpy(*flatten_arrays(B)[0], device="cuda",
+                                        dtype=torch.float32)
+    flat = sector.flatten(**FLATTEN_KW)
     cells = (("uniform", uniform, np.linspace(1.0, top, 25_000)[12_500:],
               "auto"),
              ("weighted", weighted, weighted_grid[2048:], "auto"),
              ("two sectors, chunk 4", two,
               np.linspace(*TWO_SECTOR_GRID)[3072:], "auto"),
-             ("two sectors, chunk 4, staged route", two,
-              np.linspace(*TWO_SECTOR_GRID)[3072:], "staged"),
+             ("two sectors, chunk 4, fused route", two,
+              np.linspace(*TWO_SECTOR_GRID)[3072:], "fused"),
              ("weighted, chunk 1, staged route", weighted,
               weighted_grid[:2048], "staged"),
              ("mixed grids", mixed_grid_stack(B)[0],
-              mixed_grid_periods()[2048:], "auto"))
+              mixed_grid_periods()[2048:], "auto"),
+             ("flatten, window 901", sector, (), "flatten"),
+             ("flatten -> search, chunk 4", flat,
+              np.linspace(*LONG_GRID)[3072:], "auto"))
     for i, (name, stack, periods, impl) in enumerate(cells):
         def chunk(tag):
-            if impl == "auto":
+            if impl == "flatten":
+                stack.flatten(**FLATTEN_KW)
+            elif impl == "auto":
                 SweepRunner(stack, periods, DURATIONS,
                             os.path.join(tmp, f"profile_{i}_{tag}.npz"),
                             chunk_periods=len(periods), method="shared",
@@ -1716,7 +2163,7 @@ def phase_profile(tmp, B=2048):
         for k, (us, cnt) in sorted(by_name.items(),
                                    key=lambda kv: -kv[1][0])[:8]:
             log(f"  {us / 1e3:10.3f} ms {us / device:.4f} x{cnt} {k[:100]}")
-        if name != "mixed grids":
+        if impl != "flatten":
             log(f"  bounds over the chunk's launches: " + ", ".join(
                 f"{k} {v:.3f} ms" for k, v in
                 chunk_bounds(stack, periods, impl).items()))
@@ -1807,35 +2254,35 @@ def main():
     runs = {}
     others = lambda *keep: tuple(k for k in kernel_table()  # noqa: E731
                                  if k not in keep)
+
+    def sweep(path, fn, *args):
+        """A sweep path: its launches as the route rule gives them."""
+        result, runs[path] = drive(path, fn, *args)
+        check_routes(path, result.pop("routes"), runs[path])
+        return result
+
     with tempfile.TemporaryDirectory() as tmp:
-        path = "uniform main path (phase 3)"
-        uni, runs[path] = drive(path, phase_uniform, tmp, expect=("K-F",),
-                                forbid=others("K-F"))
-        path = "weighted main path (phase 4)"
-        wei, runs[path] = drive(path, phase_weighted, tmp,
-                                expect=("K-WF",), forbid=others("K-WF"))
+        uni = sweep("uniform main path (phase 3)", phase_uniform, tmp)
+        wei = sweep("weighted main path (phase 4)", phase_weighted, tmp)
         runs.update(compare_routes("weighted, chunk 1",
                                    *wei.pop("route_check")))
-        path = "long-sector sweep (phase 6)"
-        lng, runs[path] = drive(path, phase_long_sector, tmp, "long sector",
-                                1, LONG_GRID, 8.5, expect=("K-F",),
-                                forbid=others("K-F"))
-        check_routes("long sector", lng, runs[path])
-        path = "two-sector sweep (phase 6)"
-        two, runs[path] = drive(path, lambda: phase_long_sector(
-            tmp, "two sectors", 2, TWO_SECTOR_GRID, 17.0, staged_chunk=3),
-            expect=("K-F",), forbid=others("K-F"))
-        check_routes("two sectors", two, runs[path])
+        lng = sweep("long-sector sweep (phase 6)", phase_long_sector, tmp,
+                    "long sector", 1, LONG_GRID, 8.5)
+        two = sweep("two-sector sweep (phase 6)", lambda: phase_long_sector(
+            tmp, "two sectors", 2, TWO_SECTOR_GRID, 17.0, staged_chunk=3))
         runs.update(compare_routes("two sectors, chunk 4",
                                    *two.pop("route_check")))
         stack, p_inj, per = mixed_grid_stack()
-        path = "mixed-grid sweep (phase 7)"
-        mix, runs[path] = drive(path, phase_mixed_grid, tmp, stack, p_inj,
-                                expect=("K-WF",), forbid=others("K-WF"))
+        mix = sweep("mixed-grid sweep (phase 7)", phase_mixed_grid, tmp,
+                    stack, p_inj)
         check_mixed_against_single(tmp, stack, mix, per)
         del stack
         path = "per-curve sweeps (phase 8)"
         pcv, runs[path] = drive(path, phase_percurve, tmp, forbid=others())
+        torch.cuda.empty_cache()
+        flt = sweep("flatten -> search (phase 10)", phase_flatten, tmp)
+        check_flatten(flt.pop("arrays"))
+        flatten_limits(tmp)
     torch.cuda.empty_cache()
     path = "past the one-hot ceiling (phase 9)"
     big, runs[path] = drive(path, phase_past_ceiling,
@@ -1849,10 +2296,12 @@ def main():
     for key, (e, t, b, per) in long.items():
         errs[key], times[key], bounds[key], per_launch[key] = e, t, b, per
     errs["K-F"] = max(errs["K-F"], kf_err)
+    phase_routes()
     log(f"main paths: uniform {uni['rate']:.6g}, weighted "
         f"{wei['rate']:.6g}, long sector {lng['rate']:.6g}, two sectors "
-        f"{two['rate']:.6g}, mixed grids {mix['rate']:.6g} curve-period "
-        f"evals/s; per-curve fast "
+        f"{two['rate']:.6g}, mixed grids {mix['rate']:.6g}, flatten -> "
+        f"search {flt['rate']:.6g} curve-period evals/s (flatten "
+        f"{flt['flatten_s']:.3f}s); per-curve fast "
         f"{pcv['fast']['seconds']:.3f}s, exact "
         f"{pcv['exact']['seconds']:.3f}s; "
         f"smoke {time.time() - t_start:.1f}s")

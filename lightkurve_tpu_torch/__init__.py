@@ -3,7 +3,8 @@
 A port of ``lightkurve_tpu``'s transit search to PyTorch with hand-written
 CUDA kernels for NVIDIA Hopper (sm_90a): FITS files are read by the C++
 column reader (:mod:`.io.native`), streamed into device stacks
-(:mod:`.io.pipeline`), and searched with box least squares (:mod:`.ops.bls`:
+(:mod:`.io.pipeline`), detrended by the batched Savitzky-Golay flatten
+(:mod:`.ops.detrend`), and searched with box least squares (:mod:`.ops.bls`:
 shared-time-grid kernels, mixed grids by group, per-curve methods) in
 checkpointed chunks (:mod:`.parallel.checkpoint`).
 
@@ -24,6 +25,8 @@ _LAZY = {
     "bls_power": ".ops.bls",
     "bls_power_binned": ".ops.bls",
     "prewarm_shared_sweep": ".parallel.checkpoint",
+    "flatten_batch": ".ops.detrend",
+    "savgol_design_matrix": ".ops.savgol",
 }
 
 __all__ = list(_LAZY)

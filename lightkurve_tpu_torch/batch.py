@@ -15,27 +15,9 @@ import torch
 
 from .config import numpy_dtype, resolve_device, resolve_dtype
 from .io.pipeline import assemble_host_stack
+from .ops.masked import masked_median
 
 __all__ = ["LightCurveStack"]
-
-
-def masked_median(x, mask):
-    """Median over valid entries of each row (numpy's linear-interpolation
-    rule, NaN for rows without valid entries): sort with invalid entries
-    pushed to +inf, then interpolate at the fractional rank."""
-    xs = torch.sort(torch.where(mask, x, torch.inf), dim=-1).values
-    n = mask.sum(-1)
-    pos = 0.5 * (n.to(xs.dtype) - 1.0)
-    last = xs.shape[-1] - 1
-    lo = torch.clamp(torch.floor(pos).to(torch.int64), 0, last)
-    hi = torch.clamp(lo + 1, 0, last)
-    frac = pos - lo.to(xs.dtype)
-    v_lo = torch.gather(xs, -1, lo[..., None])[..., 0]
-    v_hi = torch.gather(xs, -1, hi[..., None])[..., 0]
-    # at integer ranks the hi sample may sit in the +inf padding and
-    # 0 * inf is NaN: select rather than rely on frac vanishing
-    out = torch.where(frac > 0, v_lo + frac * (v_hi - v_lo), v_lo)
-    return torch.where(n > 0, out, torch.nan)
 
 
 @dataclass
@@ -111,6 +93,55 @@ class LightCurveStack:
         med = masked_median(self.flux, self.mask)[:, None]
         return self._replace(flux=self.flux / med,
                              flux_err=self.flux_err / torch.abs(med))
+
+    def flatten(self, window_length=101, polyorder=2, break_tolerance=5,
+                niters=3, sigma=3, return_trend=False):
+        """Divide each curve by its Savitzky-Golay trend
+        (:func:`~lightkurve_tpu_torch.ops.detrend.flatten_batch`; the
+        reference's ``LightCurve.flatten`` over the whole stack).  The
+        mask is kept; ``flux_err`` is divided by the trend too, so a
+        search of the result takes the per-cadence weighted regime.
+        ``break_tolerance=None`` disables gap splitting.  With
+        ``return_trend`` also returns a stack whose flux is the trend."""
+        from .ops.detrend import flatten_batch
+        from .ops.savgol import savgol_design_matrix
+        H = savgol_design_matrix(window_length,
+                                 min(polyorder, window_length - 1))
+        bt = np.nan if break_tolerance is None else float(break_tolerance)
+        trend, _ = flatten_batch(self.time, self.flux, self.mask, H, bt,
+                                 float(sigma), niters=int(niters))
+        flat = self._replace(flux=self.flux / trend,
+                             flux_err=self.flux_err / trend)
+        if return_trend:
+            return flat, self._replace(flux=trend)
+        return flat
+
+    def remove_outliers(self, sigma=5.0, **kwargs):
+        """Mask (not delete) outliers of each curve
+        (:func:`~lightkurve_tpu_torch.ops.stats.sigma_clip_mask`; keyword
+        arguments go to it)."""
+        from .ops.stats import sigma_clip_mask
+        out = sigma_clip_mask(self.flux, mask=self.mask, sigma=sigma,
+                              **kwargs)
+        return self._replace(mask=self.mask & ~out)
+
+    def estimate_cdpp_batch(self, transit_duration=13, savgol_window=101,
+                            savgol_polyorder=2, sigma=5.0):
+        """Each curve's Savitzky-Golay CDPP in ppm, as the reference's
+        ``LightCurve.estimate_cdpp``: flatten, sigma-clip, the standard
+        deviation of the running mean over ``transit_duration`` cadences
+        (windows wholly of valid samples).  Returns a (B,) host array."""
+        from .ops.masked import masked_std
+        from .ops.stats import running_mean, sigma_clip_mask
+        flat = self.flatten(window_length=savgol_window,
+                            polyorder=savgol_polyorder)
+        m = flat.mask & ~sigma_clip_mask(flat.flux, mask=flat.mask,
+                                         sigma=sigma)
+        med = masked_median(flat.flux, m)[:, None]
+        norm = torch.where(m, (flat.flux / med - 1.0) * 1e6, 0.0)
+        rm = running_mean(norm, transit_duration)
+        full = running_mean(m.to(norm.dtype), transit_duration) > 0.999
+        return masked_std(rm, full).cpu().numpy()
 
     def _grid_groups(self, shared=None):
         """Group rows by identical time grids.  Returns (gid, t_host):

@@ -7,10 +7,12 @@ build tensors put them on the card unless the caller passes
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 __all__ = ["default_dtype", "default_device", "resolve_dtype",
-           "resolve_device", "numpy_dtype"]
+           "resolve_device", "numpy_dtype", "full_f32_matmul"]
 
 #: floating dtype of stacks built without an explicit ``dtype``
 default_dtype = torch.float32
@@ -50,3 +52,19 @@ def numpy_dtype(dtype):
     """The numpy dtype of a torch dtype (host arrays that must round as
     the tensors do)."""
     return torch.empty((), dtype=dtype).numpy().dtype
+
+
+@contextlib.contextmanager
+def full_f32_matmul(device):
+    """Run float32 matrix products on ``device`` in full float32 inside the
+    block, whatever the global flag is: on the card a product may
+    otherwise round its inputs to TF32."""
+    if device.type != "cuda":
+        yield
+        return
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev

@@ -85,7 +85,7 @@ def _bls_shared_scan(ts, W, WY, periods, k_durs, dur_values, d_phase, nbins,
     tensors (power is the raw window objective; the caller recomputes it
     from log_likelihood or depth_snr)."""
     route = fold_route(fold_impl, max_nbins_p, max(k_durs), W.dtype,
-                       W.device, weighted=True)
+                       W.device, weighted=True, curves=W.shape[1])
     scan = fused_scan_weighted if route == "fused" else _staged_scan_weighted
     best = scan(ts, W, WY, periods, k_durs, dur_values, d_phase, nbins,
                 max_nbins_p, use_likelihood, chunk=chunk, wrap=wrap)
@@ -117,26 +117,66 @@ def _uniform_stats_rescale(best, n_in_b, c_b, n_total, use_likelihood):
     return best
 
 
+#: "auto"'s route crossovers, per card (its ``torch.cuda.get_device_name``)
+#: and regime (``weighted``): ``(curves, rows)`` pairs, read in order; a
+#: call of at least ``curves`` curves takes the fused kernel while its rows
+#: are at most ``rows`` (the last pair the call reaches decides), and the
+#: staged route past them.  From the wall time of one SweepRunner chunk
+#: on each route at ``chip_smoke.py`` phase 5's route points (PERF.md
+#: section 6), each crossover between the nearest measured points: at
+#: 2048 curves the fused kernels win to 1,465 rows and the staged routes
+#: from 1,865 (within 10% either way to 1,965); at 1024 curves the fused
+#: kernels win at 1,865 rows and the staged routes at 3,665; at 256 curves
+#: the fused kernels win or come within 3% to 3,665 rows, the staged
+#: routes' host work per call weighing more per curve, and the staged
+#: routes win at one warp.  Cadences (8,192 to 38,880) did not move the
+#: crossover past that margin.
+ROUTE_CROSSOVERS = {
+    "NVIDIA H100 80GB HBM3": {
+        False: ((0, 4096), (1024, 2600), (2048, 1700)),
+        True: ((0, 4096), (1024, 2600), (2048, 1700))},
+}
+
+
+def auto_route(rows, curves, weighted, card, fits):
+    """The route "auto" takes for a call of ``curves`` curves whose
+    periods need ``rows`` fold rows, on the card named ``card`` (``None``
+    for the CPU), where ``fits`` says whether a fused block of one warp
+    fits its shared memory: the staged route where it does not; on a card
+    in :data:`ROUTE_CROSSOVERS`, its crossover; on any other device the
+    fused kernel, the stated default.  A pure function of shapes."""
+    if not fits:
+        return "staged"
+    table = ROUTE_CROSSOVERS.get(card)
+    if table is None:
+        return "fused"
+    max_rows = -1
+    for min_curves, rows_cap in table[bool(weighted)]:
+        if curves >= min_curves:
+            max_rows = rows_cap
+    return "fused" if rows <= max_rows else "staged"
+
+
 def fold_route(fold_impl, max_nbins_p, k_max, dtype, device,
-               weighted=False):
+               weighted=False, curves=0):
     """The route of one call: ``"fused"`` (K-F, or K-WF when ``weighted``)
-    or ``"staged"`` (K-SF and K-U, or K-W).  ``"auto"`` takes
-    the fused kernel when a block of one warp with the rows this call's
-    periods need (``max_nbins_p + k_max - 1``) fits the shared memory of
-    ``device`` (:func:`.bls_fused.fused_fits`; the kernel then picks its
-    own width), and the staged route otherwise: ``chip_smoke.py`` phase 5
-    times both routes at the route points, and the fused kernels were
-    faster at every one, a one-warp block included (PERF.md section 6).
-    Decided on the host from shapes, before any launch; an explicit
-    choice is returned as given."""
+    or ``"staged"`` (K-SF and K-U, or K-W).  ``"auto"`` decides from the
+    call's shapes on the host, before any launch (:func:`auto_route`): its
+    rows (``max_nbins_p + k_max - 1``), its ``curves``, the regime, the
+    card and whether a fused block of one warp fits the card's shared
+    memory (:func:`.bls_fused.fused_fits`; the kernel then picks its own
+    width).  An explicit choice is returned as given."""
     if fold_impl not in FOLD_IMPLS:
         raise ValueError(f"fold_impl must be one of {FOLD_IMPLS} "
                          f"(got {fold_impl!r})")
     if fold_impl != "auto":
         return fold_impl
-    rows_cap = int(max_nbins_p) + int(k_max) - 1
-    return ("fused" if fused_fits(rows_cap, dtype, device, weighted)
-            else "staged")
+    device = torch.device(device)
+    rows = int(max_nbins_p) + int(k_max) - 1
+    card = (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else None)
+    return auto_route(rows, int(curves), weighted, card,
+                      fused_fits(rows, dtype, device, weighted))
 
 
 #: share of the device's free memory one call of the staged fold may take
@@ -210,7 +250,7 @@ def _bls_shared_scan_uniform(ts, Y0, c_b, periods, k_durs, dur_values,
     """Uniform-weights shared-grid scan; Y0 (n, B) mean-shifted flux,
     ``c_b`` (B,) per-curve weights.  Returns a dict of (B, P) tensors."""
     route = fold_route(fold_impl, max_nbins_p, max(k_durs), Y0.dtype,
-                       Y0.device)
+                       Y0.device, curves=Y0.shape[1])
     scan = fused_scan_uniform if route == "fused" else _staged_scan_uniform
     out = scan(ts, Y0, periods, k_durs, dur_values, d_phase, nbins,
                max_nbins_p, use_likelihood, wrap=wrap, chunk=chunk)

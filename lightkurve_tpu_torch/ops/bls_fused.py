@@ -20,19 +20,18 @@ for CUDA tensors and runs :func:`fused_scan_uniform_plain` for CPU tensors.
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
 
 import numpy as np
 import torch
 
-from ..config import numpy_dtype
+from ..config import full_f32_matmul, numpy_dtype
 from .bls_window import (_check_cuda, _undersized, durations_args,
                          uniform_scan_staged)
 
 __all__ = ["fused_scan_uniform", "fused_scan_uniform_plain", "fold_ids",
            "nbins_per_period", "max_nbins_bound", "inv_d_phase",
-           "uniform_fold", "fold_rows", "full_f32_matmul",
+           "uniform_fold", "fold_rows",
            "fused_smem_bytes", "fused_fits", "fused_block",
            "check_fused_rows", "shared_memory_optin", "FUSED_TILE"]
 
@@ -152,21 +151,6 @@ def shared_memory_optin(device):
         raise RuntimeError(f"could not read the shared memory limit of "
                            f"{device}")
     return value
-
-
-@contextlib.contextmanager
-def full_f32_matmul(device):
-    """Run float32 matrix products in full float32: a fold's one-hot
-    product must not round its flux operand to TF32."""
-    if device.type != "cuda":
-        yield
-        return
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def uniform_fold(ts, Y0, pc, d_phase, nbins, max_nbins_p, k_max, wrap=True):

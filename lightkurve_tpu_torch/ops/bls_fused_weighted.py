@@ -23,8 +23,9 @@ import ctypes
 
 import torch
 
-from .bls_fused import (check_fused_rows, fold_ids, fold_rows,
-                        full_f32_matmul, inv_d_phase, nbins_per_period)
+from ..config import full_f32_matmul
+from .bls_fused import (check_fused_rows, fold_ids, fold_rows, inv_d_phase,
+                        nbins_per_period)
 from .bls_staged_fold import staged_fold_plain
 from .bls_window import (_check_cuda, _undersized, durations_args,
                          weighted_scan_staged)

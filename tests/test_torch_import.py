@@ -9,20 +9,16 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-MODULES = [
-    "lightkurve_tpu_torch",
-    "lightkurve_tpu_torch.config",
-    "lightkurve_tpu_torch.batch",
-    "lightkurve_tpu_torch.ops._build",
-    "lightkurve_tpu_torch.ops.bls_window",
-    "lightkurve_tpu_torch.ops.bls_fused",
-    "lightkurve_tpu_torch.ops.bls",
-    "lightkurve_tpu_torch.io.native",
-    "lightkurve_tpu_torch.io.fits",
-    "lightkurve_tpu_torch.io.pipeline",
-    "lightkurve_tpu_torch.parallel.checkpoint",
-    "chip_smoke",
-]
+def port_modules():
+    """Every module of the port, found by walking the package, and
+    chip_smoke.py."""
+    import pkgutil
+    names = ["lightkurve_tpu_torch"] + [
+        m.name for m in pkgutil.walk_packages(
+            [os.path.join(ROOT, "lightkurve_tpu_torch")],
+            prefix="lightkurve_tpu_torch.")]
+    return names + ["chip_smoke"]
+
 
 PROBE = """
 import importlib, subprocess, sys
@@ -43,6 +39,7 @@ for method in ("shared", "fast", "exact"):
                              method=method)
     assert runner.prewarm(wait=True) == []
 assert pkg.prewarm_shared_sweep("cpu", wait=True) == []
+stack.flatten(window_length=11).remove_outliers()
 from lightkurve_tpu_torch.ops import _build
 from lightkurve_tpu_torch.io import native
 assert not _build._LOADED and not native._LIB, "a library was loaded"
@@ -60,7 +57,11 @@ def _env():
 
 
 def test_slice_imports_without_jax_or_builds():
-    out = subprocess.run([sys.executable, "-c", PROBE] + MODULES, cwd=ROOT,
+    modules = port_modules()
+    for name in ("ops.detrend", "ops.savgol", "ops.masked", "ops.stats",
+                 "ops.interp", "ops.bls_staged_fold"):
+        assert "lightkurve_tpu_torch." + name in modules
+    out = subprocess.run([sys.executable, "-c", PROBE] + modules, cwd=ROOT,
                          env=_env(), capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr

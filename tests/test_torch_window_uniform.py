@@ -206,6 +206,29 @@ def test_route_rule_at_the_boundary(monkeypatch, dtype, weighted, full_rows,
 
 
 @pytest.mark.parametrize("weighted", [False, True])
+def test_auto_route_follows_the_measured_crossovers(weighted):
+    """'auto' is a pure function of shapes: on an H100 the fused kernel
+    takes a call of 2048 curves or more up to 1,700 rows, one of 1024 up to
+    2,600 and one of 256 up to 4,096, the staged route past them or
+    wherever a one-warp block does not fit; any other device keeps the
+    stated default, the fused kernel wherever it fits."""
+    h100 = "NVIDIA H100 80GB HBM3"
+    assert h100 in tbls.ROUTE_CROSSOVERS
+    for curves, last_fused in ((4096, 1700), (2048, 1700), (2047, 2600),
+                               (1024, 2600), (1023, 4096), (256, 4096),
+                               (1, 4096)):
+        for rows, want in ((824, "fused"), (last_fused, "fused"),
+                           (last_fused + 1, "staged"), (27_005, "staged")):
+            assert tbls.auto_route(rows, curves, weighted, h100,
+                                   True) == want, (curves, rows)
+        assert tbls.auto_route(824, curves, weighted, h100,
+                               False) == "staged"
+    for card in (None, "NVIDIA A100-SXM4-80GB"):
+        assert tbls.auto_route(27_005, 2048, weighted, card, True) == "fused"
+        assert tbls.auto_route(824, 2048, weighted, card, False) == "staged"
+
+
+@pytest.mark.parametrize("weighted", [False, True])
 def test_auto_route_per_bucket(rng, monkeypatch, weighted):
     """With bucket=True each period group goes through the route rule on
     its own rows: short periods take the fused kernel's plain version,
