@@ -44,6 +44,17 @@ Phases:
      sector with deep transits and faster rotators, whose recovery after
      the flatten is logged with lightkurve_tpu's 16 tracked segments and
      with 64 (the reference flatten's limits);
+ 11. Lomb-Scargle on the stack (plain torch: index_add_ and torch.fft, no
+     BLS kernel may launch), each part a path of its own: (1)
+     LightCurveStack.to_periodogram() on phase 10's raw sector in float32
+     (timed, peak memory, the rotation recovered on 99% of curves,
+     float32 vs float64 on the card, float64 card vs CPU on 64 curves);
+     (2) lombscargle_fast at the bench's LS shape, 2048 x 8,192 at 16,384
+     frequencies; (3) phase 7's four-grid stack against single-grid calls;
+     (4) fastchi2 (3 harmonics, 100,000 frequencies, one curve) against
+     the direct chi2 at 2,048 and a batched per-curve-dy call of 256
+     curves; (5) direct against fast in float64, 64 curves x 2,048
+     frequencies;
   9. one call past the one-hot fold's old memory ceiling: a year of
      two-minute cadences (262,800) x 2048 curves in float32, 4 periods
      near 300 d (~60,000 rows), through bls_power_shared_batch on the
@@ -79,9 +90,17 @@ when no CUDA device is present.
     python3 chip_smoke.py --profile
 
 builds the kernels and profiles one full-size sweep chunk per shared-grid
-cell, phase 10's flatten and two forced-route chunks instead
-(torch.profiler: device time per kernel, the device's idle share, each
-kernel's bound over the chunk).
+cell, phase 10's flatten, phase 11's default to_periodogram call and its
+fastchi2 call, and two forced-route chunks instead (torch.profiler:
+device time per kernel, the device's idle share, each kernel's bound over
+the chunk; the Lomb-Scargle calls' launches and device time by kind of
+op).
+
+    python3 chip_smoke.py --ls-f64
+
+runs only phase 11's float64 card-against-CPU check of the sector, as
+the first Lomb-Scargle work of the process and again after a float32
+call, and logs where the error peaks and the denominators there.
 """
 import argparse
 import contextlib
@@ -1816,17 +1835,18 @@ def flatten_arrays(B=2048, seed=2031, depth=FLATTEN_DEPTH,
     stellar trend per curve (a sinusoid of 0.5-1% at a period in
     ``rotation`` and a linear drift of up to 0.5% over the sector); one
     box transit of 0.1 d and ``depth`` each (periods 1.2-8.5 d); ~0.1%
-    outliers at 10 dy; ~3% masked cadences.  Returns the arrays and the
-    injected periods."""
+    outliers at 10 dy; ~3% masked cadences.  Returns the arrays, the
+    injected transit periods and the rotation periods."""
     from tools import make_sector as ms
     rng = np.random.default_rng(seed)
     t = sector_times(1)
     t[LONG_N // 2:] += DOWNLINK_GAP_DAYS
     shape = (B, t.size)
     dy = ms.NOISE * rng.uniform(0.7, 1.3, shape)
-    trend = (1.0 + rng.uniform(0.005, 0.01, (B, 1)) * np.sin(
-        2 * np.pi * t / rng.uniform(*rotation, (B, 1))
-        + rng.uniform(0, 2 * np.pi, (B, 1)))
+    amplitude = rng.uniform(0.005, 0.01, (B, 1))
+    p_rot = rng.uniform(*rotation, (B, 1))
+    trend = (1.0 + amplitude * np.sin(
+        2 * np.pi * t / p_rot + rng.uniform(0, 2 * np.pi, (B, 1)))
         + rng.uniform(-0.005, 0.005, (B, 1)) * (t - t[0]) / (t[-1] - t[0]))
     flux = np.ones(shape)
     p_inj = rng.uniform(1.2, 8.5, B)
@@ -1836,7 +1856,7 @@ def flatten_arrays(B=2048, seed=2031, depth=FLATTEN_DEPTH,
     flux[out] += 10 * dy[out]
     mask = rng.random(shape) >= 0.03
     flux[~mask] = 0.0
-    return (np.broadcast_to(t, shape), flux, dy, mask), p_inj
+    return (np.broadcast_to(t, shape), flux, dy, mask), p_inj, p_rot[:, 0]
 
 
 def phase_flatten(tmp, B=2048, chunk_periods=1024):
@@ -1850,7 +1870,7 @@ def phase_flatten(tmp, B=2048, chunk_periods=1024):
     import torch
     from lightkurve_tpu_torch.batch import LightCurveStack
     from lightkurve_tpu_torch.parallel.checkpoint import SweepRunner
-    arrays, p_inj = flatten_arrays(B)
+    arrays, p_inj, _ = flatten_arrays(B)
     stack = LightCurveStack.from_numpy(*arrays, device="cuda",
                                        dtype=torch.float32)
     with torch_default_tf32():
@@ -1914,7 +1934,8 @@ def flatten_limits(tmp, B=2048, chunk_periods=1024):
     from lightkurve_tpu_torch.ops.savgol import savgol_design_matrix
     from lightkurve_tpu_torch.parallel.checkpoint import SweepRunner
     from tools import make_sector as ms
-    arrays, p_inj = flatten_arrays(B, depth=ms.DEPTH, rotation=(2.0, 10.0))
+    arrays, p_inj, _ = flatten_arrays(B, depth=ms.DEPTH,
+                                      rotation=(2.0, 10.0))
     stack = LightCurveStack.from_numpy(*arrays, device="cuda",
                                        dtype=torch.float32)
     kw = FLATTEN_KW
@@ -2009,6 +2030,391 @@ def check_flatten(arrays, rows=64):
 
 
 # ---------------------------------------------------------------------------
+# phase 11: Lomb-Scargle on the stack (plain torch: torch.fft, index_add_)
+# ---------------------------------------------------------------------------
+#: the bench's LS companion (bench.py:491-506): B x 8,192 cadences,
+#: 16,384 frequencies from 0.05 /d
+LS_BENCH_NF = 16_384
+#: fastchi2 against the direct chi2 (bench.py:607-640): one 8,192-cadence
+#: curve, 3 harmonics, 100,000 frequencies against the first 2,048
+FASTCHI2_NF = 100_000
+FASTCHI2_DIRECT_NF = 2048
+FASTCHI2_NTERMS = 3
+#: curves of the batched fastchi2 call with per-curve dy
+FASTCHI2_BATCH = 256
+#: fastchi2 against chi2, of the largest chi2 power (the bar of
+#: tests/test_ops_lombscargle.py::test_fastchi2_default_accuracy_class)
+FASTCHI2_RTOL = 1e-3
+#: fast against direct, of each row's largest power (the bar of
+#: tests/test_ops_lombscargle.py::test_fast_approximates_direct)
+LS_DIRECT_RTOL = 1e-4
+#: a mixed-grid call against single-grid calls, of each row's largest
+LS_MIXED_RTOL = 1e-5
+
+
+def ls_time(fn, reps=1):
+    """Wall time of ``fn()`` (after one warm-up call, which builds the FFT
+    plans and the cached set-up) over ``reps`` calls ending in a
+    synchronize, with the peak device memory of the timed calls.  Returns
+    (the last result, seconds per call, peak GiB)."""
+    import torch
+    fn()
+    start_sweep()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = fn()
+    torch.cuda.synchronize()
+    secs = (time.perf_counter() - t0) / reps
+    return out, secs, torch.cuda.max_memory_allocated() / 2**30
+
+
+def row_error(got, want):
+    """The largest |got - want| over each row's largest |want|."""
+    got, want = got.double().cpu(), want.double().cpu()
+    return float(((got - want).abs().amax(-1)
+                  / want.abs().amax(-1)).max())
+
+
+def shared_bins(t, f0, df, Nf):
+    """The most deposits one ``index_add_`` of the extirpolation puts in
+    one grid point (samples with the same first Lagrange point), and how
+    many grid points take more than one, on the grid of ``t`` at
+    frequencies ``f0 + df * [0, Nf)``."""
+    from lightkurve_tpu_torch.ops.lombscargle import fast_precompute
+    pre = fast_precompute(t, f0, df, Nf)
+    ilo = np.clip(pre["xi"].astype(np.int64) - 2, 0, pre["Nfft"] - 4)
+    counts = np.unique(ilo, return_counts=True)[1]
+    return int(counts.max()), int((counts > 1).sum())
+
+
+def fastchi2_grid(t):
+    """bench.py's fastchi2 grid: from 0.05 /d, about 50x oversampled."""
+    return 0.05, 2.0 / float(t[-1] - t[0]) / 50.0
+
+
+def ls_sector(B=2048, rows=64, device="cuda"):
+    """Part 1: ``LightCurveStack.to_periodogram()`` (psd, to Nyquist,
+    oversample 1) on phase 10's raw sector, float32.  Timed; the highest
+    peak of RECOVERY_SHARE of the curves within one step (1/baseline) of
+    the rotation frequency; float32 against float64 on the same
+    float32-rounded inputs (peaks on F32_WINNER_SHARE of the curves,
+    power at the float64 peak within F32_RTOL); float64 on the card
+    against the CPU for ``rows`` curves (F64_RTOL of each row's
+    largest).  Returns the numbers."""
+    import torch
+    from lightkurve_tpu_torch.batch import LightCurveStack
+    arrays, _, p_rot = flatten_arrays(B)
+    stack = LightCurveStack.from_numpy(*arrays, device=device,
+                                       dtype=torch.float32)
+    (freqs, p32), secs, peak = ls_time(stack.to_periodogram)
+    rate = B * len(freqs) / secs
+    log(f"LS sector: B={B} N={stack.shape[1]} Nf={len(freqs)} float32: "
+        f"to_periodogram {secs:.4f}s ({rate:.6g} curve-frequency evals/s), "
+        f"peak device memory {peak:.3f} GiB allocated")
+    if p32.shape != (B, len(freqs)) or not bool(torch.isfinite(p32).all()):
+        raise AssertionError("LS sector: power not finite or misshapen")
+    t0 = stack.time[0].cpu().numpy().astype(np.float64)
+    step = 1.0 / (t0[-1] - t0[0])
+    log("LS sector: deposits sharing a grid point in one scatter: "
+        + "; ".join(f"grid x{m}: at most {c[0]}, at {c[1]} points"
+                    for m in (1, 2) for c in [shared_bins(
+                        t0, m * freqs[0], m * step, len(freqs))]))
+    k32 = p32.argmax(1).cpu().numpy()
+    hit = np.abs(freqs[k32] - 1.0 / p_rot) <= step
+    share = float(hit.mean())
+    log(f"LS sector: highest peak within {step:.6f} /d of the rotation "
+        f"frequency on {share:.4f} of curves (bar {RECOVERY_SHARE})")
+    for i in np.nonzero(~hit)[0][:16]:
+        log(f"  miss: curve {i}, rotation {p_rot[i]:.3f} d, peak at "
+            f"{freqs[k32[i]]:.5f} /d ({1 / freqs[k32[i]]:.3f} d)")
+    if share < RECOVERY_SHARE:
+        raise AssertionError(f"LS sector recovery {share} < "
+                             f"{RECOVERY_SHARE}")
+    f64 = stack._replace(time=stack.time.double(), flux=stack.flux.double(),
+                         flux_err=stack.flux_err.double())
+    freqs64, p64 = f64.to_periodogram()
+    k64 = p64.argmax(1)
+    same = float((k64.cpu().numpy() == k32).mean())
+    at = torch.arange(B, device=p64.device)
+    rel = float(((p32[at, k64].double() - p64[at, k64]).abs()
+                 / p64[at, k64]).max())
+    log(f"LS sector: float32 vs float64 on the card: same peak on "
+        f"{same:.6f} of curves (bar {F32_WINNER_SHARE}), max relative power "
+        f"error at the float64 peak {rel:.3g} (bar {F32_RTOL:g})")
+    if (not np.array_equal(freqs64, freqs) or same < F32_WINNER_SHARE
+            or rel > F32_RTOL):
+        raise AssertionError("LS sector: float32 differs from float64 past "
+                             "the bars")
+    del p32
+    check_ls_f64(f64, p64, freqs, rows)
+    return dict(seconds=secs, rate=rate, peak_gib=peak, recovered=share,
+                nf=len(freqs))
+
+
+def ls_denominators(stack, f0, df, Nf):
+    """``lombscargle_fast``'s CC and SS (fit_mean) over the sum of weights,
+    (B, Nf), for a float64 stack's weights (dy = inf on masked cadences):
+    where one is small, the power divides rounding by it."""
+    import torch
+    from lightkurve_tpu_torch.ops.lombscargle import trig_sum
+    t = stack.time[0].cpu().numpy()
+    w = torch.where(stack.mask, stack.flux_err.double() ** -2, 0.0)
+    ws = w.sum(-1, keepdim=True)
+    S, C = trig_sum(t, w, df, Nf, f0=f0)
+    S2, C2 = trig_sum(t, w, df, Nf, f0=f0, freq_factor=2)
+    tan = (S2 - 2 * S * C / ws) / (C2 - (C * C - S * S) / ws)
+    C2w = 1 / torch.sqrt(1 + tan * tan)
+    S2w = tan * C2w
+    Cw = np.sqrt(0.5) * torch.sqrt(1 + C2w)
+    Sw = np.sqrt(0.5) * torch.sign(S2w) * torch.sqrt(1 - C2w)
+    CC = 0.5 * (ws + C2 * C2w + S2 * S2w) - (C * Cw + S * Sw) ** 2 / ws
+    SS = 0.5 * (ws - C2 * C2w - S2 * S2w) - (S * Cw - C * Sw) ** 2 / ws
+    return CC / ws, SS / ws
+
+
+def check_ls_f64(f64, p64, freqs, rows=64, tag="LS sector", ends=8):
+    """Float64 ``to_periodogram`` on the card (``p64`` of stack ``f64``)
+    against the CPU on the first ``rows`` curves: within F64_RTOL of each
+    row's largest power.  Logs where the error peaks (curve, frequency
+    over Nyquist, power there, CC and SS over the sum of weights there),
+    the smallest denominator on the grid, the error in the ``ends`` bins
+    at either end of the grid and inside them, the spread of the CPU's
+    own result under a relative 2^-52 perturbation of the fluxes (what
+    rounding alone moves at this shape), and a second card call against
+    the first."""
+    import torch
+    sub = f64._replace(time=f64.time[:rows].cpu(), flux=f64.flux[:rows].cpu(),
+                       flux_err=f64.flux_err[:rows].cpu(),
+                       mask=f64.mask[:rows].cpu())
+    freqs_cpu, p_cpu = sub.to_periodogram()
+    rel = ((p64[:rows].cpu() - p_cpu).abs()
+           / p_cpu.abs().amax(-1, keepdim=True))
+    err = float(rel.max())
+    i, k = np.unravel_index(int(rel.argmax()), rel.shape)
+    t0 = sub.time[0].numpy()
+    nyquist = 0.5 / np.median(np.diff(t0))
+    df = freqs[1] - freqs[0]
+    cc, ss = ls_denominators(sub, freqs[0], df, len(freqs))
+    low = torch.minimum(cc, ss)
+    li, lk = np.unravel_index(int(low.argmin()), low.shape)
+    edge = torch.zeros(len(freqs), dtype=torch.bool)
+    edge[:ends] = edge[-ends:] = True
+    gen = torch.Generator().manual_seed(0)
+    jolt = sub._replace(flux=sub.flux * (1 + 2.0 ** -52 * torch.randn(
+        sub.flux.shape, generator=gen, dtype=torch.float64)))
+    spread = row_error(jolt.to_periodogram()[1], p_cpu)
+    rerun = row_error(f64.to_periodogram()[1], p64)
+    log(f"{tag}: float64 card vs CPU, {rows} curves: max error {err:.3g} "
+        f"of each row's largest power (bar {F64_RTOL:g}), at curve {i}, "
+        f"{freqs[k]:.5f} /d (index {k}, {freqs[k] / nyquist:.5f} of "
+        f"Nyquist), power there {float(p_cpu[i, k] / p_cpu[i].max()):.3g} "
+        f"of the row's largest, CC {float(cc[i, k]):.4g} and SS "
+        f"{float(ss[i, k]):.4g} of the weights' sum there; smallest "
+        f"denominator on the grid {float(low[li, lk]):.4g} (curve {li}, "
+        f"index {lk}); error in the {ends} bins at either end "
+        f"{float(rel[:, edge].max()):.3g}, inside "
+        f"{float(rel[:, ~edge].max()):.3g}; "
+        f"the CPU under a 2^-52 jolt of the fluxes moves {spread:.3g}; a "
+        f"second card call differs from the first by {rerun:.3g}")
+    if not np.array_equal(freqs_cpu, freqs) or err > F64_RTOL:
+        raise AssertionError(f"{tag}: float64 on the card differs from the "
+                             "CPU")
+    return err
+
+
+def ls_f64_cold(B=2048, rows=64):
+    """``--ls-f64``: the float64 card-against-CPU check of phase 11 part 1
+    as the first Lomb-Scargle work of a fresh process (no cuFFT plan, an
+    empty set-up cache), then again after a float32 call, as the smoke
+    orders them."""
+    import torch
+    from lightkurve_tpu_torch.batch import LightCurveStack
+    arrays, _, _ = flatten_arrays(B)
+    stack = LightCurveStack.from_numpy(*arrays, device="cuda",
+                                       dtype=torch.float32)
+    f64 = stack._replace(time=stack.time.double(), flux=stack.flux.double(),
+                         flux_err=stack.flux_err.double())
+    freqs, p64 = f64.to_periodogram()
+    check_ls_f64(f64, p64, freqs, rows, tag="LS f64, cold")
+    stack.to_periodogram()
+    freqs, p64 = f64.to_periodogram()
+    check_ls_f64(f64, p64, freqs, rows, tag="LS f64, after float32")
+
+
+def bench_ls_inputs(B=2048, device="cuda"):
+    """The bench's LS inputs: B curves of the uniform cell's sector
+    (``tools/make_sector.batch_flux``) on bench.py's time grid (8,192
+    two-minute cadences from 0), dy 2e-4 per cadence, float32."""
+    import torch
+    from tools import make_sector as ms
+    t = np.arange(ms.N) * (2.0 / 60 / 24)
+    flux = np.concatenate([ms.batch_flux(ib, t)[0]
+                           for ib in range(-(-B // ms.BATCH))])[:B]
+    y = torch.as_tensor(flux, dtype=torch.float32, device=device)
+    return t, y, torch.full_like(y, ms.NOISE)
+
+
+def ls_bench_shape(B=2048, device="cuda"):
+    """Part 2: ``lombscargle_fast`` at the bench's LS shape (B x 8,192,
+    16,384 frequencies on bench.py:491-506's grid), the second of two
+    calls timed."""
+    import torch
+    from lightkurve_tpu_torch.ops.lombscargle import lombscargle_fast
+    t, y, dy = bench_ls_inputs(B, device)
+    df = 60.0 / LS_BENCH_NF / float(t[-1] - t[0] + 1)
+    power, secs, peak = ls_time(
+        lambda: lombscargle_fast(t, y, 0.05, df, LS_BENCH_NF, dy=dy))
+    rate = B * LS_BENCH_NF / secs
+    log(f"LS bench shape: B={B} N={len(t)} Nf={LS_BENCH_NF} float32: "
+        f"{secs:.4f}s ({rate:.6g} curve-frequency evals/s), peak device "
+        f"memory {peak:.3f} GiB allocated")
+    if power.shape != (B, LS_BENCH_NF) or not bool(
+            torch.isfinite(power).all()):
+        raise AssertionError("LS bench shape: power not finite or "
+                             "misshapen")
+    return dict(seconds=secs, rate=rate, peak_gib=peak)
+
+
+def ls_mixed(B=2048):
+    """Part 3: phase 7's four-grid stack through ``to_periodogram`` (one
+    batched call per grid), held against single-grid ``lombscargle_fast``
+    calls on each grid's rows at the mixed call's frequencies, with the
+    same psd rescale: the same peak on every curve, power within
+    LS_MIXED_RTOL of each row's largest.  The first grid's rows also go
+    through ``to_periodogram`` as a single-grid stack: its frequencies,
+    from the same first row, must be the mixed call's."""
+    import torch
+    from lightkurve_tpu_torch.ops.lombscargle import lombscargle_fast
+    stack, _, per = mixed_grid_stack(B)
+    (freqs, power), secs, peak = ls_time(stack.to_periodogram)
+    t0 = time.perf_counter()
+    stack._grid_groups()
+    grouping = time.perf_counter() - t0
+    log(f"LS mixed grids: B={B} N={stack.shape[1]} Nf={len(freqs)}, "
+        f"{B // per} grids: {secs:.4f}s "
+        f"({B * len(freqs) / secs:.6g} curve-frequency evals/s), of which "
+        f"grouping the rows by grid on the host {grouping:.4f}s; peak "
+        f"device memory {peak:.3f} GiB allocated")
+    fs = freqs[0]                     # the default grid starts one step up
+    dy = torch.where(stack.mask, stack.flux_err, torch.inf)
+    n_valid = stack.mask.sum(1, keepdim=True).double()
+    err, same = 0.0, 0
+    for g in range(B // per):
+        rows = slice(g * per, (g + 1) * per)
+        one = lombscargle_fast(stack.time[rows][0].cpu().numpy(),
+                               stack.flux[rows], fs, fs, len(freqs),
+                               dy=dy[rows], normalization="psd")
+        one = one * 2.0 / (n_valid[rows] * fs).to(one.dtype)
+        same += int((one.argmax(1) == power[rows].argmax(1)).sum())
+        err = max(err, row_error(power[rows], one))
+    first = stack._replace(time=stack.time[:per], flux=stack.flux[:per],
+                           flux_err=stack.flux_err[:per],
+                           mask=stack.mask[:per])
+    same_freqs = np.array_equal(first.to_periodogram()[0], freqs)
+    log(f"LS mixed grids: same peak as the single-grid calls on {same} of "
+        f"{B} curves, max error {err:.3g} of each row's largest (bar "
+        f"{LS_MIXED_RTOL:g}); the first grid's own stack gives "
+        f"{'the same' if same_freqs else 'OTHER'} frequencies")
+    if same < B or err > LS_MIXED_RTOL or not same_freqs:
+        raise AssertionError("LS mixed grids differ from the single-grid "
+                             "calls")
+    return dict(seconds=secs)
+
+
+def fastchi2_peak_bytes(B, Nf, nterms, itemsize):
+    """The batched fastchi2's live (B, Nf) arrays with per-curve dy: about
+    2 (2k + 1)^2 of them (the trig sums, the normal matrices' lower
+    triangles, the Cholesky factors, their inverses and the solution)."""
+    return 2 * (2 * nterms + 1) ** 2 * B * Nf * itemsize
+
+
+def ls_fastchi2(B=FASTCHI2_BATCH, device="cuda", nf=FASTCHI2_NF,
+                n_direct=FASTCHI2_DIRECT_NF):
+    """Part 4: ``lombscargle_fastchi2`` with FASTCHI2_NTERMS harmonics at
+    ``nf`` frequencies on one curve of the bench's inputs (bench.py:
+    607-640), against ``lombscargle_chi2`` at its first ``n_direct``
+    frequencies (FASTCHI2_RTOL of the largest chi2 power); the speed
+    ratio per frequency; then a batched call of ``B`` curves with
+    per-curve dy, its peak memory beside :func:`fastchi2_peak_bytes`."""
+    import torch
+    from lightkurve_tpu_torch.ops.lombscargle import (lombscargle_chi2,
+                                                      lombscargle_fastchi2)
+    t, y, dy = bench_ls_inputs(max(B, 1), device)
+    f0, df = fastchi2_grid(t)
+    k = FASTCHI2_NTERMS
+    fast, secs, peak = ls_time(lambda: lombscargle_fastchi2(
+        t, y[0], f0, df, nf, nterms=k), reps=8)
+    freqs = torch.as_tensor(f0 + df * np.arange(n_direct),
+                            dtype=torch.float32, device=device)
+    t_dev = torch.as_tensor(t, dtype=torch.float32, device=device)
+    direct, secs_d, _ = ls_time(lambda: lombscargle_chi2(
+        t_dev, y[0], freqs, nterms=k), reps=3)
+    err = float((fast[:n_direct].double() - direct.double()).abs().max()
+                / direct.double().abs().max())
+    ratio = (secs_d / n_direct) / (secs / nf)
+    log(f"fastchi2: N={len(t)} nterms={k} Nf={nf} float32: {secs:.5f}s "
+        f"({nf / secs:.6g} frequency evals/s), peak device memory "
+        f"{peak:.3f} GiB; chi2 at {n_direct} frequencies {secs_d:.5f}s; "
+        f"per frequency fastchi2 is {ratio:.4g}x faster; max error "
+        f"{err:.3g} of the largest chi2 power (bar {FASTCHI2_RTOL:g})")
+    if not bool(torch.isfinite(fast).all()) or err > FASTCHI2_RTOL:
+        raise AssertionError("fastchi2 differs from chi2 past the bar")
+    want = fastchi2_peak_bytes(B, nf, k, 4) / 2**30
+    batch, secs_b, peak_b = ls_time(lambda: lombscargle_fastchi2(
+        t, y[:B], f0, df, nf, dy=dy[:B], nterms=k))
+    log(f"fastchi2 batched, per-curve dy: B={B} Nf={nf}: {secs_b:.4f}s "
+        f"({B * nf / secs_b:.6g} curve-frequency evals/s), peak device "
+        f"memory {peak_b:.3f} GiB allocated (worked out: about {want:.3f} "
+        f"GiB of (B, Nf) arrays)")
+    if batch.shape != (B, nf) or not bool(torch.isfinite(batch).all()):
+        raise AssertionError("fastchi2 batched: power not finite or "
+                             "misshapen")
+    return dict(seconds=secs, ratio=ratio, batch_seconds=secs_b,
+                batch_peak_gib=peak_b)
+
+
+def ls_direct(B=64, nf=2048, device="cuda"):
+    """Part 5: ``lombscargle_direct`` against ``lombscargle_fast`` in
+    float64 on the card, on ``B`` curves of phase 10's sector generator
+    (masked cadences filled with the curve's median, uniform weights),
+    psd, at the first ``nf`` frequencies of the sector's default grid:
+    within LS_DIRECT_RTOL of each row's largest and the same peak."""
+    import torch
+    from lightkurve_tpu_torch.ops.lombscargle import (lombscargle_direct,
+                                                      lombscargle_fast)
+    (t, flux, _, mask), _, _ = flatten_arrays(B)
+    flux = np.where(mask, flux, np.median(flux, axis=1, keepdims=True))
+    y = torch.as_tensor(flux, dtype=torch.float64, device=device)
+    t0 = np.asarray(t[0], np.float64)
+    fs = 1.0 / (t0[-1] - t0[0])
+    freqs = fs + fs * np.arange(nf)
+    exact = lombscargle_direct(t0, y, freqs, normalization="psd")
+    fast = lombscargle_fast(t0, y, fs, fs, nf, normalization="psd")
+    err = row_error(fast, exact)
+    same = bool(torch.equal(fast.argmax(1), exact.argmax(1)))
+    log(f"LS direct vs fast: B={B} N={len(t0)} Nf={nf} float64 on the card: "
+        f"max error {err:.3g} of each row's largest (bar "
+        f"{LS_DIRECT_RTOL:g}); {'same' if same else 'DIFFERENT'} peaks")
+    if err > LS_DIRECT_RTOL or not same:
+        raise AssertionError("LS direct differs from fast past the bar")
+
+
+def phase_ls():
+    """Phase 11: the six-part Lomb-Scargle path (the profile is
+    ``--profile``'s), each part a path of its own that launches none of
+    the BLS kernels.  Returns part 1's numbers and the others' times."""
+    import torch
+    out = {}
+    for name, fn in (("sector", ls_sector), ("bench", ls_bench_shape),
+                     ("mixed", ls_mixed), ("fastchi2", ls_fastchi2),
+                     ("direct", ls_direct)):
+        out[name], _ = drive(f"Lomb-Scargle {name} (phase 11)", fn,
+                             forbid=tuple(kernel_table()))
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # --profile: one full-size sweep chunk per regime under torch.profiler
 # ---------------------------------------------------------------------------
 def chunk_bounds(stack, periods, impl, launch_periods=8):
@@ -2078,7 +2484,9 @@ def phase_profile(tmp, B=2048):
     grid and the upper 2048 of the weighted cell's (B x 8192), chunk 4 of
     the two-sector sweep (its last 1,024 periods, B x 38,880, on the auto
     route), the upper 2048 periods of the mixed-grid sweep and chunk 4 of
-    phase 10's search of its flattened sector; phase 10's flatten; and
+    phase 10's search of its flattened sector; phase 10's flatten and
+    phase 11's default ``to_periodogram`` call of its raw sector and its
+    one-curve fastchi2 call; and
     the two forced chunks of phases 4 and 6 (the weighted cell's first
     2048 periods on the staged route, the two-sector chunk 4 on the fused
     one) through the entry point (:func:`route_call`).  Prints device
@@ -2090,6 +2498,7 @@ def phase_profile(tmp, B=2048):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
     from lightkurve_tpu_torch.batch import LightCurveStack
+    from lightkurve_tpu_torch.ops.lombscargle import lombscargle_fastchi2
     from lightkurve_tpu_torch.parallel.checkpoint import SweepRunner
     from tools import make_sector as ms
     t = ms.time_grid()
@@ -2105,6 +2514,10 @@ def phase_profile(tmp, B=2048):
     sector = LightCurveStack.from_numpy(*flatten_arrays(B)[0], device="cuda",
                                         dtype=torch.float32)
     flat = sector.flatten(**FLATTEN_KW)
+    t8, y8, dy8 = bench_ls_inputs(1)
+    curve = LightCurveStack.from_numpy(
+        t8[None], y8.cpu().numpy(), dy8.cpu().numpy(),
+        np.ones(y8.shape, bool), device="cuda", dtype=torch.float32)
     cells = (("uniform", uniform, np.linspace(1.0, top, 25_000)[12_500:],
               "auto"),
              ("weighted", weighted, weighted_grid[2048:], "auto"),
@@ -2117,12 +2530,19 @@ def phase_profile(tmp, B=2048):
              ("mixed grids", mixed_grid_stack(B)[0],
               mixed_grid_periods()[2048:], "auto"),
              ("flatten, window 901", sector, (), "flatten"),
+             ("to_periodogram, phase 11", sector, (), "periodogram"),
+             ("fastchi2, phase 11", curve, (), "fastchi2"),
              ("flatten -> search, chunk 4", flat,
               np.linspace(*LONG_GRID)[3072:], "auto"))
     for i, (name, stack, periods, impl) in enumerate(cells):
         def chunk(tag):
             if impl == "flatten":
                 stack.flatten(**FLATTEN_KW)
+            elif impl == "periodogram":
+                stack.to_periodogram()
+            elif impl == "fastchi2":
+                lombscargle_fastchi2(t8, stack.flux[0], *fastchi2_grid(t8),
+                                     FASTCHI2_NF, nterms=FASTCHI2_NTERMS)
             elif impl == "auto":
                 SweepRunner(stack, periods, DURATIONS,
                             os.path.join(tmp, f"profile_{i}_{tag}.npz"),
@@ -2155,18 +2575,39 @@ def phase_profile(tmp, B=2048):
                 end = hi
         wall = span.end - span.start
         device = sum(us for us, _ in by_name.values())
-        log(f"profile {name}: B={B} N={stack.shape[1]} P={len(periods)}: "
-            f"device "
+        log(f"profile {name}: B={len(stack)} N={stack.shape[1]} "
+            f"P={len(periods)}: device "
             f"{device / 1e3:.3f} ms, busy {busy / 1e3:.3f} ms of "
             f"{wall / 1e3:.3f} ms wall, idle {1 - busy / wall:.4f}; "
             f"{peak_memory()}")
         for k, (us, cnt) in sorted(by_name.items(),
                                    key=lambda kv: -kv[1][0])[:8]:
             log(f"  {us / 1e3:10.3f} ms {us / device:.4f} x{cnt} {k[:100]}")
-        if impl != "flatten":
-            log(f"  bounds over the chunk's launches: " + ", ".join(
+        if impl in ("periodogram", "fastchi2"):
+            log(f"  {sum(n for _, n in by_name.values())} launches; by op: "
+                + ", ".join(
+                f"{k} {us / 1e3:.3f} ms {us / device:.4f}"
+                for k, us in op_kinds(by_name).items()))
+        elif impl != "flatten":
+            log("  bounds over the chunk's launches: " + ", ".join(
                 f"{k} {v:.3f} ms" for k, v in
                 chunk_bounds(stack, periods, impl).items()))
+
+
+def op_kinds(by_name):
+    """Device time (us) of a trace's kernels summed by kind: scatters
+    (``index_add_``), FFTs (cuFFT), reductions, and elementwise ops with
+    copies and the rest."""
+    kinds = {"scatter": 0.0, "fft": 0.0, "reduction": 0.0,
+             "elementwise": 0.0}
+    for name, (us, _) in by_name.items():
+        low = name.lower()
+        kind = ("scatter" if "index" in low or "scatter" in low
+                else "fft" if "fft" in low or "radix" in low
+                else "reduction" if "reduce" in low
+                else "elementwise")
+        kinds[kind] += us
+    return kinds
 
 
 def kernel_table():
@@ -2232,6 +2673,9 @@ def main():
     parser.add_argument("--profile", action="store_true",
                         help="profile one sweep chunk per regime instead "
                              "of the checks")
+    parser.add_argument("--ls-f64", action="store_true",
+                        help="only phase 11's float64 card-against-CPU "
+                             "check, cold in this process (no kernels)")
     args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -2245,6 +2689,9 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.time()
+    if args.ls_f64:
+        ls_f64_cold()
+        return 0
     phase_build()
     if args.profile:
         with tempfile.TemporaryDirectory() as tmp:
@@ -2284,6 +2731,7 @@ def main():
         check_flatten(flt.pop("arrays"))
         flatten_limits(tmp)
     torch.cuda.empty_cache()
+    ls = phase_ls()
     path = "past the one-hot ceiling (phase 9)"
     big, runs[path] = drive(path, phase_past_ceiling,
                             expect=("K-SF", "K-U"),
@@ -2301,7 +2749,9 @@ def main():
         f"{wei['rate']:.6g}, long sector {lng['rate']:.6g}, two sectors "
         f"{two['rate']:.6g}, mixed grids {mix['rate']:.6g}, flatten -> "
         f"search {flt['rate']:.6g} curve-period evals/s (flatten "
-        f"{flt['flatten_s']:.3f}s); per-curve fast "
+        f"{flt['flatten_s']:.3f}s); LS sector {ls['sector']['rate']:.6g}, "
+        f"LS bench shape {ls['bench']['rate']:.6g} curve-frequency "
+        f"evals/s; per-curve fast "
         f"{pcv['fast']['seconds']:.3f}s, exact "
         f"{pcv['exact']['seconds']:.3f}s; "
         f"smoke {time.time() - t_start:.1f}s")

@@ -6,7 +6,8 @@ column reader (:mod:`.io.native`), streamed into device stacks
 (:mod:`.io.pipeline`), detrended by the batched Savitzky-Golay flatten
 (:mod:`.ops.detrend`), and searched with box least squares (:mod:`.ops.bls`:
 shared-time-grid kernels, mixed grids by group, per-curve methods) in
-checkpointed chunks (:mod:`.parallel.checkpoint`).
+checkpointed chunks (:mod:`.parallel.checkpoint`) or with Lomb-Scargle
+periodograms (:mod:`.ops.lombscargle`, ``LightCurveStack.to_periodogram``).
 
 Modules mirror ``lightkurve_tpu``'s names.  Importing the package builds
 nothing and needs neither a GPU nor ``nvcc``: kernels compile on first use
@@ -27,6 +28,8 @@ _LAZY = {
     "prewarm_shared_sweep": ".parallel.checkpoint",
     "flatten_batch": ".ops.detrend",
     "savgol_design_matrix": ".ops.savgol",
+    "lombscargle_fast": ".ops.lombscargle",
+    "lombscargle_fastchi2": ".ops.lombscargle",
 }
 
 __all__ = list(_LAZY)

@@ -157,6 +157,56 @@ class LightCurveStack:
         _, gid = np.unique(t_host, axis=0, return_inverse=True)
         return np.asarray(gid).ravel(), t_host
 
+    def to_periodogram(self, minimum_frequency=None, maximum_frequency=None,
+                       oversample_factor=1.0, normalization="psd"):
+        """Batched fast Lomb-Scargle
+        (:func:`~lightkurve_tpu_torch.ops.lombscargle.lombscargle_fast`)
+        over one frequency grid for the whole stack.
+
+        The grid comes from the FIRST curve's time row: from
+        ``minimum_frequency`` (default one step) to ``maximum_frequency``
+        (default its Nyquist frequency, 0.5 / median cadence) in steps of
+        1 / (baseline x ``oversample_factor``).  Masked cadences weigh
+        nothing (``dy = inf``).  A stack of a few distinct time grids runs
+        one batched call per grid on that same frequency grid.  ``psd``
+        is rescaled to the reference's units, 2 / (valid cadences x
+        ``oversample_factor`` x step).
+
+        Returns (frequency, power): a float64 host array (Nf,) and a
+        (B, Nf) tensor on the stack's device.
+        """
+        from .ops.lombscargle import lombscargle_fast
+        t0 = self.time[0].cpu().numpy().astype(np.float64)
+        nyquist = 0.5 / np.median(np.diff(t0))
+        fs = 1.0 / (t0[-1] - t0[0]) / oversample_factor
+        f0 = fs if minimum_frequency is None else float(minimum_frequency)
+        fmax = nyquist if maximum_frequency is None else \
+            float(maximum_frequency)
+        Nf = int((fmax - f0) / fs)
+        # masked cadences get zero weight through dy = inf
+        dy = torch.where(self.mask, self.flux_err,
+                         torch.tensor(torch.inf, dtype=self.flux.dtype,
+                                      device=self.device))
+        gid, t_host = self._grid_groups()
+        if gid.max() == 0:
+            power = lombscargle_fast(t0, self.flux, f0, fs, Nf, dy=dy,
+                                     normalization=normalization)
+        else:
+            power = torch.empty((len(self), Nf), dtype=self.flux.dtype,
+                                device=self.device)
+            for g in range(int(gid.max()) + 1):
+                rows = np.nonzero(gid == g)[0]
+                idx = torch.as_tensor(rows, device=self.device)
+                power[idx] = lombscargle_fast(
+                    t_host[rows[0]], self.flux[idx], f0, fs, Nf,
+                    dy=dy[idx], normalization=normalization)
+        freqs = f0 + fs * np.arange(Nf)
+        if normalization == "psd":
+            n = self.mask.sum(dim=1, keepdim=True).to(torch.float64)
+            power = power * 2.0 / (n * oversample_factor * fs).to(
+                power.dtype)
+        return freqs, power
+
     def bls_search(self, periods, durations, oversample=10,
                    objective="likelihood", shared_time=None, method="fast"):
         """Batched BLS over the stack; returns a dict of (B, P) tensors on

@@ -41,7 +41,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..config import numpy_dtype
+from ..config import numpy_dtype, resolve_device
 from .bls_fused import (fold_rows, fused_fits, fused_scan_uniform,
                         max_nbins_bound)
 from .bls_fused_weighted import fused_scan_weighted
@@ -49,7 +49,7 @@ from .bls_staged_fold import staged_fold
 from .bls_window import window_scan, window_scan_uniform
 
 __all__ = ["bls_power_shared_batch", "bls_power", "bls_power_direct",
-           "bls_power_binned", "fold_route"]
+           "bls_power_binned", "bls_objective_single", "fold_route"]
 
 FOLD_IMPLS = ("auto", "fused", "staged")
 
@@ -597,6 +597,41 @@ def bls_power(t, y, dy, periods, durations, oversample=10,
 
 # The sorted-phase search IS the exact ("direct") objective.
 bls_power_direct = bls_power
+
+
+def bls_objective_single(t, y, dy, period, duration, transit_time,
+                         use_likelihood=True, device=None):
+    """Box statistics of one curve at ONE (period, duration, transit
+    time), as ``compute_stats`` and ``get_transit_model`` of a BLS
+    periodogram read them: a dict of depth, depth_err, depth_snr,
+    log_likelihood, y_in, y_out (0-d tensors) and the (n,) boolean
+    in_transit.  ``y``'s device and dtype set the computation's: a host
+    array ``y`` goes to ``device`` (default the card), a tensor stays on
+    its device unless ``device`` is given.  ``use_likelihood`` is
+    accepted as the reference's signature has it and changes nothing."""
+    if isinstance(y, torch.Tensor):
+        y = y if device is None else y.to(resolve_device(device))
+    else:
+        y = torch.as_tensor(np.asarray(y), device=resolve_device(device))
+    device, dtype = y.device, y.dtype
+    t = _as_tensor(t, device, dtype)
+    w = (torch.ones_like(y) if dy is None
+         else 1.0 / torch.square(_as_tensor(dy, device, dtype)))
+    period, duration, transit_time = (
+        torch.as_tensor(v, dtype=dtype, device=device)
+        for v in (period, duration, transit_time))
+    hp = 0.5 * period
+    in_t = torch.abs(_mod(t - transit_time + hp, period) - hp) \
+        < 0.5 * duration
+    w_in = torch.sum(torch.where(in_t, w, 0.0))
+    w_out = torch.sum(torch.where(in_t, 0.0, w))
+    y_in = torch.sum(torch.where(in_t, w * y, 0.0)) / w_in
+    y_out = torch.sum(torch.where(in_t, 0.0, w * y)) / w_out
+    depth = y_out - y_in
+    depth_err = torch.sqrt(1.0 / w_in + 1.0 / w_out)
+    return dict(depth=depth, depth_err=depth_err, depth_snr=depth / depth_err,
+                log_likelihood=0.5 * w_in * depth * depth,
+                y_in=y_in, y_out=y_out, in_transit=in_t)
 
 
 def _bls_one_period_binned(ts, w, wy, pc, durations, d_phase, nbins,

@@ -40,6 +40,8 @@ for method in ("shared", "fast", "exact"):
     assert runner.prewarm(wait=True) == []
 assert pkg.prewarm_shared_sweep("cpu", wait=True) == []
 stack.flatten(window_length=11).remove_outliers()
+freqs, power = stack.to_periodogram()
+assert power.shape == (2, len(freqs)) and bool(power.isfinite().all())
 from lightkurve_tpu_torch.ops import _build
 from lightkurve_tpu_torch.io import native
 assert not _build._LOADED and not native._LIB, "a library was loaded"
@@ -59,7 +61,7 @@ def _env():
 def test_slice_imports_without_jax_or_builds():
     modules = port_modules()
     for name in ("ops.detrend", "ops.savgol", "ops.masked", "ops.stats",
-                 "ops.interp", "ops.bls_staged_fold"):
+                 "ops.interp", "ops.bls_staged_fold", "ops.lombscargle"):
         assert "lightkurve_tpu_torch." + name in modules
     out = subprocess.run([sys.executable, "-c", PROBE] + modules, cwd=ROOT,
                          env=_env(), capture_output=True, text=True,
