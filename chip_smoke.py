@@ -55,6 +55,22 @@ Phases:
      the direct chi2 at 2,048 and a batched per-curve-dy call of 256
      curves; (5) direct against fast in float64, 64 curves x 2,048
      frequencies;
+ 12. the LightCurve API: phase 10's sector written as 2048 TESS files
+     (SPOC-style: flagged spacecraft events shared by every file, each
+     curve's masked cadences as NaN flux), read_lc_collection (timed,
+     files/s), to_stack() on the card (one time grid), stack.flatten and
+     bls_search over 1-9 d in four calls with the launches the route rule
+     gives, recovery, and the winners against from_numpy of the same
+     float32 arrays (C2's bound); then 16 curves each by read() and by
+     stack[i], one at a time on the card in float32: normalize,
+     remove_outliers, flatten, the BLS periodogram on the reference's
+     default grid (peak within 1% of the injected period and of the
+     stack's winner), compute_stats, get_transit_model and
+     get_transit_mask, fold and bin, the Lomb-Scargle periodogram of the
+     raw curve (peak within one frequency step of the rotation) and
+     estimate_cdpp against estimate_cdpp_batch; on 2 curves the card's
+     float32 periodograms against the CPU's float64; no kernel may launch
+     in the single-curve part;
   9. one call past the one-hot fold's old memory ceiling: a year of
      two-minute cadences (262,800) x 2048 curves in float32, 4 periods
      near 300 d (~60,000 rows), through bls_power_shared_batch on the
@@ -75,8 +91,9 @@ Phases:
      one SweepRunner chunk's wall time per route through the entry point
      (the staged route at 8 periods per call), the route "auto" takes,
      the winners per (period, curve) against each other and C2's bound.
-Each path (the sweeps of phases 3, 4, 6, 7, 8 and 10 on the automatic
-route, the four forced-route runs of phases 4 and 6, and phase 9) runs
+Each path (the sweeps of phases 3, 4, 6, 7, 8, 10 and 12 on the
+automatic route, the four forced-route runs of phases 4 and 6, and phase
+9) runs
 with every launch count set to 0 just before it and read just after; a
 path fails if a plain version ran, and a sweep fails unless its launches
 are what the route rule (ops.bls.fold_route) gives its chunks.  The
@@ -91,10 +108,11 @@ when no CUDA device is present.
 
 builds the kernels and profiles one full-size sweep chunk per shared-grid
 cell, phase 10's flatten, phase 11's default to_periodogram call and its
-fastchi2 call, and two forced-route chunks instead (torch.profiler:
+fastchi2 call, phase 12's single-curve BLS periodogram, and two
+forced-route chunks instead (torch.profiler:
 device time per kernel, the device's idle share, each kernel's bound over
-the chunk; the Lomb-Scargle calls' launches and device time by kind of
-op).
+the chunk; the Lomb-Scargle calls' and the BLS periodogram's launches
+and device time by kind of op).
 
     python3 chip_smoke.py --ls-f64
 
@@ -1506,13 +1524,15 @@ def phase_long_shapes(slice_periods=32):
 # ---------------------------------------------------------------------------
 # phases 6-8: the long-sector, mixed-grid and per-curve sweeps at full width
 # ---------------------------------------------------------------------------
-def expected_launches(stack, periods, chunk_periods):
+def expected_launches(stack, periods, chunk_periods, launch_periods=8):
     """What the route rule (``ops.bls.fold_route``) gives each chunk of
     SweepRunner(method="shared") over ``stack``: per time grid of its rows
     (one shared-grid search each) and chunk (the last padded by repeating
     its last period, as SweepRunner pads it), one launch of the fused
-    kernel, or one launch of K-SF and of the window scan per 8 periods on
-    the staged route.  Returns the launches per kernel."""
+    kernel, or one launch of K-SF and of the window scan per
+    ``launch_periods`` periods on the staged route (SweepRunner's 8;
+    ``bls_search`` calls with the entry point's default, 16).  Returns the
+    launches per kernel."""
     import torch
     from lightkurve_tpu_torch.config import numpy_dtype
     from lightkurve_tpu_torch.ops.bls import fold_route
@@ -1534,8 +1554,8 @@ def expected_launches(stack, periods, chunk_periods):
                           weighted, curves=curves) == "fused":
                 want[fused] += 1
             else:
-                want["K-SF"] += -(-chunk_periods // 8)
-                want[window] += -(-chunk_periods // 8)
+                want["K-SF"] += -(-chunk_periods // launch_periods)
+                want[window] += -(-chunk_periods // launch_periods)
     return want
 
 
@@ -2415,6 +2435,343 @@ def phase_ls():
 
 
 # ---------------------------------------------------------------------------
+# phase 12: the LightCurve API on the card
+# ---------------------------------------------------------------------------
+#: the sector's spacecraft events: cadences every file flags with a bit of
+#: TESS's default quality bitmask (Desat), which ``read`` drops
+LC_EVENT_FLAG = 32
+LC_EVENTS = np.arange(400, LONG_N, 800)
+#: curves taken one at a time, each through ``read`` and ``stack[i]``
+LC_SINGLE = 16
+#: of those, also through float64 on the CPU
+LC_F64_CURVES = 2
+#: the card's float32 BLS periodogram against the CPU's float64 on the same
+#: curve: power at the float64 peak, relative
+LC_F32_POWER_RTOL = 1e-4
+#: LightCurve.estimate_cdpp against LightCurveStack.estimate_cdpp_batch:
+#: the two estimators differ by design (the single curve's running mean
+#: spans the cadences it dropped, the batch keeps windows wholly of valid
+#: cadences; up to 1.5% on this sector in float64), so the card's float32
+#: ratio of the two is held to the CPU's float64 ratio, within this
+LC_CDPP_F32_RTOL = 1e-3
+#: the bin width of the folded curve's ``bin`` (d)
+LC_FOLD_BIN = 0.01
+#: the single-curve BLS peak is read at periods from the stack search's
+#: shortest (1 d) up: below it the default grid's 0.33-d boxes nearly fill
+#: the period, and the reference's objective 0.5 w_in depth^2 then rewards
+#: a box whose out-of-transit part is a few cadences (ROADMAP C)
+LC_MIN_PERIOD = LONG_GRID[0]
+
+
+def write_lc_sector(directory, arrays):
+    """Phase 10's sector as SPOC-style TESS light-curve files (TIME,
+    PDCSAP_FLUX, PDCSAP_FLUX_ERR, QUALITY), written with the port's FITS
+    writer: every file flags the same :data:`LC_EVENTS` cadences with
+    :data:`LC_EVENT_FLAG`; each curve's own masked cadences have NaN flux
+    and no flag.  Returns the paths."""
+    from lightkurve_tpu_torch.io.fits import (BinTableHDU, HDUList, Header,
+                                              PrimaryHDU, write_fits)
+    t, flux, dy, mask = arrays
+    os.makedirs(directory, exist_ok=True)
+    quality = np.zeros(t.shape[1], np.int32)
+    quality[LC_EVENTS] = LC_EVENT_FLAG
+    table_header = {"EXTNAME": "LIGHTCURVE", "BJDREFI": 2457000,
+                    "BJDREFF": 0.0, "TIMESYS": "TDB", "TUNIT1": "BJD - 2457000",
+                    "TUNIT2": "e-/s", "TUNIT3": "e-/s"}
+    paths = []
+    for i in range(len(flux)):
+        path = os.path.join(directory, f"tess-s0099-{i:016d}_lc.fits")
+        ph = Header({"TELESCOP": "TESS", "MISSION": "TESS",
+                     "ORIGIN": "NASA/Ames",
+                     "CREATOR": "LightCurveExporterPipelineModule",
+                     "OBJECT": f"TIC {i}", "TICID": i, "SECTOR": 99})
+        table = BinTableHDU(data={
+            "TIME": t[i],
+            "PDCSAP_FLUX": np.where(mask[i], flux[i], np.nan).astype(
+                np.float32),
+            "PDCSAP_FLUX_ERR": dy[i].astype(np.float32),
+            "QUALITY": quality}, header=Header(table_header))
+        write_fits(HDUList([PrimaryHDU(header=ph), table]), path,
+                   overwrite=True)
+        paths.append(path)
+    return paths
+
+
+def lc_search(stack, periods, chunk_periods):
+    """``LightCurveStack.bls_search`` over ``periods`` in chunks of
+    ``chunk_periods`` (one call each, so each chunk takes its own route);
+    returns each curve's winner (period, power, duration, transit_time) as
+    host arrays."""
+    import torch
+    best = None
+    for lo in range(0, len(periods), chunk_periods):
+        out = stack.bls_search(periods[lo:lo + chunk_periods], DURATIONS,
+                               oversample=OVERSAMPLE)
+        k = out["power"].argmax(1, keepdim=True)
+        win = {f: torch.gather(out[f], 1, k)[:, 0]
+               for f in ("period", "power", "duration", "transit_time")}
+        if best is None:
+            best = win
+        else:
+            take = win["power"] > best["power"]
+            best = {f: torch.where(take, win[f], best[f]) for f in best}
+    return {f: v.cpu().numpy() for f, v in best.items()}
+
+
+def phase_lc_stack(tmp, card, B=2048, chunk_periods=1024):
+    """Phase 12, many curves: phase 10's sector written as 2048 TESS files
+    (:func:`write_lc_sector`), read with ``read_lc_collection`` (timed),
+    ``to_stack()`` on the card in float32 (timed), flattened
+    (:data:`FLATTEN_KW`) and searched with ``bls_search`` over
+    :data:`LONG_GRID` in four chunks of 1,024 periods; its launches are
+    what the route rule gives (``bls_search`` folds 16 periods per staged
+    call).  Checks one time grid, the cadences kept and recovery.
+    Returns the numbers, the routes, the winners and the stacks."""
+    import torch
+    from lightkurve_tpu_torch.io.read import read_lc_collection
+    arrays, p_inj, p_rot = flatten_arrays(B)
+    t0 = time.perf_counter()
+    paths = write_lc_sector(os.path.join(tmp, "lc_sector"), arrays)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    coll = read_lc_collection(paths)
+    read_s = time.perf_counter() - t0
+    if len(coll) != B or {type(lc).__name__ for lc in coll} != {
+            "TessLightCurve"}:
+        raise AssertionError("LightCurve API: read_lc_collection did not "
+                             "give one TessLightCurve per file")
+    n_kept = LONG_N - len(LC_EVENTS)
+    if {len(lc) for lc in coll} != {n_kept}:
+        raise AssertionError("LightCurve API: the quality mask did not drop "
+                             "exactly the flagged cadences")
+    log(f"LightCurve API: read_lc_collection of {B} TESS files x {LONG_N} "
+        f"cadences: {read_s:.3f}s, {B / read_s:.6g} files/s (written in "
+        f"{write_s:.3f}s) [{card}]")
+    start_sweep()
+    t0 = time.perf_counter()
+    stack = coll.to_stack()
+    torch.cuda.synchronize()
+    stack_s = time.perf_counter() - t0
+    one_grid = bool(torch.all(stack.time == stack.time[0:1]))
+    log(f"LightCurve API: to_stack() {stack_s:.3f}s, shape {stack.shape}, "
+        f"{stack.flux.dtype} on {stack.device}, one time grid: {one_grid} "
+        f"[{card}]")
+    if (not one_grid or stack.shape != (B, n_kept)
+            or stack.device.type != "cuda"
+            or stack.flux.dtype != torch.float32):
+        raise AssertionError("LightCurve API: to_stack() is not one float32 "
+                             "time grid on the card")
+    start_sweep()
+    t0 = time.perf_counter()
+    flat = stack.flatten(**FLATTEN_KW)
+    torch.cuda.synchronize()
+    flatten_s = time.perf_counter() - t0
+    periods = np.linspace(*LONG_GRID)
+    routes = expected_launches(flat, periods, chunk_periods,
+                               launch_periods=16)
+    start_sweep()
+    t0 = time.perf_counter()
+    best = lc_search(flat, periods, chunk_periods)
+    search_s = time.perf_counter() - t0
+    share = recovery(best["period"], p_inj)
+    rate = B * len(periods) / search_s
+    log(f"LightCurve API: stack.flatten (window 901) {flatten_s:.3f}s; "
+        f"bls_search B={B} N={n_kept} P={len(periods)} in "
+        f"{len(periods) // chunk_periods} calls {search_s:.3f}s ({rate:.6g} "
+        f"curve-period evals/s); recovered {share:.4f}; {peak_memory()} "
+        f"[{card}]")
+    if share < RECOVERY_SHARE:
+        raise AssertionError(f"LightCurve API recovery {share} < "
+                             f"{RECOVERY_SHARE}")
+    return dict(read_s=read_s, files_per_s=B / read_s, stack_s=stack_s,
+                flatten_s=flatten_s, seconds=search_s, rate=rate,
+                recovered=share, routes=routes, best=best, stack=stack,
+                arrays=arrays, paths=paths, p_inj=p_inj, p_rot=p_rot)
+
+
+def check_lc_stack_against_numpy(lcs, chunk_periods=1024):
+    """The collection's search against ``LightCurveStack.from_numpy`` of
+    the same float32 arrays on the same cadences (phase 10's arrays less
+    the flagged ones), flattened and searched the same way: the same
+    winners, or differing ones within C2's bound."""
+    import torch
+    from lightkurve_tpu_torch.batch import LightCurveStack
+    t, flux, dy, mask = lcs["arrays"]
+    keep = np.ones(t.shape[1], bool)
+    keep[LC_EVENTS] = False
+    f32 = np.where(mask, flux, 0.0).astype(np.float32)[:, keep]
+    ref = LightCurveStack.from_numpy(t[:, keep], f32,
+                                     dy.astype(np.float32)[:, keep],
+                                     mask[:, keep], device="cuda",
+                                     dtype=torch.float32)
+    stack = lcs["stack"]
+    same = {k: bool(torch.equal(getattr(stack, k), getattr(ref, k)))
+            for k in ("time", "flux", "flux_err", "mask")}
+    want = lc_search(ref.flatten(**FLATTEN_KW), np.linspace(*LONG_GRID),
+                     chunk_periods)
+    log(f"LightCurve API: to_stack() against from_numpy on the same float32 "
+        f"arrays: tensors equal {same}")
+    route_gaps("LightCurve API vs from_numpy", lcs["best"], want,
+               stack.shape[1], keys=("period", "duration", "transit_time"))
+
+
+def lc_chain(lc):
+    """The single-curve chain on one LightCurve, on the configured device:
+    normalize, remove_outliers, flatten (window 901), the BLS periodogram
+    on the reference's default grid with its vetting calls, fold and bin,
+    the Lomb-Scargle periodogram of the raw curve and estimate_cdpp.
+    Returns the pieces and each step's seconds."""
+    import torch
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    flat, flat_s = timed(lambda: lc.normalize().remove_outliers().flatten(
+        window_length=FLATTEN_KW["window_length"]))
+    grid, bls_s = timed(lambda: flat.to_periodogram("bls"))
+    bls = grid[grid.period.value >= LC_MIN_PERIOD]
+    period = bls.period_at_max_power
+    best = dict(period=period, duration=bls.duration_at_max_power,
+                transit_time=bls.transit_time_at_max_power)
+    stats = bls.compute_stats(**best)
+    model = bls.get_transit_model(**best)
+    in_transit = bls.get_transit_mask(**best)
+    folded = flat.fold(period, best["transit_time"])
+    binned = folded.bin(time_bin_size=LC_FOLD_BIN)
+    ls, ls_s = timed(lc.to_periodogram)
+    cdpp = float(lc.estimate_cdpp().value)
+    return dict(flat=flat, grid=grid, bls=bls, stats=stats, model=model,
+                in_transit=in_transit, folded=folded, binned=binned, ls=ls,
+                cdpp=cdpp, flat_s=flat_s, bls_s=bls_s, ls_s=ls_s)
+
+
+def check_chain(tag, out, p_inj, p_rot, stack_period):
+    """One chain's checks: finite vetting numbers, a two-level model whose
+    low level is the transit mask, a binned fold, the BLS peak within 1%
+    of the injected period and of the stack's winner, and the
+    Lomb-Scargle peak within one frequency step of the rotation."""
+    bls, ls = out["bls"], out["ls"]
+    period = float(bls.period_at_max_power.value)
+    stats = out["stats"]
+    depth, depth_err = stats["depth"]
+    levels = np.unique(out["model"].flux.value)
+    f = ls.frequency.value
+    step = f[1] - f[0]
+    f_peak = f[np.nanargmax(ls.power.value)]
+    binned = out["binned"].flux.value
+    problems = []
+    if not (np.isfinite(depth) and depth > 0 and depth_err > 0):
+        problems.append(f"compute_stats depth {stats['depth']}")
+    if len(levels) != 2 or not np.array_equal(
+            out["model"].flux.value == levels.min(), out["in_transit"]):
+        problems.append("transit model and mask disagree")
+    if np.isfinite(binned).sum() <= 0.9 * len(binned):
+        problems.append("the binned fold is mostly empty")
+    if abs(period - p_inj) / p_inj >= RECOVERY_RTOL:
+        problems.append(f"BLS peak {period:.5f} d, injected {p_inj:.5f} d")
+    if abs(period - stack_period) / stack_period >= RECOVERY_RTOL:
+        problems.append(f"BLS peak {period:.5f} d, the stack's winner "
+                        f"{stack_period:.5f} d")
+    if abs(f_peak - 1.0 / p_rot) > step:
+        problems.append(f"LS peak {1 / f_peak:.4f} d, rotation "
+                        f"{p_rot:.4f} d (step {step:.5f} /d)")
+    if problems:
+        raise AssertionError(f"LightCurve API, {tag}: " + "; ".join(problems))
+    return period
+
+
+def phase_lc_single(lcs, card):
+    """Phase 12, single curves: :data:`LC_SINGLE` curves, each taken both
+    by ``read(path)`` and by ``stack[i]`` (the raw stack), through
+    :func:`lc_chain` on the card in float32 (the configuration's
+    defaults), each held by :func:`check_chain`; ``estimate_cdpp`` held
+    against the stack's ``estimate_cdpp_batch``
+    (:data:`LC_CDPP_F32_RTOL`); and on :data:`LC_F64_CURVES` curves the
+    card's float32 BLS and Lomb-Scargle periodograms against the CPU's
+    float64 on the same curves (the CPU's float64 flatten for the BLS):
+    the same peaks, BLS power within :data:`LC_F32_POWER_RTOL`.  Returns
+    the median times."""
+    import torch
+    from lightkurve_tpu_torch import config
+    from lightkurve_tpu_torch.collections import LightCurveCollection
+    from lightkurve_tpu_torch.io.read import read
+    stack, best = lcs["stack"], lcs["best"]
+    batch32 = stack.estimate_cdpp_batch()[:LC_SINGLE]
+    times = {"flat_s": [], "bls_s": [], "ls_s": []}
+    n_periods, ratio32, singles, short = None, [], [], 0
+    start_sweep()
+    for i in range(LC_SINGLE):
+        for how, lc in (("read", read(lcs["paths"][i])), ("stack", stack[i])):
+            out = lc_chain(lc)
+            check_chain(f"curve {i} by {how}", out, lcs["p_inj"][i],
+                        lcs["p_rot"][i], float(best["period"][i]))
+            for k in times:
+                times[k].append(out[k])
+            n_periods = len(out["grid"].period)
+            short += float(out["grid"].period_at_max_power.value) \
+                < LC_MIN_PERIOD
+            if how == "read":
+                singles.append(lc)
+                ratio32.append(out["cdpp"] / batch32[i])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    log(f"LightCurve API: {LC_SINGLE} curves x 2 (read, stack[i]), float32 "
+        f"on the card, N={LONG_N - len(LC_EVENTS)}: flatten "
+        f"{med['flat_s'] * 1e3:.1f} ms, BLS periodogram "
+        f"{med['bls_s'] * 1e3:.1f} ms ({n_periods} periods, "
+        f"{n_periods / med['bls_s']:.6g} curve-period evals/s), LS "
+        f"{med['ls_s'] * 1e3:.1f} ms (medians); {peak:.3f} GiB peak device "
+        f"memory [{card}]; the default grid's highest peak below "
+        f"{LC_MIN_PERIOD:g} d on {short} of {2 * LC_SINGLE} curves")
+    # float64 on the CPU: estimate_cdpp of each curve and of the batch,
+    # and the periodograms of LC_F64_CURVES curves
+    prev = (config.default_device, config.default_dtype)
+    config.default_device, config.default_dtype = "cpu", torch.float64
+    try:
+        batch64 = LightCurveCollection(singles).to_stack(
+            device="cpu", dtype=torch.float64).estimate_cdpp_batch()
+        ratio64 = [lc.estimate_cdpp().value / b
+                   for lc, b in zip(singles, batch64)]
+        f64 = []
+        for lc in singles[:LC_F64_CURVES]:
+            flat = lc.normalize().remove_outliers().flatten(
+                window_length=FLATTEN_KW["window_length"])
+            f64.append((lc, flat, flat.to_periodogram("bls"),
+                        lc.to_periodogram()))
+    finally:
+        config.default_device, config.default_dtype = prev
+    gap = np.abs(np.asarray(ratio32) - np.asarray(ratio64))
+    log(f"LightCurve API: estimate_cdpp / estimate_cdpp_batch, card float32 "
+        f"{np.min(ratio32):.6f}-{np.max(ratio32):.6f}, CPU float64 "
+        f"{np.min(ratio64):.6f}-{np.max(ratio64):.6f}; largest difference "
+        f"{gap.max():.3g} (bar {LC_CDPP_F32_RTOL:g})")
+    if gap.max() > LC_CDPP_F32_RTOL:
+        raise AssertionError("LightCurve API: estimate_cdpp against "
+                             "estimate_cdpp_batch differs from float64")
+    for i, (lc, flat, bls64, ls64) in enumerate(f64):
+        bls32, ls32 = flat.to_periodogram("bls"), lc.to_periodogram()
+        bls32, bls64 = (g[g.period.value >= LC_MIN_PERIOD]
+                        for g in (bls32, bls64))
+        k = int(np.nanargmax(bls64.power.value))
+        rel = abs(float(bls32.power.value[k]) / bls64.power.value[k] - 1)
+        same_bls = int(np.nanargmax(bls32.power.value)) == k
+        same_ls = (int(np.nanargmax(ls32.power.value))
+                   == int(np.nanargmax(ls64.power.value)))
+        log(f"LightCurve API: curve {i}, card float32 vs CPU float64: BLS "
+            f"peak {'same' if same_bls else 'differs'} "
+            f"({bls64.period[k].value:.6f} d), power at it {rel:.3g} "
+            f"relative (bar {LC_F32_POWER_RTOL:g}); LS peak "
+            f"{'same' if same_ls else 'differs'}")
+        if not (same_bls and same_ls and rel <= LC_F32_POWER_RTOL):
+            raise AssertionError(f"LightCurve API: curve {i}'s float32 "
+                                 "periodograms differ from float64")
+    return med
+
+
+# ---------------------------------------------------------------------------
 # --profile: one full-size sweep chunk per regime under torch.profiler
 # ---------------------------------------------------------------------------
 def chunk_bounds(stack, periods, impl, launch_periods=8):
@@ -2486,7 +2843,8 @@ def phase_profile(tmp, B=2048):
     route), the upper 2048 periods of the mixed-grid sweep and chunk 4 of
     phase 10's search of its flattened sector; phase 10's flatten and
     phase 11's default ``to_periodogram`` call of its raw sector and its
-    one-curve fastchi2 call; and
+    one-curve fastchi2 call; phase 12's BLS periodogram of one flattened
+    curve of that sector (the reference's default grid); and
     the two forced chunks of phases 4 and 6 (the weighted cell's first
     2048 periods on the staged route, the two-sector chunk 4 on the fused
     one) through the entry point (:func:`route_call`).  Prints device
@@ -2498,6 +2856,7 @@ def phase_profile(tmp, B=2048):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
     from lightkurve_tpu_torch.batch import LightCurveStack
+    from lightkurve_tpu_torch.collections import LightCurveCollection
     from lightkurve_tpu_torch.ops.lombscargle import lombscargle_fastchi2
     from lightkurve_tpu_torch.parallel.checkpoint import SweepRunner
     from tools import make_sector as ms
@@ -2514,6 +2873,9 @@ def phase_profile(tmp, B=2048):
     sector = LightCurveStack.from_numpy(*flatten_arrays(B)[0], device="cuda",
                                         dtype=torch.float32)
     flat = sector.flatten(**FLATTEN_KW)
+    one = LightCurveCollection([sector[0]])
+    bls_curve = one[0].normalize().remove_outliers().flatten(
+        window_length=FLATTEN_KW["window_length"])
     t8, y8, dy8 = bench_ls_inputs(1)
     curve = LightCurveStack.from_numpy(
         t8[None], y8.cpu().numpy(), dy8.cpu().numpy(),
@@ -2532,6 +2894,8 @@ def phase_profile(tmp, B=2048):
              ("flatten, window 901", sector, (), "flatten"),
              ("to_periodogram, phase 11", sector, (), "periodogram"),
              ("fastchi2, phase 11", curve, (), "fastchi2"),
+             ("BLS periodogram, one curve, phase 12", one.to_stack(), (),
+              "bls_periodogram"),
              ("flatten -> search, chunk 4", flat,
               np.linspace(*LONG_GRID)[3072:], "auto"))
     for i, (name, stack, periods, impl) in enumerate(cells):
@@ -2543,6 +2907,8 @@ def phase_profile(tmp, B=2048):
             elif impl == "fastchi2":
                 lombscargle_fastchi2(t8, stack.flux[0], *fastchi2_grid(t8),
                                      FASTCHI2_NF, nterms=FASTCHI2_NTERMS)
+            elif impl == "bls_periodogram":
+                bls_curve.to_periodogram("bls")
             elif impl == "auto":
                 SweepRunner(stack, periods, DURATIONS,
                             os.path.join(tmp, f"profile_{i}_{tag}.npz"),
@@ -2583,7 +2949,7 @@ def phase_profile(tmp, B=2048):
         for k, (us, cnt) in sorted(by_name.items(),
                                    key=lambda kv: -kv[1][0])[:8]:
             log(f"  {us / 1e3:10.3f} ms {us / device:.4f} x{cnt} {k[:100]}")
-        if impl in ("periodogram", "fastchi2"):
+        if impl in ("periodogram", "fastchi2", "bls_periodogram"):
             log(f"  {sum(n for _, n in by_name.values())} launches; by op: "
                 + ", ".join(
                 f"{k} {us / 1e3:.3f} ms {us / device:.4f}"
@@ -2595,14 +2961,15 @@ def phase_profile(tmp, B=2048):
 
 
 def op_kinds(by_name):
-    """Device time (us) of a trace's kernels summed by kind: scatters
-    (``index_add_``), FFTs (cuFFT), reductions, and elementwise ops with
-    copies and the rest."""
-    kinds = {"scatter": 0.0, "fft": 0.0, "reduction": 0.0,
+    """Device time (us) of a trace's kernels summed by kind: sorts (cub's
+    radix sorts), scatters (``index_add_``), FFTs (cuFFT), reductions, and
+    elementwise ops with copies and the rest."""
+    kinds = {"sort": 0.0, "scatter": 0.0, "fft": 0.0, "reduction": 0.0,
              "elementwise": 0.0}
     for name, (us, _) in by_name.items():
         low = name.lower()
-        kind = ("scatter" if "index" in low or "scatter" in low
+        kind = ("sort" if "radixsort" in low
+                else "scatter" if "index" in low or "scatter" in low
                 else "fft" if "fft" in low or "radix" in low
                 else "reduction" if "reduce" in low
                 else "elementwise")
@@ -2730,6 +3097,16 @@ def main():
         flt = sweep("flatten -> search (phase 10)", phase_flatten, tmp)
         check_flatten(flt.pop("arrays"))
         flatten_limits(tmp)
+        torch.cuda.empty_cache()
+        card = card_line()
+        lcs = sweep("LightCurve API (phase 12)", phase_lc_stack, tmp, card)
+        check_lc_stack_against_numpy(lcs)
+        lcs_numbers = {k: lcs[k] for k in ("files_per_s", "rate")}
+        single, _ = drive("LightCurve API, single curves (phase 12)",
+                          phase_lc_single, lcs, card,
+                          forbid=tuple(kernel_table()))
+        del lcs
+        torch.cuda.empty_cache()
     torch.cuda.empty_cache()
     ls = phase_ls()
     path = "past the one-hot ceiling (phase 9)"
@@ -2749,7 +3126,11 @@ def main():
         f"{wei['rate']:.6g}, long sector {lng['rate']:.6g}, two sectors "
         f"{two['rate']:.6g}, mixed grids {mix['rate']:.6g}, flatten -> "
         f"search {flt['rate']:.6g} curve-period evals/s (flatten "
-        f"{flt['flatten_s']:.3f}s); LS sector {ls['sector']['rate']:.6g}, "
+        f"{flt['flatten_s']:.3f}s); LightCurve API: read "
+        f"{lcs_numbers['files_per_s']:.6g} files/s, search "
+        f"{lcs_numbers['rate']:.6g} curve-period evals/s, per curve BLS "
+        f"{single['bls_s'] * 1e3:.1f} ms; LS sector "
+        f"{ls['sector']['rate']:.6g}, "
         f"LS bench shape {ls['bench']['rate']:.6g} curve-frequency "
         f"evals/s; per-curve fast "
         f"{pcv['fast']['seconds']:.3f}s, exact "

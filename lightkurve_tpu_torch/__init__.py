@@ -1,24 +1,45 @@
-"""lightkurve_tpu_torch — the batched transit search in PyTorch and CUDA.
+"""lightkurve_tpu_torch — light curves and the batched transit search in
+PyTorch and CUDA.
 
-A port of ``lightkurve_tpu``'s transit search to PyTorch with hand-written
-CUDA kernels for NVIDIA Hopper (sm_90a): FITS files are read by the C++
-column reader (:mod:`.io.native`), streamed into device stacks
-(:mod:`.io.pipeline`), detrended by the batched Savitzky-Golay flatten
-(:mod:`.ops.detrend`), and searched with box least squares (:mod:`.ops.bls`:
-shared-time-grid kernels, mixed grids by group, per-curve methods) in
-checkpointed chunks (:mod:`.parallel.checkpoint`) or with Lomb-Scargle
-periodograms (:mod:`.ops.lombscargle`, ``LightCurveStack.to_periodogram``).
+A port of ``lightkurve_tpu`` to PyTorch with hand-written CUDA kernels for
+NVIDIA Hopper (sm_90a).  One curve at a time: :func:`read` gives a
+``TessLightCurve`` or ``KeplerLightCurve`` (:mod:`.lightcurve`), whose
+``remove_outliers``, ``flatten`` and ``to_periodogram``
+(:mod:`.periodogram`) run as torch functions and whose ``normalize``,
+``fold`` and ``bin`` are host numpy.  Many curves:
+``read_lc_collection(paths).to_stack()`` gives a ``LightCurveStack``.  In
+bulk, FITS files are read by the C++ column reader (:mod:`.io.native`) and
+streamed into device stacks (:mod:`.io.pipeline`).  A stack is detrended
+by the batched Savitzky-Golay flatten (:mod:`.ops.detrend`) and searched
+with box least squares (:mod:`.ops.bls`: shared-time-grid kernels, mixed
+grids by group, per-curve methods) in checkpointed chunks
+(:mod:`.parallel.checkpoint`) or with Lomb-Scargle periodograms
+(:mod:`.ops.lombscargle`, ``LightCurveStack.to_periodogram``).
 
 Modules mirror ``lightkurve_tpu``'s names.  Importing the package builds
 nothing and needs neither a GPU nor ``nvcc``: kernels compile on first use
 with a CUDA tensor.  Entry points put their tensors on the card unless the
-caller passes ``device="cpu"``.  The package never imports ``jax``.
+caller passes ``device="cpu"``; the single-curve classes take the device
+and dtype of :mod:`.config` (``default_device``, ``default_dtype``).  The
+package never imports ``jax``.
 """
 import importlib
 
 __version__ = "0.1.0"
 
 _LAZY = {
+    "LightCurve": ".lightcurve",
+    "FoldedLightCurve": ".lightcurve",
+    "KeplerLightCurve": ".lightcurve",
+    "TessLightCurve": ".lightcurve",
+    "LightCurveCollection": ".collections",
+    "Periodogram": ".periodogram",
+    "SNRPeriodogram": ".periodogram",
+    "LombScarglePeriodogram": ".periodogram",
+    "BoxLeastSquaresPeriodogram": ".periodogram",
+    "read": ".io.read",
+    "open": ".io.read",
+    "read_lc_collection": ".io.read",
     "LightCurveStack": ".batch",
     "SweepRunner": ".parallel.checkpoint",
     "StreamingStackLoader": ".io.pipeline",

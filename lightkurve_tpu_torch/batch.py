@@ -20,6 +20,10 @@ from .ops.masked import masked_median
 __all__ = ["LightCurveStack"]
 
 
+def _bitceil(n):
+    return 1 << (int(n) - 1).bit_length()
+
+
 @dataclass
 class LightCurveStack:
     """A fixed-shape stack of light curves: time/flux/flux_err (B, N) and
@@ -48,6 +52,46 @@ class LightCurveStack:
         return cls(time=put(time, dtype), flux=put(flux, dtype),
                    flux_err=put(flux_err, dtype), mask=put(mask, torch.bool),
                    meta=list(meta or []))
+
+    @classmethod
+    def from_collection(cls, lcs, length=None, dtype=None, pad_to_pow2=False,
+                        device=None):
+        """Pack a sequence of ``LightCurve`` (e.g. a
+        ``LightCurveCollection``) into a stack on ``device`` (default the
+        card; ``"cpu"`` for the plain versions) in ``dtype`` (default
+        :data:`config.default_dtype`).  Each curve fills the front of its
+        row; NaN fluxes and the padding are masked (flux 0, flux_err 1) and
+        padded times continue the curve's median cadence.  Rows are as long
+        as the longest curve, or ``length``; ``pad_to_pow2`` rounds that up
+        to a power of two as ``lightkurve_tpu`` does by default (off here:
+        a kernel would read the padding)."""
+        n_max = max(len(lc) for lc in lcs)
+        if length is None:
+            length = _bitceil(n_max) if pad_to_pow2 else n_max
+        B = len(lcs)
+        t = np.zeros((B, length))
+        f = np.zeros((B, length))
+        fe = np.ones((B, length))
+        m = np.zeros((B, length), dtype=bool)
+        metas = []
+        for i, lc in enumerate(lcs):
+            n = len(lc)
+            tv = lc.time.value.astype(np.float64)
+            fv = lc.flux.value.astype(np.float64)
+            fev = lc.flux_err.value.astype(np.float64)
+            t[i, :n] = tv
+            f[i, :n] = np.nan_to_num(fv)
+            fe[i, :n] = np.where(np.isfinite(fev) & (fev > 0), fev, 1.0)
+            m[i, :n] = np.isfinite(fv)
+            # padded times continue the median cadence
+            if n < length and n > 1:
+                dt = np.median(np.diff(tv))
+                t[i, n:] = tv[-1] + dt * np.arange(1, length - n + 1)
+            metas.append(dict(lc.meta))
+        stack = cls.from_numpy(t, f, fe, m, device=device, dtype=dtype,
+                               meta=metas)
+        stack.time_format = lcs[0].time.format if len(lcs) else "jd"
+        return stack
 
     @classmethod
     def from_files(cls, paths, time_column="TIME",
@@ -80,6 +124,20 @@ class LightCurveStack:
 
     def __len__(self):
         return self.shape[0]
+
+    def __getitem__(self, i):
+        """Member ``i`` back as a host ``LightCurve`` of its valid
+        cadences."""
+        from .lightcurve import LightCurve
+        from .time import Time
+        from .units import Quantity, dimensionless
+        m = self.mask[i].cpu().numpy()
+        return LightCurve(
+            time=Time(self.time[i].cpu().numpy()[m], format=self.time_format),
+            flux=Quantity(self.flux[i].cpu().numpy()[m], dimensionless),
+            flux_err=Quantity(self.flux_err[i].cpu().numpy()[m],
+                              dimensionless),
+            meta=self.meta[i] if i < len(self.meta) else {})
 
     def _replace(self, **kw):
         d = dict(time=self.time, flux=self.flux, flux_err=self.flux_err,

@@ -9,10 +9,11 @@ from __future__ import annotations
 
 import contextlib
 
+import numpy as np
 import torch
 
 __all__ = ["default_dtype", "default_device", "resolve_dtype",
-           "resolve_device", "numpy_dtype", "full_f32_matmul"]
+           "resolve_device", "on_device", "numpy_dtype", "full_f32_matmul"]
 
 #: floating dtype of stacks built without an explicit ``dtype``
 default_dtype = torch.float32
@@ -31,6 +32,16 @@ def resolve_device(device=None):
             f"device {device} requested (the default) but CUDA is not "
             "available; pass device='cpu' to run the plain torch versions")
     return device
+
+
+def on_device(y, device=None):
+    """``y`` as a tensor, whose device and dtype set a computation's: a
+    tensor stays on its device unless ``device`` is given; a host array
+    goes to ``device`` (:func:`resolve_device`: the card unless the caller
+    passes ``"cpu"``)."""
+    if isinstance(y, torch.Tensor):
+        return y if device is None else y.to(resolve_device(device))
+    return torch.as_tensor(np.asarray(y), device=resolve_device(device))
 
 
 def resolve_dtype(dtype=None):

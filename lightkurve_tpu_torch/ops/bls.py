@@ -32,7 +32,8 @@ one contiguous (n, cols) copy per call for K-SF.
 **Per curve** (:func:`bls_power`, exact; :func:`bls_power_binned`, fast):
 each curve folds on its own time grid, in plain torch with the curves as
 a batch dimension (the reference's ``vmap`` written out): sorted phases,
-prefix sums and batched ``searchsorted`` range queries, no kernel.
+prefix sums and batched ``searchsorted`` range queries, no kernel.  The
+fold and its sums are float64 whatever the data dtype (ROADMAP C3).
 
 CUDA tensors take the kernels; CPU tensors take their plain versions.
 """
@@ -41,7 +42,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..config import numpy_dtype, resolve_device
+from ..config import numpy_dtype, on_device
 from .bls_fused import (fold_rows, fused_fits, fused_scan_uniform,
                         max_nbins_bound)
 from .bls_fused_weighted import fused_scan_weighted
@@ -318,13 +319,17 @@ def _as_tensor(x, device, dtype=None):
 def bls_power_shared_batch(t, Y, dy, periods, durations, oversample=10,
                            objective="likelihood", chunk=16, nbins=None,
                            d_phase=None, bucket=False, edge_mode="wrap",
-                           uniform_weights=None, fold_impl="auto"):
+                           uniform_weights=None, fold_impl="auto",
+                           device=None):
     """Batched BLS for curves sharing ONE time grid.
 
     Parameters
     ----------
     t : (n,) shared times (tensor or array).
     Y : (B, n) fluxes; its device and dtype set those of the computation.
+        A host array goes to ``device`` (default the card; ``"cpu"`` for
+        the plain versions); a tensor stays on its device unless
+        ``device`` is given.
     dy : (B, n) uncertainties, None, or inf-masked padding.
     periods : (P,) trial periods; durations : (D,) box durations.
     uniform_weights : None (auto-detect on host arrays), True (caller
@@ -351,8 +356,7 @@ def bls_power_shared_batch(t, Y, dy, periods, durations, oversample=10,
     """
     if uniform_weights is None:
         uniform_weights = _detect_uniform_weights(dy)
-    if not isinstance(Y, torch.Tensor):
-        Y = torch.as_tensor(np.asarray(Y))
+    Y = on_device(Y, device)
     device, dtype = Y.device, Y.dtype
     t = _as_tensor(t, device)
     # the grid geometry is read on the host: keep a host copy of the
@@ -454,15 +458,27 @@ def _mod(x, y):
 
 def _curve_inputs(t, y, dy, periods, durations):
     """Tensors (B, n) of times from each curve's first sample, weights and
-    weighted fluxes, plus the periods and durations in the data dtype."""
-    y = y if isinstance(y, torch.Tensor) else torch.as_tensor(np.asarray(y))
-    device, dtype = y.device, y.dtype
-    t = _as_tensor(t, device, dtype)
+    weighted fluxes; each curve's first time; the periods and durations.
+    The weights and weighted fluxes are in the data dtype (of the tensor
+    ``y``); the fold's geometry -- times, periods, durations -- is float64
+    whatever it is, and host times lose their origin before any cast: in
+    float32 a BTJD time rounds to ~1e-4 d, and a sample on a bin or
+    window edge (on a regular cadence grid, every few cadences of a
+    period's first cycle) falls on either side (ROADMAP C3)."""
+    device, dtype, f64 = y.device, y.dtype, torch.float64
+    if isinstance(t, torch.Tensor):
+        t = t.to(device=device, dtype=f64)
+        t_min = t.min(-1, keepdim=True).values
+        ts = t - t_min
+    else:
+        t = np.asarray(t, dtype=np.float64)
+        t_host = t.min(-1, keepdims=True)
+        ts = torch.as_tensor(t - t_host, device=device)
+        t_min = torch.as_tensor(t_host, device=device)
     w = (torch.ones_like(y) if dy is None
          else 1.0 / torch.square(_as_tensor(dy, device, dtype)))
-    t_min = t.min(-1, keepdim=True).values
-    return (t - t_min, w, w * y, t_min, _as_tensor(periods, device, dtype),
-            _as_tensor(durations, device, dtype))
+    return (ts, w, w * y, t_min, _as_tensor(periods, device, f64),
+            _as_tensor(durations, device, f64))
 
 
 def _batched(fn, t, y, dy, *args):
@@ -507,11 +523,14 @@ def _take(a, best):
 
 def _sorted_prefix(w, wy, order):
     """Prefix sums (B, C, n + 1), leading 0, of the weights and weighted
-    fluxes (B, n) taken in each (curve, period)'s sample ``order``."""
+    fluxes (B, n) taken in each (curve, period)'s sample ``order``, in
+    float64 whatever the data dtype: a window's sums are differences of
+    two prefix sums over the whole curve (ROADMAP C3)."""
     B, C, n = order.shape
-    zero = torch.zeros((B, C, 1), dtype=w.dtype, device=w.device)
+    zero = torch.zeros((B, C, 1), dtype=torch.float64, device=w.device)
     return tuple(torch.cat([zero, torch.cumsum(torch.gather(
-        v[:, None, :].expand(B, C, n), -1, order), -1)], -1) for v in (w, wy))
+        v[:, None, :].expand(B, C, n), -1, order), -1,
+        dtype=torch.float64)], -1) for v in (w, wy))
 
 
 def _bls_one_period(ts, w, wy, pc, t0_grid, durations, use_likelihood):
@@ -554,7 +573,7 @@ def _bls_one_period(ts, w, wy, pc, t0_grid, durations, use_likelihood):
 
 def _bls_scan(ts, w, wy, periods, durations, d_phase, use_likelihood, chunk,
               t0_count):
-    t0_grid = torch.arange(t0_count, device=w.device, dtype=w.dtype) * d_phase
+    t0_grid = torch.arange(t0_count, device=w.device, dtype=ts.dtype) * d_phase
     parts = [_bls_one_period(ts, w, wy, periods[i:i + chunk], t0_grid,
                              durations, use_likelihood)
              for i in range(0, periods.shape[0], chunk)]
@@ -563,10 +582,13 @@ def _bls_scan(ts, w, wy, periods, durations, d_phase, use_likelihood, chunk,
 
 def bls_power(t, y, dy, periods, durations, oversample=10,
               objective="likelihood", chunk=None, t0_count=None,
-              d_phase=None):
+              d_phase=None, device=None):
     """Exact BLS periodogram over a period grid, one fold per curve.
 
     t, y : (n,) one curve, or (B, n) curves each on its own time grid.
+        A host array ``y`` goes to ``device`` (default the card; ``"cpu"``
+        for plain torch there), a tensor stays on its device unless
+        ``device`` is given.
     dy : uncertainties of the same shape, or None (uniform); ``dy = inf``
         excludes a sample.
     periods, durations : 1-D grids.  oversample : t0 spacing is
@@ -581,6 +603,8 @@ def bls_power(t, y, dy, periods, durations, oversample=10,
         t0_count = int(np.ceil(float(_host_f64(periods).max())
                                / d_phase)) + 1
 
+    y = on_device(y, device)
+
     def run(t, y, dy):
         ts, w, wy, t_min, pc, durs = _curve_inputs(t, y, dy, periods,
                                                    durations)
@@ -590,7 +614,7 @@ def bls_power(t, y, dy, periods, durations, oversample=10,
                         objective == "likelihood", step, t0_count)
         out["transit_time"] = out["transit_time"] + t_min
         out["period"] = pc[None, :].expand(w.shape[0], pc.shape[0])
-        return out
+        return {k: v.to(w.dtype) for k, v in out.items()}
 
     return _batched(run, t, y, dy)
 
@@ -609,10 +633,7 @@ def bls_objective_single(t, y, dy, period, duration, transit_time,
     array ``y`` goes to ``device`` (default the card), a tensor stays on
     its device unless ``device`` is given.  ``use_likelihood`` is
     accepted as the reference's signature has it and changes nothing."""
-    if isinstance(y, torch.Tensor):
-        y = y if device is None else y.to(resolve_device(device))
-    else:
-        y = torch.as_tensor(np.asarray(y), device=resolve_device(device))
+    y = on_device(y, device)
     device, dtype = y.device, y.dtype
     t = _as_tensor(t, device, dtype)
     w = (torch.ones_like(y) if dy is None
@@ -638,10 +659,11 @@ def _bls_one_period_binned(ts, w, wy, pc, durations, d_phase, nbins,
                            use_likelihood, wrap=True, reciprocal=False):
     """Binned box search of B curves at C periods: ts, w, wy (B, n), pc
     (C,).  Fold bins are ``clip(trunc(phase / d_phase), 0, nbins - 1)``,
-    or with ``reciprocal`` the product with 1/d_phase rounded in the data
-    dtype.  The per-bin sums come from each curve's samples sorted by bin
-    and a cumulative sum (deterministic, no float atomics).  Returns a dict
-    of (B, C) tensors."""
+    or with ``reciprocal`` the product with 1/d_phase rounded in the
+    geometry's dtype (float64, :func:`_curve_inputs`).  The per-bin sums
+    come from each curve's samples sorted by bin and a cumulative sum
+    (deterministic, no float atomics).  Returns a dict of (B, C) float64
+    tensors."""
     B = w.shape[0]
     C, D = pc.shape[0], durations.shape[0]
     dev = w.device
@@ -705,7 +727,7 @@ def _bls_one_period_binned(ts, w, wy, pc, durations, d_phase, nbins,
     flat = lambda a: _take(a.reshape(B, C, -1), best)           # noqa: E731
     i0, id_ = best // D, best % D
     # mid-transit of the binned window, wrapped into [0, period)
-    t0 = (starts[i0].to(w.dtype) + 0.5 * k_durs[id_].to(w.dtype)) * d_phase
+    t0 = (starts[i0].to(ts.dtype) + 0.5 * k_durs[id_].to(ts.dtype)) * d_phase
     period = pc[None, :]
     t0 = t0 - torch.floor(t0 / period) * period
     return dict(power=flat(objective), depth=flat(depth),
@@ -726,17 +748,18 @@ def _bls_scan_binned(ts, w, wy, periods, durations, d_phase, use_likelihood,
 
 def bls_power_binned(t, y, dy, periods, durations, oversample=10,
                      objective="likelihood", chunk=None, nbins=None,
-                     d_phase=None, edge_mode="wrap"):
-    """Binned BLS periodogram (the fast per-curve path; same arguments and
-    outputs as :func:`bls_power`), with transit boundaries quantized to
-    min(duration)/oversample phase bins as astropy's kernel does.
+                     d_phase=None, edge_mode="wrap", device=None):
+    """Binned BLS periodogram (the fast per-curve path; same arguments,
+    ``device`` included, and outputs as :func:`bls_power`), with transit
+    boundaries quantized to min(duration)/oversample phase bins as
+    astropy's kernel does.
 
     ``edge_mode``: 'wrap' (default) evaluates circular windows across the
     period edge; 'astropy' truncates edge windows against empty padding
     bins, as the astropy kernel does.
     """
-    return _binned(t, y, dy, periods, durations, oversample, objective,
-                   chunk, nbins, d_phase, edge_mode)
+    return _binned(t, on_device(y, device), dy, periods, durations,
+                   oversample, objective, chunk, nbins, d_phase, edge_mode)
 
 
 def _binned(t, y, dy, periods, durations, oversample=10,
@@ -755,8 +778,8 @@ def _binned(t, y, dy, periods, durations, oversample=10,
     def run(t, y, dy):
         ts, w, wy, t_min, pc, durs = _curve_inputs(t, y, dy, periods,
                                                    durations)
-        # d_phase in the data dtype, as the reference passes it
-        dp = torch.tensor(d_phase, dtype=w.dtype, device=w.device)
+        # d_phase in the geometry's dtype (float64)
+        dp = torch.tensor(d_phase, dtype=ts.dtype, device=w.device)
         step = chunk or _periods_per_step(w.shape[0], max(
             w.shape[1], nbins * durs.shape[0]))
         out = _bls_scan_binned(ts, w, wy, pc, durs, dp,
@@ -765,6 +788,6 @@ def _binned(t, y, dy, periods, durations, oversample=10,
                                reciprocal=reciprocal)
         out["transit_time"] = out["transit_time"] + t_min
         out["period"] = pc[None, :].expand(w.shape[0], pc.shape[0])
-        return out
+        return {k: v.to(w.dtype) for k, v in out.items()}
 
     return _batched(run, t, y, dy)

@@ -32,20 +32,11 @@ from math import factorial
 import numpy as np
 import torch
 
-from ..config import full_f32_matmul, numpy_dtype, resolve_device
+from ..config import full_f32_matmul, numpy_dtype, on_device
 
 __all__ = ["lombscargle_direct", "lombscargle_fast", "lombscargle_chi2",
            "lombscargle_fastchi2", "extirpolate", "extirpolate_batched",
            "trig_sum", "fast_precompute"]
-
-
-def _values(y, device=None):
-    """Fluxes as a tensor, whose device and dtype set the computation's: a
-    tensor stays on its device unless ``device`` is given; a host array
-    goes to ``device``, the card unless the caller passes ``"cpu"``."""
-    if isinstance(y, torch.Tensor):
-        return y if device is None else y.to(resolve_device(device))
-    return torch.as_tensor(np.asarray(y), device=resolve_device(device))
 
 
 def _host(t):
@@ -107,7 +98,7 @@ def lombscargle_direct(t, y, freqs, dy=None, normalization="standard",
 
     Returns (..., p) powers.
     """
-    y = _values(y, device)
+    y = on_device(y, device)
     t = _shifted_times(t, y)
     freqs = _like(freqs, y)
     w = torch.ones_like(t) if dy is None else 1.0 / torch.square(
@@ -164,7 +155,7 @@ def lombscargle_chi2(t, y, freqs, dy=None, nterms=1,
     products run in full float32.  Arguments as
     :func:`lombscargle_direct`.
     """
-    y = _values(y, device)
+    y = on_device(y, device)
     t = _shifted_times(t, y)
     freqs = _like(freqs, y)
     dy = torch.ones_like(t) if dy is None else _like(dy, y)
@@ -307,7 +298,7 @@ def lombscargle_fastchi2(t, y, f0, df, Nf, dy=None, nterms=1,
     if nterms < 1:
         raise ValueError("nterms must be >= 1 for the chi2 methods")
     t = _host(t)
-    y = _values(y, device)
+    y = on_device(y, device)
     w = (torch.ones(t.shape, dtype=y.dtype, device=y.device) if dy is None
          else 1.0 / torch.square(_like(dy, y)))
     pres = [_fast_precompute_device(t, j * f0, j * df, Nf, oversampling,
@@ -493,7 +484,7 @@ def trig_sum(t, h, df, Nf, f0=0.0, freq_factor=1, oversampling=5, Mfft=4,
     """(S, C) = sum h sin/cos(2 pi f t) at f = freq_factor·(f0 + df·[0,
     Nf)): the float64 set-up on the host, the sums on ``h``'s device
     (``device`` as in :func:`lombscargle_direct`)."""
-    h = _values(h, device)
+    h = on_device(h, device)
     pre = _fast_precompute_device(_host(t), f0 * freq_factor,
                                   df * freq_factor, Nf, oversampling, Mfft,
                                   h.dtype, h.device)
@@ -515,7 +506,7 @@ def lombscargle_fast(t, y, f0, df, Nf, dy=None, normalization="standard",
     like ``y`` with ``Nf`` frequencies.
     """
     t = _host(t)
-    y = _values(y, device)
+    y = on_device(y, device)
     if dy is None:
         w = torch.ones_like(y)
     else:

@@ -1,0 +1,349 @@
+"""Host utilities: quality-flag bitmasks, validation, warnings, time
+helpers and the bin-edge rules of ``LightCurve.bin``.
+
+The part of ``lightkurve_tpu/utils.py`` the light-curve data model needs,
+copied (the port never imports the JAX package): the Kepler/TESS QUALITY
+bitmask vocabularies and ``create_quality_mask``, ``validate_method``,
+``running_mean``, ``bkjd_to_time``/``btjd_to_time`` and the automatic
+histogram bin-edge rules (``calculate_bin_edges``).  The batched torch
+variants of the numeric helpers live in :mod:`lightkurve_tpu_torch.ops`.
+"""
+from __future__ import annotations
+
+import logging
+
+import numpy as np
+
+from .units import Quantity
+
+log = logging.getLogger(__name__)
+
+__all__ = [
+    "LightkurveError",
+    "LightkurveWarning",
+    "LightkurveDeprecationWarning",
+    "QualityFlags",
+    "KeplerQualityFlags",
+    "TessQualityFlags",
+    "validate_method",
+    "running_mean",
+    "bkjd_to_time",
+    "btjd_to_time",
+    "bkjd_to_astropy_time",
+    "btjd_to_astropy_time",
+    "calculate_bin_edges",
+]
+
+
+class LightkurveError(Exception):
+    """Class for all lightkurve_tpu_torch exceptions."""
+
+
+class LightkurveWarning(Warning):
+    """Class for all lightkurve_tpu_torch warnings."""
+
+
+class LightkurveDeprecationWarning(LightkurveWarning):
+    """Warning for deprecated features."""
+
+
+def _strip_quantity(x):
+    if isinstance(x, Quantity):
+        return x.value
+    return np.asarray(x)
+
+
+class QualityFlags:
+    """Base class for mission QUALITY bitmask vocabularies."""
+
+    STRINGS: dict = {}
+    OPTIONS: dict = {}
+
+    @classmethod
+    def decode(cls, quality):
+        """Convert a QUALITY integer into a list of human-readable strings."""
+        quality = int(_strip_quantity(quality))
+        return [v for k, v in cls.STRINGS.items() if quality & k]
+
+    @classmethod
+    def create_quality_mask(cls, quality_array, bitmask=None):
+        """Boolean array flagging GOOD cadences given a bitmask.
+
+        ``bitmask`` may be an int or one of 'none'/'default'/'hard'/'hardest'.
+        Matches reference ``utils.py:79-130`` including the >20%-masked
+        warning.
+        """
+        quality_array = _strip_quantity(quality_array).astype(np.int64)
+        if bitmask is None:
+            return np.ones(len(quality_array), dtype=bool)
+        if isinstance(bitmask, str):
+            try:
+                bitmask = cls.OPTIONS[bitmask]
+            except KeyError:
+                raise ValueError(
+                    f"quality_bitmask='{bitmask}' is not supported, expected "
+                    f"one of {tuple(cls.OPTIONS.keys())}")
+        mask = (quality_array & bitmask) == 0
+        n = len(quality_array)
+        n_masked = int((~mask).sum())
+        pct = 100.0 * n_masked / max(n, 1)
+        msg = (f"{pct:.0f}% ({n_masked}/{n}) of the cadences will be ignored "
+               f"due to the quality mask (quality_bitmask={bitmask}).")
+        if pct > 20:
+            log.warning("Warning: " + msg)
+        else:
+            log.info(msg)
+        return mask
+
+
+class KeplerQualityFlags(QualityFlags):
+    """Kepler QUALITY bitmask flags (Kepler Archive Manual, Table 2.3)."""
+
+    AttitudeTweak = 1
+    SafeMode = 2
+    CoarsePoint = 4
+    EarthPoint = 8
+    ZeroCrossing = 16
+    Desat = 32
+    Argabrightening = 64
+    ApertureCosmic = 128
+    ManualExclude = 256
+    SensitivityDropout = 1024
+    ImpulsiveOutlier = 2048
+    ArgabrighteningOnCCD = 4096
+    CollateralCosmic = 8192
+    DetectorAnomaly = 16384
+    NoFinePoint = 32768
+    NoData = 65536
+    RollingBandInAperture = 131072
+    RollingBandInMask = 262144
+    PossibleThrusterFiring = 524288
+    ThrusterFiring = 1048576
+
+    DEFAULT_BITMASK = (AttitudeTweak | SafeMode | CoarsePoint | EarthPoint
+                       | Desat | ManualExclude | DetectorAnomaly | NoData
+                       | ThrusterFiring)
+    HARD_BITMASK = (DEFAULT_BITMASK | SensitivityDropout | ApertureCosmic
+                    | CollateralCosmic | PossibleThrusterFiring)
+    HARDEST_BITMASK = 2096639
+
+    OPTIONS = {"none": 0, "default": DEFAULT_BITMASK, "hard": HARD_BITMASK,
+               "hardest": HARDEST_BITMASK}
+
+    STRINGS = {
+        1: "Attitude tweak",
+        2: "Safe mode",
+        4: "Coarse point",
+        8: "Earth point",
+        16: "Zero crossing",
+        32: "Desaturation event",
+        64: "Argabrightening",
+        128: "Cosmic ray in optimal aperture",
+        256: "Manual exclude",
+        1024: "Sudden sensitivity dropout",
+        2048: "Impulsive outlier",
+        4096: "Argabrightening on CCD",
+        8192: "Cosmic ray in collateral data",
+        16384: "Detector anomaly",
+        32768: "No fine point",
+        65536: "No data",
+        131072: "Rolling band in optimal aperture",
+        262144: "Rolling band in full mask",
+        524288: "Possible thruster firing",
+        1048576: "Thruster firing",
+    }
+
+
+class TessQualityFlags(QualityFlags):
+    """TESS QUALITY bitmask flags (TESS DPDD EXP-TESS-ARC-ICD-0014, Tab. 28)."""
+
+    AttitudeTweak = 1
+    SafeMode = 2
+    CoarsePoint = 4
+    EarthPoint = 8
+    Argabrightening = 16
+    Desat = 32
+    ApertureCosmic = 64
+    ManualExclude = 128
+    Discontinuity = 256
+    ImpulsiveOutlier = 512
+    CollateralCosmic = 1024
+    Straylight = 2048
+    Straylight2 = 4096
+    PlanetSearchExclude = 8192
+    BadCalibrationExclude = 16384
+    InsufficientTargets = 32768
+
+    DEFAULT_BITMASK = (AttitudeTweak | SafeMode | CoarsePoint | EarthPoint
+                       | Argabrightening | Desat | ManualExclude
+                       | ImpulsiveOutlier | BadCalibrationExclude)
+    HARD_BITMASK = (DEFAULT_BITMASK | ApertureCosmic | CollateralCosmic
+                    | Straylight | Straylight2)
+    HARDEST_BITMASK = 65535
+
+    OPTIONS = {"none": 0, "default": DEFAULT_BITMASK, "hard": HARD_BITMASK,
+               "hardest": HARDEST_BITMASK}
+
+    STRINGS = {
+        1: "Attitude tweak",
+        2: "Safe mode",
+        4: "Coarse point",
+        8: "Earth point",
+        16: "Argabrightening",
+        32: "Desaturation event",
+        64: "Cosmic ray in optimal aperture",
+        128: "Manual exclude",
+        256: "Discontinuity corrected",
+        512: "Impulsive outlier",
+        1024: "Cosmic ray in collateral data",
+        2048: "Straylight",
+        4096: "Straylight2",
+        8192: "Planet Search Exclude",
+        16384: "Bad Calibration Exclude",
+        32768: "Insufficient Targets for Error Correction Exclude",
+    }
+
+
+def validate_method(method, supported_methods):
+    """Lower-case ``method`` and raise ValueError if unsupported."""
+    method = method.lower()
+    if method in supported_methods:
+        return method
+    raise ValueError(f"method '{method}' is not supported; must be one of "
+                     f"{supported_methods}")
+
+
+def running_mean(data, window_size):
+    """Moving average via cumulative sums (reference ``utils.py:374-387``)."""
+    data = np.asarray(data, dtype=float)
+    window_size = min(int(window_size), len(data))
+    csum = np.cumsum(np.insert(data, 0, 0.0))
+    return (csum[window_size:] - csum[:-window_size]) / float(window_size)
+
+
+def bkjd_to_time(bkjd):
+    """BKJD floats → :class:`~lightkurve_tpu_torch.time.Time`
+    (reference ``utils.py:391-417``; non-finite values become 0)."""
+    from .time import Time
+    bkjd = np.atleast_1d(np.asarray(bkjd, dtype=float)).copy()
+    bkjd[~np.isfinite(bkjd)] = 0
+    return Time(bkjd, format="bkjd", scale="tdb")
+
+
+def btjd_to_time(btjd):
+    """BTJD floats → :class:`~lightkurve_tpu_torch.time.Time`
+    (reference ``utils.py:420-441``)."""
+    from .time import Time
+    btjd = np.atleast_1d(np.asarray(btjd, dtype=float)).copy()
+    btjd[~np.isfinite(btjd)] = 0
+    return Time(btjd, format="btjd", scale="tdb")
+
+
+# reference public names (utils.py:388-441) — aliases of the _to_time
+# helpers above
+def bkjd_to_astropy_time(bkjd):
+    """Alias of :func:`bkjd_to_time` under the reference's public name."""
+    return bkjd_to_time(bkjd)
+
+
+def btjd_to_astropy_time(btjd):
+    """Alias of :func:`btjd_to_time` under the reference's public name."""
+    return btjd_to_time(btjd)
+
+
+# ---------------------------------------------------------------------------
+# Automatic histogram bin-edge rules (astropy.stats equivalents), used by
+# LightCurve.bin(bins='scott'|'freedman'|'knuth'|'blocks') — reference
+# lightcurve.py:1613-1646 delegates to astropy's calculate_bin_edges.
+# Host-side numpy: bin-edge selection is O(n) setup work, not kernel work.
+# ---------------------------------------------------------------------------
+def _edges_from_width(x, dx):
+    """Uniform edges of width ``dx`` spanning [min(x), max(x)]."""
+    lo, hi = float(np.min(x)), float(np.max(x))
+    if dx <= 0 or not np.isfinite(dx):
+        return np.array([lo, hi], dtype=float)
+    nb = max(int(np.ceil((hi - lo) / dx)), 1)
+    return lo + dx * np.arange(nb + 1)
+
+
+def scott_bin_width(x):
+    """Scott's rule: Δ = 3.5 σ / n^{1/3} (Scott 1979)."""
+    x = np.asarray(x, dtype=float)
+    return 3.5 * np.std(x) / x.size ** (1.0 / 3)
+
+
+def freedman_bin_width(x):
+    """Freedman-Diaconis rule: Δ = 2 IQR / n^{1/3} (Freedman & Diaconis
+    1981)."""
+    x = np.asarray(x, dtype=float)
+    q25, q75 = np.percentile(x, [25, 75])
+    return 2.0 * (q75 - q25) / x.size ** (1.0 / 3)
+
+
+def knuth_bin_count(x, max_bins=None):
+    """Knuth's Bayesian optimal number of uniform bins (Knuth 2006).
+
+    Maximizes the marginal posterior
+    ``F(M) = n·ln M + lnΓ(M/2) − M·lnΓ(½) − lnΓ(n + M/2) + Σ_k lnΓ(n_k + ½)``
+    by direct search (robust, no optimizer dependency).
+    """
+    from scipy.special import gammaln
+    x = np.sort(np.asarray(x, dtype=float))
+    n = x.size
+    if max_bins is None:
+        max_bins = max(int(5 * n ** (1.0 / 3)) + 10, 20)
+    best_m, best_f = 1, -np.inf
+    for m in range(1, max_bins + 1):
+        nk = np.histogram(x, bins=m)[0]
+        f = (n * np.log(m) + gammaln(0.5 * m) - m * gammaln(0.5)
+             - gammaln(n + 0.5 * m) + np.sum(gammaln(nk + 0.5)))
+        if f > best_f:
+            best_m, best_f = m, f
+    return best_m
+
+
+def bayesian_blocks(x, p0=0.05):
+    """Bayesian-blocks change-point edges for point measurements
+    (Scargle et al. 2013, 'events' fitness), O(n²) dynamic program."""
+    x = np.sort(np.asarray(x, dtype=float))
+    n = x.size
+    edges = np.concatenate([x[:1], 0.5 * (x[1:] + x[:-1]), x[-1:]])
+    block_length = x[-1] - edges
+    # false-alarm prior calibrated as astropy does for the events fitness
+    ncp_prior = 4.0 - np.log(73.53 * p0 * n ** -0.478)
+    best = np.zeros(n)
+    last = np.zeros(n, dtype=int)
+    for r in range(n):
+        width = block_length[: r + 1] - block_length[r + 1]
+        width[width <= 0] = np.inf
+        counts = np.arange(r + 1, 0, -1, dtype=float)
+        fit = counts * (np.log(counts) - np.log(width)) - ncp_prior
+        fit[1:] += best[:r]
+        last[r] = int(np.argmax(fit))
+        best[r] = fit[last[r]]
+    # trace back the change points
+    cp = []
+    i = n
+    while i > 0:
+        cp.append(i)
+        i = last[i - 1]
+    cp.append(0)
+    return edges[np.array(cp[::-1])]
+
+
+def calculate_bin_edges(x, bins):
+    """Histogram bin edges for an automatic method or a bin count
+    (astropy.stats.calculate_bin_edges equivalent)."""
+    x = np.asarray(x, dtype=float)
+    if isinstance(bins, str):
+        if bins == "scott":
+            return _edges_from_width(x, scott_bin_width(x))
+        if bins == "freedman":
+            return _edges_from_width(x, freedman_bin_width(x))
+        if bins == "knuth":
+            m = knuth_bin_count(x)
+            return np.linspace(float(np.min(x)), float(np.max(x)), m + 1)
+        if bins == "blocks":
+            return bayesian_blocks(x)
+        raise ValueError(f"unknown bin method {bins!r}")
+    return np.histogram_bin_edges(x, bins=bins)

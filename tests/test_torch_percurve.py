@@ -354,3 +354,65 @@ def test_entry_points_default_to_the_card(tmp_path):
                 build()
     assert TStack.from_numpy(*arrays, device="cpu").device.type == "cpu"
     assert os.path.exists(path)
+
+
+BLS_ENTRY_CALLS = {
+    "bls_power_shared_batch": lambda t, y, dy, device: tbls.
+    bls_power_shared_batch(t, y[None], None if dy is None else dy[None],
+                           PERIODS, DURATIONS, device=device),
+    "bls_power": lambda t, y, dy, device: tbls.bls_power(
+        t, y, dy, PERIODS, DURATIONS, device=device),
+    "bls_power_direct": lambda t, y, dy, device: tbls.bls_power_direct(
+        t, y, dy, PERIODS, DURATIONS, device=device),
+    "bls_power_binned": lambda t, y, dy, device: tbls.bls_power_binned(
+        t, y, dy, PERIODS, DURATIONS, device=device),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BLS_ENTRY_CALLS))
+def test_bls_host_arrays_go_to_the_card_unless_cpu_is_asked(rng, monkeypatch,
+                                                            name):
+    """A numpy ``y`` goes to the card by default, so without CUDA the call
+    raises; with ``device="cpu"`` it gives the bits of a CPU tensor ``y``,
+    and a tensor ``y`` keeps its device."""
+    call = BLS_ENTRY_CALLS[name]
+    t, y, dy = curve(rng)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        call(t, y, dy, None)
+    got = call(t, y, dy, "cpu")
+    want = call(t, torch.from_numpy(y), dy, None)
+    for k in FIELDS:
+        assert got[k].device.type == "cpu" and want[k].device.type == "cpu"
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("method", ["exact", "binned"])
+def test_float32_per_curve_power_matches_float64(method):
+    """On a sector of two-minute cadences of a normalized curve (flux near
+    1, dy 2e-4, BTJD times), the float32 per-curve search gives the
+    float64 search's winner and its power within 1e-4.  Two roundings
+    would spoil it (ROADMAP C): a window's sums are differences of prefix
+    sums over the sector, which the port accumulates in float64; and host
+    times are moved to their first sample in float64 before the cast, as
+    a BTJD time rounds to ~1e-4 d in float32."""
+    rng = np.random.default_rng(77)
+    n = 19_440
+    # jittered: no sample on a window edge, where float32 and float64
+    # rounding may put it on either side (ROADMAP C)
+    t = 1500.0 + (np.arange(n) + rng.uniform(-0.01, 0.01, n)) * (
+        2.0 / 60 / 24)
+    dy = 2e-4 * rng.uniform(0.7, 1.3, n)
+    y = 1.0 + dy * rng.standard_normal(n)
+    ph = np.mod(t - 1501.3 + 2.1, 4.2) - 2.1
+    y[np.abs(ph) < 0.05] -= 4e-4
+    periods = np.linspace(4.1, 4.3, 9)
+    fn = tbls.bls_power if method == "exact" else tbls.bls_power_binned
+    out = {dt: fn(t, y.astype(dt), dy.astype(dt), periods.astype(dt),
+                  np.array([0.1], dt), device="cpu")
+           for dt in (np.float64, np.float32)}
+    a, b = out[np.float64], out[np.float32]
+    assert b["power"].dtype == torch.float32
+    k = int(torch.argmax(a["power"]))
+    assert int(torch.argmax(b["power"])) == k
+    assert abs(float(b["power"][k]) / float(a["power"][k]) - 1) < 1e-4

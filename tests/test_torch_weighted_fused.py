@@ -123,7 +123,8 @@ def test_weighted_routes_agree_bit_for_bit(rng, objective):
     fused = bls_fused_weighted.fused_scan_weighted_plain.calls
     staged = bls_window.window_scan_plain.calls
     out = [tbls.bls_power_shared_batch(t, Y, dy, periods, durs, chunk=5,
-                                       objective=objective, fold_impl=impl)
+                                       objective=objective, fold_impl=impl,
+                                       device="cpu")
            for impl in ("fused", "staged")]
     assert bls_fused_weighted.fused_scan_weighted_plain.calls == fused + 1
     assert bls_window.window_scan_plain.calls == staged + 5

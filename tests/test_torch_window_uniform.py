@@ -270,7 +270,7 @@ def test_staged_and_fused_routes_agree_bit_for_bit(rng):
     periods = np.linspace(1.2, 4.0, 23)
     durs = np.array([0.1, 0.2, 0.25])
     out = [tbls.bls_power_shared_batch(t, Y, None, periods, durs, chunk=5,
-                                       fold_impl=impl)
+                                       fold_impl=impl, device="cpu")
            for impl in ("fused", "staged")]
     for k in out[0]:
         np.testing.assert_array_equal(out[0][k].numpy(), out[1][k].numpy(),
@@ -298,11 +298,11 @@ def test_staged_route_slices_periods_to_free_memory(rng, monkeypatch):
     periods = np.linspace(1.2, 4.0, 23)
     durs = np.array([0.1, 0.2, 0.25])
     want = tbls.bls_power_shared_batch(t, Y, None, periods, durs, chunk=5,
-                                       fold_impl="staged")
+                                       fold_impl="staged", device="cpu")
     monkeypatch.setattr(tbls, "_free_device_bytes", lambda device: 0)
     calls = bls_window.window_scan_uniform_plain.calls
     got = tbls.bls_power_shared_batch(t, Y, None, periods, durs, chunk=5,
-                                      fold_impl="staged")
+                                      fold_impl="staged", device="cpu")
     assert bls_window.window_scan_uniform_plain.calls == calls + len(periods)
     for k in want:
         np.testing.assert_array_equal(got[k].numpy(), want[k].numpy(), k)
@@ -322,7 +322,8 @@ def test_staged_weighted_route_slices_periods_to_free_memory(rng,
     dy = 1e-3 * (1 + rng.random(Y.shape))
     periods = np.linspace(1.2, 4.0, 23)
     durs = np.array([0.1, 0.2, 0.25])
-    kw = dict(chunk=5, fold_impl="staged", uniform_weights=False)
+    kw = dict(chunk=5, fold_impl="staged", uniform_weights=False,
+              device="cpu")
     want = tbls.bls_power_shared_batch(t, Y, dy, periods, durs, **kw)
     monkeypatch.setattr(tbls, "_free_device_bytes", lambda device: 0)
     calls = bls_window.window_scan_plain.calls
