@@ -71,6 +71,27 @@ Phases:
      estimate_cdpp against estimate_cdpp_batch; on 2 curves the card's
      float32 periodograms against the CPU's float64; no kernel may launch
      in the single-curve part;
+ 13. pixels: (a) a TPFStack of 512 TESS targets x phase 10's sector x 11 x
+     11 pixels made on the card in float32 (Gaussian PSFs, photon noise, a
+     pointing jitter and momentum-dump sawtooth common to all, 3% NaN
+     cadences, phase 10's 400-ppm transits), extract_aperture_photometry
+     and pld_correct(pld_order=1, n_pca_terms=3) (timed on a second call,
+     peak memory), flatten and bls_search over 1-9 d in four calls with
+     the launches the route rule gives (K-WF x4 at 512 curves); the same
+     search of the uncorrected aperture flux; call 4 through both routes
+     (K-WF; K-SF and K-W) within C2's bound, and K-WF, K-SF and K-W
+     against their plain versions on the inputs the entry point gives
+     them there (its 256 longest periods); recovery of the transits of
+     expected SNR >= 8.745 and no lower than the uncorrected search's; 4
+     targets' float32 corrected flux against float64 on the CPU; (b)
+     files written by the port's to_fits and read back (files/s): 8 TESS
+     TPFs through to_lightcurve, threshold masks, centroids both ways,
+     estimate_background, PLDCorrector.correct(), flatten and the BLS
+     periodogram (peak within 1% of the injected period), the
+     collection's TPFStack photometry against each file's; 4 K2-like
+     Kepler TPFs through to_corrector("sff") (CDPP below the raw curve's),
+     a spline RegressionCorrector and the over-fitting metric; 2 files of
+     each kind against float64 on the CPU; no kernel may launch in (b);
   9. one call past the one-hot fold's old memory ceiling: a year of
      two-minute cadences (262,800) x 2048 curves in float32, 4 periods
      near 300 d (~60,000 rows), through bls_power_shared_batch on the
@@ -91,9 +112,9 @@ Phases:
      one SweepRunner chunk's wall time per route through the entry point
      (the staged route at 8 periods per call), the route "auto" takes,
      the winners per (period, curve) against each other and C2's bound.
-Each path (the sweeps of phases 3, 4, 6, 7, 8, 10 and 12 on the
-automatic route, the four forced-route runs of phases 4 and 6, and phase
-9) runs
+Each path (the sweeps of phases 3, 4, 6, 7, 8, 10, 12 and 13 on the
+automatic route, the six forced-route runs of phases 4, 6 and 13, and
+phase 9) runs
 with every launch count set to 0 just before it and read just after; a
 path fails if a plain version ran, and a sweep fails unless its launches
 are what the route rule (ops.bls.fold_route) gives its chunks.  The
@@ -108,8 +129,9 @@ when no CUDA device is present.
 
 builds the kernels and profiles one full-size sweep chunk per shared-grid
 cell, phase 10's flatten, phase 11's default to_periodogram call and its
-fastchi2 call, phase 12's single-curve BLS periodogram, and two
-forced-route chunks instead (torch.profiler:
+fastchi2 call, phase 12's single-curve BLS periodogram, phase 13's
+pld_correct of its 512 targets and PLDCorrector.correct() of one TESS
+file, and two forced-route chunks instead (torch.profiler:
 device time per kernel, the device's idle share, each kernel's bound over
 the chunk; the Lomb-Scargle calls' and the BLS periodogram's launches
 and device time by kind of op).
@@ -170,6 +192,15 @@ def peak_memory():
     import torch
     gib = torch.cuda.max_memory_allocated() / 2**30
     return f"peak device memory {gib:.3f} GiB allocated"
+
+
+def sync_timed(fn):
+    """``fn()`` and its seconds, to the end of its device work."""
+    import torch
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
 
 
 def cuda_time_ms(fn, reps=3):
@@ -790,7 +821,8 @@ def route_call(stack, pvals, impl):
     d_phase = float(DURATIONS.min()) / OVERSAMPLE
     pvals = np.asarray(pvals).astype(np_dtype)
     dy = torch.where(stack.mask, stack.flux_err,
-                     torch.tensor(torch.inf, dtype=dtype, device="cuda"))
+                     torch.tensor(torch.inf, dtype=dtype,
+                                  device=stack.flux.device))
     uniform = is_uniform(stack)
     out = bls_power_shared_batch(
         stack.time[0].to(dtype), stack.flux, dy, pvals,
@@ -2621,17 +2653,10 @@ def lc_chain(lc):
     on the reference's default grid with its vetting calls, fold and bin,
     the Lomb-Scargle periodogram of the raw curve and estimate_cdpp.
     Returns the pieces and each step's seconds."""
-    import torch
-
-    def timed(fn):
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
-
-    flat, flat_s = timed(lambda: lc.normalize().remove_outliers().flatten(
-        window_length=FLATTEN_KW["window_length"]))
-    grid, bls_s = timed(lambda: flat.to_periodogram("bls"))
+    flat, flat_s = sync_timed(lambda: lc.normalize().remove_outliers()
+                              .flatten(window_length=FLATTEN_KW[
+                                  "window_length"]))
+    grid, bls_s = sync_timed(lambda: flat.to_periodogram("bls"))
     bls = grid[grid.period.value >= LC_MIN_PERIOD]
     period = bls.period_at_max_power
     best = dict(period=period, duration=bls.duration_at_max_power,
@@ -2641,7 +2666,7 @@ def lc_chain(lc):
     in_transit = bls.get_transit_mask(**best)
     folded = flat.fold(period, best["transit_time"])
     binned = folded.bin(time_bin_size=LC_FOLD_BIN)
-    ls, ls_s = timed(lc.to_periodogram)
+    ls, ls_s = sync_timed(lc.to_periodogram)
     cdpp = float(lc.estimate_cdpp().value)
     return dict(flat=flat, grid=grid, bls=bls, stats=stats, model=model,
                 in_transit=in_transit, folded=folded, binned=binned, ls=ls,
@@ -2772,6 +2797,691 @@ def phase_lc_single(lcs, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 13: pixels on the card (target pixel files, PLD, the correctors)
+# ---------------------------------------------------------------------------
+#: phase 13's stack: TESS targets of 11 x 11 pixels over phase 10's sector
+PIX_B = 512
+PIX_SHAPE = (11, 11)
+PIX_SEED = 2033
+#: star flux (log10 e/s), background (e/s/px), PSF sigma (px), the PSF
+#: centre's offset from the middle pixel (px)
+PIX_FLUX = (3.5, 5.0)
+PIX_BKG = (10.0, 50.0)
+PIX_PSF_SIGMA = (0.8, 1.2)
+PIX_CENTRE = 0.3
+#: the pointing: white jitter common to every target (px rms) and a
+#: momentum-dump sawtooth (a drift of this many px per cycle in column and
+#: row, reset at every dump)
+PIX_JITTER = 0.05
+PIX_DUMP_DAYS = 3.125
+PIX_DUMP_DRIFT = (0.06, 0.03)
+#: share of each target's cadences whose image is NaN
+PIX_NAN_SHARE = 0.03
+#: seconds of exposure per cadence (photon noise)
+PIX_EXPOSURE_S = 120.0
+#: the aperture: pixels whose centre lies within this many px of the PSF
+PIX_APERTURE_PX = 2.0
+#: pld_correct's configuration (lightkurve_tpu's bench, bench.py:423-453)
+PIX_PLD = dict(pld_order=1, n_pca_terms=3)
+#: recovery: a transit is detectable where its measured signal-to-noise
+#: passes the 7.1-sigma threshold of the Kepler and TESS pipelines
+#: (Jenkins et al. 2010, ApJ 713, L87).  A measured SNR scatters with
+#: unit variance about the expected one (photon noise of star and aperture
+#: background, every valid in-transit cadence), so from an expected SNR of
+#: 7.1 + 1.645 it passes the threshold in 95% of draws.  The search of the
+#: PLD-corrected stack must recover at least PIX_RECOVERY_SHARE of the
+#: targets of expected SNR >= PIX_SNR; over all targets it must recover at
+#: least as many as the search of the uncorrected aperture flux
+PIX_RECOVERY_SHARE = 0.95
+PIX_DETECT_SNR = 7.1
+PIX_SNR = PIX_DETECT_SNR + 1.645
+#: periods of call 4 (its longest) at which phase 13 holds the kernels of
+#: its search against their plain versions
+PIX_KERNEL_PERIODS = 256
+#: targets held in float64 on the CPU against the card's float32, and the
+#: bar on their corrected flux (largest difference over the median flux,
+#: 2.5% of the injected depth)
+PIX_F64_TARGETS = 4
+PIX_F64_RTOL = 1e-5
+#: phase 13 (b): TESS files (brighter stars, so every transit shows on one
+#: curve) and K2-like Kepler files
+PIX_FILES = 8
+PIX_FILE_FLUX = (4.7, 5.0)
+K2_FILES = 4
+K2_N = 3500
+K2_SHAPE = (8, 8)
+K2_CADENCE_D = 29.4 / 60 / 24
+K2_FIRING_D = 0.25
+#: files held in float64 on the CPU, per kind
+PIX_F64_FILES = 2
+
+
+def pixel_sector(B, seed, device, dtype=None, flux_range=PIX_FLUX,
+                 chunk=64):
+    """Phase 13's TESS pixel stack, made on ``device`` from ``seed``: B
+    targets x phase 10's sector (19,440 two-minute cadences with its
+    downlink gap) x 11 x 11 pixels.  Each target: a Gaussian PSF (sigma
+    0.8-1.2 px) centred within 0.3 px of the middle, star flux
+    10^3.5-10^5 e/s (``flux_range``), background 10-50 e/s/px, photon
+    noise of a two-minute exposure; a pointing common to all targets
+    (white jitter of 0.05 px rms and a momentum-dump sawtooth every
+    3.125 d); one 0.1-d transit of phase 10's depth (400 ppm) at a period
+    of 1.2-8.5 d; 3% of cadences NaN.  Returns the
+    :class:`~lightkurve_tpu_torch.batch.TPFStack` (aperture: the pixels
+    within 2 px of each PSF centre) and the truth: injected periods, the
+    expected transit SNR, the pointing."""
+    import torch
+    from lightkurve_tpu_torch.batch import TPFStack
+    dtype = dtype or torch.float32
+    rng = np.random.default_rng(seed)
+    t = sector_times(1)
+    t[LONG_N // 2:] += DOWNLINK_GAP_DAYS
+    N = t.size
+    H, W = PIX_SHAPE
+    star = 10 ** rng.uniform(*flux_range, B)
+    bkg = rng.uniform(*PIX_BKG, B)
+    sig = rng.uniform(*PIX_PSF_SIGMA, B)
+    c0 = (W - 1) / 2 + rng.uniform(-PIX_CENTRE, PIX_CENTRE, B)
+    r0 = (H - 1) / 2 + rng.uniform(-PIX_CENTRE, PIX_CENTRE, B)
+    p_inj = rng.uniform(1.2, 8.5, B)
+    transit = np.ones((B, N))
+    inject_transits(transit, t, p_inj, rng, FLATTEN_DEPTH)
+    nan_cad = rng.random((B, N)) < PIX_NAN_SHARE
+    saw = np.mod(t - t[0], PIX_DUMP_DAYS) / PIX_DUMP_DAYS - 0.5
+    dcol = PIX_DUMP_DRIFT[0] * saw + PIX_JITTER * rng.standard_normal(N)
+    drow = PIX_DUMP_DRIFT[1] * saw + PIX_JITTER * rng.standard_normal(N)
+    yy, xx = np.mgrid[:H, :W]
+    aperture = np.hypot(xx[None] - c0[:, None, None],
+                        yy[None] - r0[:, None, None]) <= PIX_APERTURE_PX
+    # expected SNR: the aperture's share of the PSF at rest, photon noise
+    # of star and background, every valid in-transit cadence
+    s2 = 2 * sig[:, None, None] ** 2
+    psf0 = np.exp(-((xx[None] - c0[:, None, None]) ** 2
+                    + (yy[None] - r0[:, None, None]) ** 2) / s2) / (np.pi * s2)
+    f_ap = star * (psf0 * aperture).sum((1, 2))
+    noise = np.sqrt((f_ap + bkg * aperture.sum((1, 2))) / PIX_EXPOSURE_S)
+    n_in = ((transit < 1) & ~nan_cad).sum(1)
+    snr = FLATTEN_DEPTH * f_ap * np.sqrt(n_in) / noise
+    gen = torch.Generator(device=device).manual_seed(seed)
+    put = lambda a: torch.as_tensor(a, dtype=dtype, device=device)  # noqa
+    tt = put(t)
+    flux = torch.empty((B, N, H, W), dtype=dtype, device=device)
+    err = torch.empty_like(flux)
+    xg, yg = put(xx), put(yy)
+    dc, dr = put(dcol), put(drow)
+    for lo in range(0, B, chunk):
+        s = slice(lo, lo + chunk)
+        b = len(range(B)[s])
+        cx = put(c0[s])[:, None, None, None] + dc[None, :, None, None]
+        cy = put(r0[s])[:, None, None, None] + dr[None, :, None, None]
+        two_s2 = 2 * put(sig[s])[:, None, None, None] ** 2
+        psf = torch.exp(-((xg - cx) ** 2 + (yg - cy) ** 2) / two_s2) / (
+            np.pi * two_s2)
+        img = put(star[s])[:, None, None, None] * put(transit[s])[
+            :, :, None, None] * psf + put(bkg[s])[:, None, None, None]
+        e = torch.sqrt(img / PIX_EXPOSURE_S)
+        img = img + e * torch.randn(img.shape, generator=gen, dtype=dtype,
+                                    device=device)
+        bad = torch.as_tensor(nan_cad[s], device=device)[:, :, None, None]
+        flux[s] = torch.where(bad, torch.nan, img)
+        err[s] = e
+        del psf, img, e, bad
+    stack = TPFStack(flux=flux, flux_err=err, time=tt[None].expand(B, N),
+                     aperture=torch.as_tensor(aperture, device=device),
+                     meta=[{"TICID": i} for i in range(B)],
+                     time_format="btjd")
+    truth = dict(p_inj=p_inj, snr=snr, dcol=dcol, drow=drow, star=star,
+                 bkg=bkg, time=t)
+    return stack, truth
+
+
+def pixel_search(stack, chunk_periods=1024):
+    """``flatten`` (phase 10's window) then ``bls_search`` over
+    :data:`LONG_GRID` in four calls; returns the flattened stack, the
+    winners and the search's seconds."""
+    import torch
+    flat = stack.flatten(**FLATTEN_KW)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    best = lc_search(flat, np.linspace(*LONG_GRID), chunk_periods)
+    return flat, best, time.perf_counter() - t0
+
+
+def phase_pixels_stack(card, B=PIX_B):
+    """Phase 13 (a), the sector-scale path: :func:`pixel_sector` on the
+    card in float32, ``extract_aperture_photometry`` and
+    ``pld_correct(pld_order=1, n_pca_terms=3)`` (timed on a second call,
+    with the peak device memory), then ``flatten`` and ``bls_search``
+    over 1-9 d in four calls.  Checks finite corrected flux of the valid
+    cadences and the recovery (:data:`PIX_RECOVERY_SHARE` of the targets
+    of expected SNR >= :data:`PIX_SNR`).  Returns the numbers, the launches
+    the route rule gives, and what the other checks need."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stack, truth = pixel_sector(B, PIX_SEED, "cuda")
+    torch.cuda.synchronize()
+    make_s = time.perf_counter() - t0
+    stack.pld_correct(**PIX_PLD)                              # warm-up
+    start_sweep()
+    t0 = time.perf_counter()
+    raw = stack.extract_aperture_photometry()
+    torch.cuda.synchronize()
+    phot_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    corrected = stack.pld_correct(**PIX_PLD)
+    torch.cuda.synchronize()
+    pld_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    good = corrected.flux[corrected.mask]
+    log(f"pixels: B={B} x {LONG_N} cadences x {PIX_SHAPE[0]}x{PIX_SHAPE[1]} "
+        f"px float32 (cube {stack.flux.numel() * 4 / 1e9:.3f} GB; made on "
+        f"the card in {make_s:.3f}s): extract_aperture_photometry "
+        f"{phot_s:.3f}s, pld_correct(pld_order=1, n_pca_terms=3) "
+        f"{pld_s:.3f}s, {B / pld_s:.6g} targets/s, photometry + PLD "
+        f"{B / (phot_s + pld_s):.6g} targets/s; peak device memory "
+        f"{peak:.3f} GiB allocated [{card}]")
+    if not bool(torch.isfinite(good).all()) or not bool(
+            torch.equal(corrected.mask, raw.mask)):
+        raise AssertionError("pixels: non-finite corrected flux, or masks "
+                             "that differ from the photometry's")
+    periods = np.linspace(*LONG_GRID)
+    flat, best, search_s = pixel_search(corrected)
+    routes = expected_launches(flat, periods, 1024, launch_periods=16)
+    share = recovery(best["period"], truth["p_inj"])
+    bright = truth["snr"] >= PIX_SNR
+    share_bright = recovery(best["period"][bright], truth["p_inj"][bright])
+    log(f"pixels: PLD -> flatten -> bls_search B={B} P={len(periods)} in 4 "
+        f"calls: search {search_s:.3f}s ({B * len(periods) / search_s:.6g} "
+        f"curve-period evals/s); recovered {share:.4f} of all, "
+        f"{share_bright:.4f} of the {int(bright.sum())} of expected SNR >= "
+        f"{PIX_SNR:g} (bar {PIX_RECOVERY_SHARE}); "
+        f"{recovery_bands(best, truth)} [{card}]")
+    if share_bright < PIX_RECOVERY_SHARE:
+        raise AssertionError(f"pixels: recovery {share_bright} of the "
+                             f"detectable transits < {PIX_RECOVERY_SHARE}")
+    return dict(make_s=make_s, phot_s=phot_s, pld_s=pld_s, peak_gib=peak,
+                seconds=search_s, recovered=share,
+                recovered_bright=share_bright, routes=routes, stack=stack,
+                raw=raw, corrected=corrected, flat=flat, truth=truth,
+                bright=bright)
+
+
+def recovery_bands(best, truth, edges=(PIX_DETECT_SNR, 12.0)):
+    """The recovery of the targets of expected SNR at or above each of
+    ``edges``, as text."""
+    return ", ".join(
+        f"{recovery(best['period'][b], truth['p_inj'][b]):.4f} of the "
+        f"{int(b.sum())} of SNR >= {e:g}"
+        for e, b in ((e, truth["snr"] >= e) for e in edges))
+
+
+def phase_pixels_raw(px, card):
+    """Phase 13 (a), the same search on the uncorrected aperture flux:
+    its recovery, which the corrected search must not fall below."""
+    flat, best, secs = pixel_search(px["raw"])
+    share = recovery(best["period"], px["truth"]["p_inj"])
+    b = px["bright"]
+    share_bright = recovery(best["period"][b], px["truth"]["p_inj"][b])
+    log(f"pixels: the uncorrected aperture flux -> flatten -> bls_search: "
+        f"recovered {share:.4f} of all, {share_bright:.4f} of expected SNR "
+        f">= {PIX_SNR:g}; {recovery_bands(best, px['truth'])}; with PLD "
+        f"{px['recovered']:.4f} and {px['recovered_bright']:.4f} [{card}]")
+    if px["recovered"] < share:
+        raise AssertionError("pixels: the PLD-corrected search recovers "
+                             "fewer transits than the uncorrected one")
+    return dict(routes=expected_launches(flat, np.linspace(*LONG_GRID), 1024,
+                                         launch_periods=16),
+                recovered=share, recovered_bright=share_bright)
+
+
+def phase_pixels(tmp, card, sweep, runs):
+    """Phase 13, each part a path of its own: (a) the PLD-corrected search
+    and the uncorrected one (their launches as the route rule gives them,
+    through ``sweep``), call 4 on both routes, the float32-against-float64
+    check; (b) the single files, where no kernel may launch.  Adds the
+    paths' launches to ``runs``; returns (a)'s times and (b)'s numbers."""
+    import torch
+    t0 = time.time()
+    px = sweep("pixels, PLD -> search (phase 13)", phase_pixels_stack, card)
+    sweep("pixels, uncorrected -> search (phase 13)", phase_pixels_raw, px,
+          card)
+    call4 = np.linspace(*LONG_GRID)[3072:]
+    runs.update(pixel_routes(px["flat"], call4))
+    errs = check_pixel_kernels(px["flat"], call4[-PIX_KERNEL_PERIODS:])
+    check_pixels_f64(px, card)
+    numbers = {k: px[k] for k in ("phot_s", "pld_s", "peak_gib")}
+    numbers["errs"] = errs
+    del px
+    torch.cuda.empty_cache()
+    files, _ = drive("pixels, files (phase 13)", phase_pixels_files, tmp,
+                     card, forbid=tuple(kernel_table()))
+    torch.cuda.empty_cache()
+    log(f"phase 13: {time.time() - t0:.1f}s")
+    return numbers, files
+
+
+def pixel_routes(flat, pvals):
+    """Call 4 of phase 13 (a)'s search (``pvals``) on the corrected,
+    flattened stack through the entry point on both routes
+    (:func:`route_call`), each a path of its own: ``fold_impl="fused"``
+    launches K-WF and no other kernel, ``"staged"`` K-SF and K-W and no
+    other (the route rule gives this call the fused kernel at 512
+    curves).  The winners' power gaps are held to C2's bound
+    (:func:`route_gaps`).  Returns each path's launches."""
+    runs, win = {}, {}
+    for impl, kerns in (("fused", ("K-WF",)), ("staged", ("K-SF", "K-W"))):
+        path = f"pixels, call 4, {impl} route (phase 13)"
+        win[impl], runs[path] = drive(
+            path, lambda: route_call(flat, pvals, impl)[1], expect=kerns,
+            forbid=tuple(k for k in kernel_table() if k not in kerns))
+    route_gaps("pixels, call 4", win["fused"], win["staged"], flat.shape[1],
+               keys=("period", "duration", "transit_time"))
+    return runs
+
+
+class _Caught(Exception):
+    """Stops the entry point once it has handed the scan its inputs."""
+
+
+def entry_scan_args(stack, pvals):
+    """The arguments ``bls_power_shared_batch`` hands the weighted scan for
+    one SweepRunner chunk of ``stack`` at ``pvals`` (:func:`route_call`),
+    caught before the scan runs, so no kernel launches."""
+    from lightkurve_tpu_torch.ops import bls
+    seen, scan = [], bls.fused_scan_weighted
+
+    def catch(*args, **kw):
+        seen.append((args, kw))
+        raise _Caught
+
+    bls.fused_scan_weighted = catch
+    try:
+        route_call(stack, pvals, "fused")
+    except _Caught:
+        pass
+    finally:
+        bls.fused_scan_weighted = scan
+    return seen[0]
+
+
+def check_pixel_kernels(flat, pvals):
+    """The kernels of phase 13 (a)'s call 4 against their plain versions
+    on the inputs the entry point gives them there (:func:`entry_scan_args`
+    of the flattened corrected stack at ``pvals``, its longest
+    :data:`PIX_KERNEL_PERIODS` periods), at the float32 bars: K-WF in one
+    launch (:func:`compare`); K-SF (:func:`compare_fold`) and K-W on the
+    K-SF rows (:func:`compare`) 8 periods a launch, as the staged route
+    launches them.  Returns each kernel's max |error|."""
+    import torch
+    from lightkurve_tpu_torch.ops import bls_fused_weighted as bfw
+    from lightkurve_tpu_torch.ops import bls_window
+    from lightkurve_tpu_torch.ops.bls_staged_fold import (staged_fold,
+                                                          staged_fold_plain)
+    args, kw = entry_scan_args(flat, pvals)
+    ts, W, WY, pc, k_durs, dvals, d_phase, nbins, max_nbp, lik = args
+    log(f"pixels, call 4 kernels: B={W.shape[1]} N={W.shape[0]} "
+        f"P={pc.shape[0]} (periods {float(pc[0]):.4f}-{float(pc[-1]):.4f} "
+        f"d, {max_nbp} bins, fold sized for {nbins}) {W.dtype}")
+    errs = {}
+    got, want = bfw.fused_scan_weighted(*args, **kw), \
+        bfw.fused_scan_weighted_plain(*args, **kw)
+    errs["K-WF"] = compare("K-WF pixels call 4", got, want, False)[0]
+    del got, want
+    WWY = torch.cat([W, WY], dim=1)
+    total = WWY.sum(0)
+    folds, scans, plains = [], [], []
+    for i in range(0, pc.shape[0], kw["chunk"]):
+        fold = (ts, WWY, pc[i:i + kw["chunk"]], d_phase, nbins, max_nbp,
+                max(k_durs), kw["wrap"])
+        csum, cn, nbp = staged_fold(*fold)
+        folds.append(((csum, cn, nbp), staged_fold_plain(*fold)))
+        scan = (csum, nbp, fold[2], total, k_durs, dvals, d_phase, lik)
+        scans.append(bls_window.window_scan(*scan))
+        plains.append(bls_window.window_scan_plain(*scan))
+    cat = lambda parts: tuple(torch.cat(p) for p in zip(*parts))  # noqa
+    errs["K-SF"] = compare_fold("K-SF pixels call 4",
+                                cat([g for g, _ in folds]),
+                                cat([w for _, w in folds]), WWY, False)
+    del folds
+    errs["K-W"] = compare("K-W pixels call 4", *(
+        {f: torch.cat([p[f] for p in parts]) for f in parts[0]}
+        for parts in (scans, plains)), False)[0]
+    torch.cuda.empty_cache()
+    return errs
+
+
+def check_pixels_f64(px, card, n=PIX_F64_TARGETS):
+    """The card's float32 ``pld_correct`` of :data:`PIX_F64_TARGETS`
+    targets (from the whole batch) against the port on the CPU in float64
+    on the same float32 pixels: each target's corrected flux within
+    :data:`PIX_F64_RTOL` of its median flux, equal masks; and the
+    targets' CDPP (``estimate_cdpp_batch``) within 1%."""
+    import torch
+    from lightkurve_tpu_torch.batch import TPFStack
+    st = px["stack"]
+    cpu = TPFStack(flux=st.flux[:n].cpu().double(),
+                   flux_err=st.flux_err[:n].cpu().double(),
+                   time=st.time[:n].cpu().double(),
+                   aperture=st.aperture[:n].cpu(), meta=st.meta[:n])
+    want = cpu.pld_correct(**PIX_PLD)
+    got = px["corrected"]
+    m = want.mask.numpy()
+    if not np.array_equal(got.mask[:n].cpu().numpy(), m):
+        raise AssertionError("pixels f64: masks differ")
+    g = got.flux[:n].cpu().double().numpy()
+    w = want.flux.numpy()
+    gap = max(float(np.abs(g[i] - w[i])[m[i]].max() / np.median(w[i][m[i]]))
+              for i in range(n))
+    cdpp32 = got._replace(flux=got.flux[:n], flux_err=got.flux_err[:n],
+                          mask=got.mask[:n], time=got.time[:n]
+                          ).estimate_cdpp_batch()
+    cdpp64 = want.estimate_cdpp_batch()
+    ratio = np.abs(cdpp32 / cdpp64 - 1).max()
+    log(f"pixels: {n} targets, the card's float32 pld_correct against the "
+        f"CPU's float64 on the same pixels: largest corrected-flux "
+        f"difference {gap:.3g} of a target's median flux (bar "
+        f"{PIX_F64_RTOL:g}; "
+        f"the transit is {FLATTEN_DEPTH:g}); CDPP ratio within {ratio:.3g} "
+        f"[{card}]")
+    if gap > PIX_F64_RTOL or ratio > 0.01:
+        raise AssertionError("pixels: float32 pld_correct differs from "
+                             "float64 past the bar")
+    return dict(gap=gap, cdpp=ratio)
+
+
+def tess_tpfs(n=PIX_FILES, seed=PIX_SEED + 1):
+    """:data:`PIX_FILES` TESS target pixel files of :func:`pixel_sector`
+    (brighter stars) as the port's ``TessTargetPixelFile``: SPOC's columns
+    (TIME, CADENCENO, FLUX, FLUX_ERR, FLUX_BKG, FLUX_BKG_ERR, QUALITY,
+    POS_CORR1/2), the aperture extension (bit 2: the pipeline aperture,
+    bit 4: background pixels beyond 4 px), a TAN WCS.  Returns them and
+    the injected periods."""
+    import torch
+    from lightkurve_tpu_torch.targetpixelfile import TessTargetPixelFile
+    stack, truth = pixel_sector(n, seed, "cuda", flux_range=PIX_FILE_FLUX)
+    flux, err = stack.flux.cpu().numpy(), stack.flux_err.cpu().numpy()
+    ap = stack.aperture.cpu().numpy()
+    del stack
+    torch.cuda.empty_cache()
+    H, W = PIX_SHAPE
+    yy, xx = np.mgrid[:H, :W]
+    far = np.hypot(xx - (W - 1) / 2, yy - (H - 1) / 2) > 4.0
+    tpfs = []
+    for i in range(n):
+        cols = {"TIME": truth["time"],
+                "CADENCENO": np.arange(LONG_N, dtype=np.int32),
+                "FLUX": flux[i], "FLUX_ERR": err[i],
+                "FLUX_BKG": np.full(flux[i].shape, truth["bkg"][i],
+                                    np.float32),
+                "FLUX_BKG_ERR": np.full(flux[i].shape, 0.1, np.float32),
+                "QUALITY": np.zeros(LONG_N, np.int32),
+                "POS_CORR1": truth["dcol"].astype(np.float32),
+                "POS_CORR2": truth["drow"].astype(np.float32)}
+        meta = {"TELESCOP": "TESS", "MISSION": "TESS", "ORIGIN": "NASA/Ames",
+                "CREATOR": "TargetPixelExporterPipelineModule",
+                "OBJECT": f"TIC {i}", "TICID": i, "SECTOR": 99,
+                "CAMERA": 1, "CCD": 1, "RA_OBJ": 80.0, "DEC_OBJ": -70.0}
+        header = {"BJDREFI": 2457000, "1CRV5P": 1000, "2CRV5P": 500,
+                  "1CRPX5": (W + 1) / 2, "2CRPX5": (H + 1) / 2,
+                  "1CRVL5": 80.0, "2CRVL5": -70.0, "1CDLT5": -21 / 3600,
+                  "2CDLT5": 21 / 3600, "11PC5": 1.0, "12PC5": 0.0,
+                  "21PC5": 0.0, "22PC5": 1.0, "1CTYP5": "RA---TAN",
+                  "2CTYP5": "DEC--TAN"}
+        bits = (1 + 2 * ap[i] + 4 * far).astype(np.int32)
+        tpfs.append(TessTargetPixelFile._from_arrays(
+            cols, meta, ext_header=header, aperture=bits,
+            quality_bitmask="none"))
+    return tpfs, truth["p_inj"]
+
+
+def write_tess_tpfs(directory):
+    """:func:`tess_tpfs` written by the port's ``to_fits``, one per file;
+    returns the paths, the injected periods and the writes' seconds."""
+    tpfs, p_inj = tess_tpfs()
+    os.makedirs(directory, exist_ok=True)
+    t0 = time.perf_counter()
+    paths = []
+    for i, tpf in enumerate(tpfs):
+        path = os.path.join(directory, f"tess-s0099-{i:016d}_tp.fits")
+        tpf.to_fits(path, overwrite=True)
+        paths.append(path)
+    return paths, p_inj, time.perf_counter() - t0
+
+
+def k2_arrays(n_files=K2_FILES, seed=PIX_SEED + 2):
+    """K2-like Kepler pixel data: 3,500 long cadences (71.5 d) x 8 x 8;
+    the roll drifts the star along an arc and a thruster firing every
+    ~6 h snaps it back; a 5-px aperture loses flux as the star moves; a
+    slow stellar variation; photon noise of a 29.4-min exposure.  Returns
+    per file (columns, aperture bits)."""
+    rng = np.random.default_rng(seed)
+    t = 2000.0 + np.arange(K2_N) * K2_CADENCE_D
+    H, W = K2_SHAPE
+    yy, xx = np.mgrid[:H, :W]
+    out = []
+    for i in range(n_files):
+        period = K2_FIRING_D * rng.uniform(0.9, 1.1)
+        phase = np.mod(t - t[0], period) / period
+        dcol = 0.5 * phase + 0.01 * rng.standard_normal(K2_N)
+        drow = 0.25 * phase ** 1.3 + 0.01 * rng.standard_normal(K2_N)
+        star = 10 ** rng.uniform(4.3, 4.8)
+        c0, r0 = 3.3 + rng.uniform(-0.2, 0.2), 3.6 + rng.uniform(-0.2, 0.2)
+        sig = rng.uniform(0.9, 1.2)
+        var = 1 + 0.002 * np.sin(2 * np.pi * t / rng.uniform(5, 15))
+        psf = np.exp(-((xx - c0 - dcol[:, None, None]) ** 2
+                       + (yy - r0 - drow[:, None, None]) ** 2)
+                     / (2 * sig ** 2)) / (2 * np.pi * sig ** 2)
+        img = star * var[:, None, None] * psf + 20.0
+        exposure = K2_CADENCE_D * 86400
+        e = np.sqrt(img / exposure)
+        img = img + e * rng.standard_normal(img.shape)
+        ap = np.hypot(xx - c0, yy - r0) <= 1.3
+        cols = {"TIME": t, "CADENCENO": np.arange(K2_N, dtype=np.int32),
+                "FLUX": img.astype(np.float32), "FLUX_ERR": e.astype(
+                    np.float32), "QUALITY": np.zeros(K2_N, np.int32),
+                "POS_CORR1": dcol.astype(np.float32),
+                "POS_CORR2": drow.astype(np.float32)}
+        out.append((cols, (1 + 2 * ap).astype(np.int32)))
+    return out
+
+
+def write_k2_tpfs(directory):
+    """:func:`k2_arrays` written by the port's ``to_fits`` as K2 target
+    pixel files; returns the paths and the seconds the writes took."""
+    from lightkurve_tpu_torch.targetpixelfile import KeplerTargetPixelFile
+    os.makedirs(directory, exist_ok=True)
+    t0 = time.perf_counter()
+    paths = []
+    for i, (cols, bits) in enumerate(k2_arrays()):
+        meta = {"TELESCOP": "Kepler", "MISSION": "K2", "OBJECT": f"EPIC {i}",
+                "CREATOR": "TargetPixelExporterPipelineModule",
+                "KEPLERID": i, "CAMPAIGN": 99, "CHANNEL": 42}
+        header = {"BJDREFI": 2454833, "1CRV5P": 300, "2CRV5P": 600}
+        tpf = KeplerTargetPixelFile._from_arrays(cols, meta,
+                                                 ext_header=header,
+                                                 aperture=bits,
+                                                 quality_bitmask="none")
+        path = os.path.join(directory, f"ktwo2{i:08d}-c99_lpd-targ.fits")
+        tpf.to_fits(path, overwrite=True)
+        paths.append(path)
+    return paths, time.perf_counter() - t0
+
+
+def tess_file_chain(tpf):
+    """One TESS TPF: photometry with the pipeline aperture and with a
+    threshold mask, centroids both ways, the background, then
+    ``PLDCorrector(tpf).correct()`` at its defaults, ``flatten`` and the
+    BLS periodogram; returns the pieces and each step's seconds."""
+    from lightkurve_tpu_torch.correctors import PLDCorrector
+    lc, phot_s = sync_timed(lambda: tpf.to_lightcurve())
+    thr = tpf.create_threshold_mask()
+    lc_thr = tpf.to_lightcurve(aperture_mask=thr)
+    cm = tpf.estimate_centroids(method="moments")
+    cq = tpf.estimate_centroids(method="quadratic")
+    bkg = tpf.estimate_background()
+    pld = PLDCorrector(tpf)
+    clc, pld_s = sync_timed(pld.correct)
+    flat = clc.flatten(window_length=FLATTEN_KW["window_length"])
+    grid, bls_s = sync_timed(lambda: flat.to_periodogram("bls"))
+    return dict(lc=lc, lc_thr=lc_thr, cm=cm, cq=cq, bkg=bkg, pld=pld,
+                clc=clc, grid=grid, phot_s=phot_s, pld_s=pld_s, bls_s=bls_s)
+
+
+def k2_file_chain(tpf):
+    """One K2 TPF: photometry, the SFF corrector through
+    ``to_corrector("sff")``, a RegressionCorrector with a spline design
+    matrix, and the SFF correction's over-fitting metric; returns the
+    pieces and the correctors' seconds."""
+    from lightkurve_tpu_torch.correctors import (RegressionCorrector,
+                                                 create_spline_matrix)
+    lc = tpf.to_lightcurve().remove_nans()
+    sff = lc.to_corrector("sff")
+    slc, sff_s = sync_timed(lambda: sff.correct(windows=20))
+    # the B-spline basis sums to one, so it carries the offset
+    dm = create_spline_matrix(lc.time.value, n_knots=30)
+    reg = RegressionCorrector(lc)
+    rlc, reg_s = sync_timed(lambda: reg.correct(dm))
+    overfit, over_s = sync_timed(lambda: sff.compute_overfit_metric(
+        n_samples=3, seed=1))
+    return dict(lc=lc, sff=sff, slc=slc, reg=reg, rlc=rlc, overfit=overfit,
+                sff_s=sff_s, reg_s=reg_s, over_s=over_s)
+
+
+def phase_pixels_files(tmp, card):
+    """Phase 13 (b), single files, float32 on the card: the TESS files by
+    ``read`` through :func:`tess_file_chain` (the BLS peak from 1 d up
+    within 1% of the injected period), the collection's ``TPFStack``
+    photometry against each file's ``to_lightcurve``, the K2 files
+    through :func:`k2_file_chain` (SFF lowers the CDPP of the raw curve);
+    on :data:`PIX_F64_FILES` files of each kind the card's float32
+    against the CPU's float64.  No BLS kernel may launch here.  Returns
+    the times."""
+    import torch
+    from lightkurve_tpu_torch import config
+    from lightkurve_tpu_torch.correctors import PLDCorrector
+    from lightkurve_tpu_torch.io.read import read, read_tpf_collection
+    paths, p_inj, write_s = write_tess_tpfs(os.path.join(tmp, "tpf"))
+    k2_paths, k2_write_s = write_k2_tpfs(os.path.join(tmp, "k2"))
+    tpfs, read_s = sync_timed(lambda: [read(p) for p in paths])
+    k2s, k2_read_s = sync_timed(lambda: [read(p) for p in k2_paths])
+    n_files = len(paths) + len(k2_paths)
+    log(f"pixels, files: wrote {len(paths)} TESS TPFs ({LONG_N} x "
+        f"{PIX_SHAPE[0]}x{PIX_SHAPE[1]}) in {write_s:.3f}s and {K2_FILES} K2 "
+        f"({K2_N} x {K2_SHAPE[0]}x{K2_SHAPE[1]}) in {k2_write_s:.3f}s; read "
+        f"them in {read_s:.3f}s ({len(paths) / read_s:.6g} files/s) and "
+        f"{k2_read_s:.3f}s ({K2_FILES / k2_read_s:.6g} files/s) [{card}]")
+    if {type(t).__name__ for t in tpfs} != {"TessTargetPixelFile"} or {
+            type(t).__name__ for t in k2s} != {"KeplerTargetPixelFile"}:
+        raise AssertionError("pixels: read gave the wrong TPF classes")
+    start_sweep()
+    times = {k: [] for k in ("phot_s", "pld_s", "bls_s", "sff_s", "reg_s",
+                             "over_s")}
+    outs = []
+    for i, tpf in enumerate(tpfs):
+        out = tess_file_chain(tpf)
+        outs.append(out)
+        for k in ("phot_s", "pld_s", "bls_s"):
+            times[k].append(out[k])
+        g = out["grid"]
+        g = g[g.period.value >= LC_MIN_PERIOD]
+        period = float(g.period_at_max_power.value)
+        problems = []
+        if abs(period - p_inj[i]) / p_inj[i] >= RECOVERY_RTOL:
+            problems.append(f"BLS peak {period:.5f} d, injected "
+                            f"{p_inj[i]:.5f} d")
+        for name in ("lc", "lc_thr", "clc"):
+            if np.isfinite(out[name].flux.value).sum() < 0.9 * LONG_N:
+                problems.append(f"{name} mostly non-finite")
+        for c in (*out["cm"], *out["cq"]):
+            if np.nanmax(np.abs(c.value - np.nanmedian(c.value))) > 1.0:
+                problems.append("centroids wander by more than a pixel")
+        if problems:
+            raise AssertionError(f"pixels, TESS file {i}: "
+                                 + "; ".join(problems))
+    coll = read_tpf_collection(paths)
+    stack = coll.to_stack(aperture_mask="pipeline")
+    lcs = stack.extract_aperture_photometry()
+    worst = 0.0
+    for i, out in enumerate(outs):
+        want = out["lc"].flux.value
+        m = lcs.mask[i].cpu().numpy()
+        if not np.array_equal(m, np.isfinite(want)):
+            raise AssertionError("pixels: the stack's photometry masks "
+                                 "differ from the files'")
+        got = lcs.flux[i].cpu().numpy()[m].astype(float)
+        worst = max(worst, float(np.max(np.abs(got - want[m])
+                                        / np.abs(want[m]))))
+    log(f"pixels: TargetPixelFileCollection -> TPFStack -> "
+        f"extract_aperture_photometry against each file's to_lightcurve: "
+        f"largest relative difference {worst:.3g} (bar 1e-6, float32)")
+    if worst > 1e-6:
+        raise AssertionError("pixels: the stack's photometry differs from "
+                             "the files'")
+    k2_outs = []
+    for i, tpf in enumerate(k2s):
+        out = k2_file_chain(tpf)
+        k2_outs.append(out)
+        for k in ("sff_s", "reg_s", "over_s"):
+            times[k].append(out[k])
+        raw = out["lc"].normalize().estimate_cdpp().value
+        sff = out["slc"].normalize().estimate_cdpp().value
+        reg = out["rlc"].normalize().estimate_cdpp().value
+        log(f"pixels, K2 file {i}: CDPP raw {raw:.2f} ppm, SFF {sff:.2f}, "
+            f"spline regression {reg:.2f}; overfit metric "
+            f"{out['overfit']:.4f}; {len(out['sff'].window_points)} windows")
+        if not sff < raw or not np.isfinite(reg) or not (
+                0 <= out["overfit"] <= 1):
+            raise AssertionError(f"pixels, K2 file {i}: SFF did not lower "
+                                 "the CDPP, or a result is not finite")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    log(f"pixels, files (medians): TESS to_lightcurve "
+        f"{med['phot_s'] * 1e3:.1f} ms, PLDCorrector.correct "
+        f"{med['pld_s'] * 1e3:.1f} ms, BLS periodogram "
+        f"{med['bls_s'] * 1e3:.1f} ms; K2 SFF {med['sff_s'] * 1e3:.1f} ms, "
+        f"spline regression {med['reg_s'] * 1e3:.1f} ms, overfit metric "
+        f"{med['over_s'] * 1e3:.1f} ms; {peak:.3f} GiB peak device memory "
+        f"[{card}]")
+    # float64 on the CPU, the same files
+    prev = (config.default_device, config.default_dtype)
+    config.default_device, config.default_dtype = "cpu", torch.float64
+    try:
+        f64 = [(o["clc"], PLDCorrector(t).correct()) for o, t in
+               zip(outs[:PIX_F64_FILES], tpfs)]
+        k64 = []
+        for o, t in zip(k2_outs[:PIX_F64_FILES], k2s):
+            sff64 = t.to_lightcurve().remove_nans().to_corrector("sff")
+            k64.append((o["slc"], sff64.correct(windows=20)))
+            if not np.array_equal(o["sff"].window_points,
+                                  sff64.window_points):
+                raise AssertionError("pixels, files: float32 SFF windows "
+                                     "differ from float64's")
+            log(f"  SFF arclength, card float32 against CPU float64: "
+                f"{np.max(np.abs(o['sff'].arclength - sff64.arclength)):.3g}"
+                f" px at most")
+    finally:
+        config.default_device, config.default_dtype = prev
+    gaps = {}
+    for kind, pairs in (("PLD", f64), ("SFF", k64)):
+        g = []
+        for got, want in pairs:
+            w, v = want.flux.value, got.flux.value
+            g.append(float(np.nanmax(np.abs(v - w)) / np.nanmedian(
+                np.abs(w))))
+        gaps[kind] = max(g)
+    log(f"pixels, files: the card's float32 against the CPU's float64 on "
+        f"{PIX_F64_FILES} files each: PLD corrected flux {gaps['PLD']:.3g}, "
+        f"SFF {gaps['SFF']:.3g} of the median flux (bar "
+        f"{PIX_F64_RTOL:g}) [{card}]")
+    if max(gaps.values()) > PIX_F64_RTOL:
+        raise AssertionError("pixels, files: float32 correctors differ "
+                             "from float64 past the bar")
+    return dict(med, files_per_s=len(paths) / read_s, write_s=write_s,
+                gaps=gaps, n_files=n_files)
+
+
+# ---------------------------------------------------------------------------
 # --profile: one full-size sweep chunk per regime under torch.profiler
 # ---------------------------------------------------------------------------
 def chunk_bounds(stack, periods, impl, launch_periods=8):
@@ -2844,7 +3554,9 @@ def phase_profile(tmp, B=2048):
     phase 10's search of its flattened sector; phase 10's flatten and
     phase 11's default ``to_periodogram`` call of its raw sector and its
     one-curve fastchi2 call; phase 12's BLS periodogram of one flattened
-    curve of that sector (the reference's default grid); and
+    curve of that sector (the reference's default grid); phase 13's
+    ``pld_correct`` of its 512 targets and ``PLDCorrector.correct()`` of
+    one of its TESS files (device time by kind of op); and
     the two forced chunks of phases 4 and 6 (the weighted cell's first
     2048 periods on the staged route, the two-sector chunk 4 on the fused
     one) through the entry point (:func:`route_call`).  Prints device
@@ -2857,6 +3569,7 @@ def phase_profile(tmp, B=2048):
     from torch.profiler import ProfilerActivity, profile, record_function
     from lightkurve_tpu_torch.batch import LightCurveStack
     from lightkurve_tpu_torch.collections import LightCurveCollection
+    from lightkurve_tpu_torch.correctors import PLDCorrector
     from lightkurve_tpu_torch.ops.lombscargle import lombscargle_fastchi2
     from lightkurve_tpu_torch.parallel.checkpoint import SweepRunner
     from tools import make_sector as ms
@@ -2876,6 +3589,8 @@ def phase_profile(tmp, B=2048):
     one = LightCurveCollection([sector[0]])
     bls_curve = one[0].normalize().remove_outliers().flatten(
         window_length=FLATTEN_KW["window_length"])
+    pixels = pixel_sector(PIX_B, PIX_SEED, "cuda")[0]
+    tess_file = tess_tpfs(1)[0][0]
     t8, y8, dy8 = bench_ls_inputs(1)
     curve = LightCurveStack.from_numpy(
         t8[None], y8.cpu().numpy(), dy8.cpu().numpy(),
@@ -2897,7 +3612,10 @@ def phase_profile(tmp, B=2048):
              ("BLS periodogram, one curve, phase 12", one.to_stack(), (),
               "bls_periodogram"),
              ("flatten -> search, chunk 4", flat,
-              np.linspace(*LONG_GRID)[3072:], "auto"))
+              np.linspace(*LONG_GRID)[3072:], "auto"),
+             ("pld_correct, phase 13", pixels, (), "pld_correct"),
+             ("PLDCorrector.correct, one TESS file, phase 13", tess_file,
+              (), "pld_corrector"))
     for i, (name, stack, periods, impl) in enumerate(cells):
         def chunk(tag):
             if impl == "flatten":
@@ -2909,6 +3627,10 @@ def phase_profile(tmp, B=2048):
                                      FASTCHI2_NF, nterms=FASTCHI2_NTERMS)
             elif impl == "bls_periodogram":
                 bls_curve.to_periodogram("bls")
+            elif impl == "pld_correct":
+                stack.pld_correct(**PIX_PLD)
+            elif impl == "pld_corrector":
+                PLDCorrector(stack).correct()
             elif impl == "auto":
                 SweepRunner(stack, periods, DURATIONS,
                             os.path.join(tmp, f"profile_{i}_{tag}.npz"),
@@ -2941,15 +3663,18 @@ def phase_profile(tmp, B=2048):
                 end = hi
         wall = span.end - span.start
         device = sum(us for us, _ in by_name.values())
-        log(f"profile {name}: B={len(stack)} N={stack.shape[1]} "
-            f"P={len(periods)}: device "
+        shape = (f"pixels {tuple(stack.flux.shape)}"
+                 if impl in ("pld_correct", "pld_corrector")
+                 else f"B={len(stack)} N={stack.shape[1]} P={len(periods)}")
+        log(f"profile {name}: {shape}: device "
             f"{device / 1e3:.3f} ms, busy {busy / 1e3:.3f} ms of "
             f"{wall / 1e3:.3f} ms wall, idle {1 - busy / wall:.4f}; "
             f"{peak_memory()}")
         for k, (us, cnt) in sorted(by_name.items(),
                                    key=lambda kv: -kv[1][0])[:8]:
             log(f"  {us / 1e3:10.3f} ms {us / device:.4f} x{cnt} {k[:100]}")
-        if impl in ("periodogram", "fastchi2", "bls_periodogram"):
+        if impl in ("periodogram", "fastchi2", "bls_periodogram",
+                    "pld_correct", "pld_corrector"):
             log(f"  {sum(n for _, n in by_name.values())} launches; by op: "
                 + ", ".join(
                 f"{k} {us / 1e3:.3f} ms {us / device:.4f}"
@@ -2962,15 +3687,23 @@ def phase_profile(tmp, B=2048):
 
 def op_kinds(by_name):
     """Device time (us) of a trace's kernels summed by kind: sorts (cub's
-    radix sorts), scatters (``index_add_``), FFTs (cuFFT), reductions, and
-    elementwise ops with copies and the rest."""
+    radix sorts), scatters (``index_add_``), FFTs (cuFFT), dense solver
+    kernels (QR, SVD, Cholesky, LU: cuSOLVER, MAGMA), matrix products
+    (cuBLAS, CUTLASS), reductions, and elementwise ops with copies and the
+    rest."""
     kinds = {"sort": 0.0, "scatter": 0.0, "fft": 0.0, "reduction": 0.0,
-             "elementwise": 0.0}
+             "matmul": 0.0, "solver": 0.0, "elementwise": 0.0}
+    solver = ("geqrf", "orgqr", "ormqr", "larf", "gesvd", "svd", "potrf",
+              "potrs", "getrf", "getrs", "trsm", "trsv", "cusolver", "magma",
+              "syevd", "jacobi", "householder", "geqr", "lu_")
     for name, (us, _) in by_name.items():
         low = name.lower()
         kind = ("sort" if "radixsort" in low
                 else "scatter" if "index" in low or "scatter" in low
                 else "fft" if "fft" in low or "radix" in low
+                else "solver" if any(s in low for s in solver)
+                else "matmul" if any(s in low for s in (
+                    "gemm", "gemv", "xmma", "cutlass", "cublas", "dot_kernel"))
                 else "reduction" if "reduce" in low
                 else "elementwise")
         kinds[kind] += us
@@ -3107,6 +3840,8 @@ def main():
                           forbid=tuple(kernel_table()))
         del lcs
         torch.cuda.empty_cache()
+        px_numbers, files = phase_pixels(tmp, card, sweep, runs)
+        px_errs = px_numbers.pop("errs")
     torch.cuda.empty_cache()
     ls = phase_ls()
     path = "past the one-hot ceiling (phase 9)"
@@ -3121,6 +3856,8 @@ def main():
     for key, (e, t, b, per) in long.items():
         errs[key], times[key], bounds[key], per_launch[key] = e, t, b, per
     errs["K-F"] = max(errs["K-F"], kf_err)
+    for key, e in px_errs.items():
+        errs[key] = max(errs[key], e)
     phase_routes()
     log(f"main paths: uniform {uni['rate']:.6g}, weighted "
         f"{wei['rate']:.6g}, long sector {lng['rate']:.6g}, two sectors "
@@ -3129,7 +3866,9 @@ def main():
         f"{flt['flatten_s']:.3f}s); LightCurve API: read "
         f"{lcs_numbers['files_per_s']:.6g} files/s, search "
         f"{lcs_numbers['rate']:.6g} curve-period evals/s, per curve BLS "
-        f"{single['bls_s'] * 1e3:.1f} ms; LS sector "
+        f"{single['bls_s'] * 1e3:.1f} ms; pixels: photometry + PLD "
+        f"{PIX_B / (px_numbers['phot_s'] + px_numbers['pld_s']):.6g} "
+        f"targets/s, TPF read {files['files_per_s']:.6g} files/s; LS sector "
         f"{ls['sector']['rate']:.6g}, "
         f"LS bench shape {ls['bench']['rate']:.6g} curve-frequency "
         f"evals/s; per-curve fast "

@@ -14,7 +14,13 @@ by the batched Savitzky-Golay flatten (:mod:`.ops.detrend`) and searched
 with box least squares (:mod:`.ops.bls`: shared-time-grid kernels, mixed
 grids by group, per-curve methods) in checkpointed chunks
 (:mod:`.parallel.checkpoint`) or with Lomb-Scargle periodograms
-(:mod:`.ops.lombscargle`, ``LightCurveStack.to_periodogram``).
+(:mod:`.ops.lombscargle`, ``LightCurveStack.to_periodogram``).  Pixels:
+:func:`read` also opens Kepler and TESS target pixel files
+(:mod:`.targetpixelfile`), whose aperture photometry runs as torch
+reductions (:mod:`.ops.photometry`) and whose systematics the regression
+correctors remove (:mod:`.correctors`: PLD, SFF, design matrices; the
+solves in :mod:`.ops.solve`); a ``TargetPixelFileCollection`` packs into a
+``TPFStack`` whose ``pld_correct`` corrects every target in one batch.
 
 Modules mirror ``lightkurve_tpu``'s names.  Importing the package builds
 nothing and needs neither a GPU nor ``nvcc``: kernels compile on first use
@@ -40,6 +46,18 @@ _LAZY = {
     "read": ".io.read",
     "open": ".io.read",
     "read_lc_collection": ".io.read",
+    "read_tpf_collection": ".io.read",
+    "TargetPixelFile": ".targetpixelfile",
+    "KeplerTargetPixelFile": ".targetpixelfile",
+    "TessTargetPixelFile": ".targetpixelfile",
+    "TargetPixelFileFactory": ".targetpixelfile",
+    "TargetPixelFileCollection": ".collections",
+    "TPFStack": ".batch",
+    "DesignMatrix": ".correctors",
+    "DesignMatrixCollection": ".correctors",
+    "RegressionCorrector": ".correctors",
+    "PLDCorrector": ".correctors",
+    "SFFCorrector": ".correctors",
     "LightCurveStack": ".batch",
     "SweepRunner": ".parallel.checkpoint",
     "StreamingStackLoader": ".io.pipeline",

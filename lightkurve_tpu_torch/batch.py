@@ -1,10 +1,13 @@
-"""Fixed-shape stacks of light curves as torch tensors.
+"""Fixed-shape stacks of light curves and of pixel cubes as torch tensors.
 
-Counterpart of ``lightkurve_tpu/batch.py`` (``LightCurveStack``).  A stack
-holds ``time``, ``flux``, ``flux_err`` (B, N) and a boolean ``mask`` (True
-for valid samples) on one device.  Padded samples carry ``mask=False``
-and weight zero in every kernel; padded times continue the median cadence
-so kernels never see non-finite or non-monotonic times.
+Counterpart of ``lightkurve_tpu/batch.py`` (``LightCurveStack``,
+``TPFStack``).  A light-curve stack holds ``time``, ``flux``, ``flux_err``
+(B, N) and a boolean ``mask`` (True for valid samples) on one device.
+Padded samples carry ``mask=False`` and weight zero in every kernel;
+padded times continue the median cadence so kernels never see non-finite
+or non-monotonic times.  A pixel stack holds B target pixel files' cubes
+(B, T, H, W) and apertures (B, H, W); its aperture photometry and PLD
+correction give light-curve stacks.
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ from .config import numpy_dtype, resolve_device, resolve_dtype
 from .io.pipeline import assemble_host_stack
 from .ops.masked import masked_median
 
-__all__ = ["LightCurveStack"]
+__all__ = ["LightCurveStack", "TPFStack"]
 
 
 def _bitceil(n):
@@ -323,3 +326,119 @@ class LightCurveStack:
                 return out
         return bls_power(self.time, self.flux, dy, periods, durations,
                          oversample=oversample, objective=objective)
+
+
+@dataclass
+class TPFStack:
+    """A stack of target pixel files: ``flux`` and ``flux_err`` (B, T, H,
+    W) with NaN for missing pixels, ``time`` (B, T) and the apertures
+    (B, H, W) bool, tensors on one device."""
+
+    flux: torch.Tensor
+    flux_err: torch.Tensor
+    time: torch.Tensor
+    aperture: torch.Tensor
+    meta: list = field(default_factory=list)
+    time_format: str = "btjd"
+
+    @classmethod
+    def from_collection(cls, tpfs, aperture_mask="default", dtype=None,
+                        device=None):
+        """Pack target pixel files of one shape (e.g. a
+        ``TargetPixelFileCollection``) into a stack on ``device`` (default
+        the card; ``"cpu"`` for the plain torch functions) in ``dtype``
+        (default :data:`config.default_dtype`), each with the aperture
+        ``aperture_mask`` gives it (``TargetPixelFile``'s rules)."""
+        dtype = resolve_dtype(dtype)
+        device = resolve_device(device)
+        shapes = {t.shape for t in tpfs}
+        if len(shapes) != 1:
+            raise ValueError("All TPFs in a stack must share one shape; "
+                             f"got {shapes}")
+
+        def put(arrays, dt):
+            return torch.as_tensor(np.stack(arrays), dtype=dt, device=device)
+
+        return cls(flux=put([t.flux.value for t in tpfs], dtype),
+                   flux_err=put([t.flux_err.value for t in tpfs], dtype),
+                   time=put([t.time.value for t in tpfs], dtype),
+                   aperture=put([t._parse_aperture_mask(aperture_mask)
+                                 for t in tpfs], torch.bool),
+                   meta=[dict(t.meta) for t in tpfs],
+                   time_format=tpfs[0]._time_format)
+
+    def __len__(self):
+        return self.flux.shape[0]
+
+    def _photometry(self, flux, flux_err, aperture):
+        from .ops.photometry import aperture_photometry_cube
+        f, fe = aperture_photometry_cube(flux, flux_err, aperture)
+        mask = torch.isfinite(f)
+        return (torch.nan_to_num(f),
+                torch.where(torch.isfinite(fe), fe, 1.0), mask)
+
+    def extract_aperture_photometry(self):
+        """Summed aperture photometry of every target
+        (:func:`~lightkurve_tpu_torch.ops.photometry.aperture_photometry_cube`)
+        as a :class:`LightCurveStack`: cadences without a finite flux are
+        masked (flux 0), errors without a finite value are 1."""
+        f, fe, mask = self._photometry(self.flux, self.flux_err,
+                                       self.aperture)
+        return LightCurveStack(time=self.time, flux=f, flux_err=fe,
+                               mask=mask, meta=self.meta,
+                               time_format=self.time_format)
+
+    def pld_correct(self, pld_order=1, n_pca_terms=3, sigma=5.0, niters=5):
+        """Pixel-level decorrelation of every target → corrected
+        :class:`LightCurveStack`, the batched form of ``PLDCorrector``
+        (``lightkurve_tpu``'s ``TPFStack.pld_correct``).
+
+        Per target: the aperture's pixels divided by their sum each
+        cadence, centred, reduced by randomized PCA to ``n_pca_terms``
+        components (one test matrix for all, as the reference's vmapped
+        call), a constant column appended, and the clipped ridge fit
+        (:func:`~lightkurve_tpu_torch.ops.solve.iterative_clipped_regression`,
+        ``niters`` fixed iterations, in float64 whatever the data dtype:
+        ROADMAP C4); the model less its median (numpy's, over every
+        cadence) is subtracted from the aperture flux.
+        ``pld_order >= 2`` adds the PCA of the products of the order-1
+        components, as the reference's batched approximation does.  All
+        targets go as one batch of (B, T, k) tensors."""
+        from .ops.solve import iterative_clipped_regression, randomized_pca
+        cube, aperture = self.flux, self.aperture
+        y, fe, mask = self._photometry(cube, self.flux_err, aperture)
+        B, T = y.shape
+        dtype, device = y.dtype, y.device
+        # NaN pixels must not reach the regressors: zero them, as the
+        # photometry does
+        pix = (torch.where(torch.isfinite(cube), cube, 0.0)
+               * aperture[:, None, :, :]).reshape(B, T, -1)
+        pixn = pix / torch.clamp(pix.sum(2, keepdim=True), min=1e-30)
+        del pix
+        # centred before the SVD (fbpca's raw=False): the normalised pixels
+        # sum to 1, so uncentred components would be collinear with the
+        # constant column
+        U = randomized_pca(pixn - pixn.mean(1, keepdim=True),
+                           n_pca_terms)[0][..., :n_pca_terms]
+        del pixn
+        cols = [U]
+        if pld_order >= 2:
+            prods = (U[..., :, None] * U[..., None, :]).reshape(B, T, -1)
+            U2 = randomized_pca(prods - prods.mean(1, keepdim=True),
+                                n_pca_terms)[0]
+            cols.append(U2[..., :n_pca_terms])
+        cols.append(torch.ones((B, T, 1), dtype=dtype, device=device))
+        # the fit in float64 whatever the data dtype (ROADMAP C4)
+        X = torch.cat(cols, -1).double()
+        k = X.shape[-1]
+        w, _, _ = iterative_clipped_regression(
+            X, y.double(), fe.double(), mask,
+            torch.zeros(k, dtype=torch.float64, device=device),
+            torch.full((k,), torch.inf, dtype=torch.float64, device=device),
+            sigma=sigma, niters=niters)
+        model = (X @ w[..., None])[..., 0]
+        model = model - masked_median(model, torch.ones_like(mask))[:, None]
+        return LightCurveStack(time=self.time,
+                               flux=(y.double() - model).to(dtype),
+                               flux_err=fe, mask=mask, meta=self.meta,
+                               time_format=self.time_format)

@@ -5,8 +5,9 @@ A copy of ``lightkurve_tpu/collections.py``'s ``Collection`` and
 per-curve corrector function (default: normalize), as reference
 ``collections.py:173-228`` does, and ``to_stack`` packs the members into a
 :class:`lightkurve_tpu_torch.batch.LightCurveStack` for the batched torch
-functions and kernels.  ``TargetPixelFileCollection`` and ``plot`` are not
-ported yet (ROADMAP A).
+functions and kernels; ``TargetPixelFileCollection.to_stack`` packs target
+pixel files into a :class:`lightkurve_tpu_torch.batch.TPFStack`.  ``plot``
+is not ported (no matplotlib on the card's machine).
 """
 from __future__ import annotations
 
@@ -18,7 +19,8 @@ from .time import Time
 from .units import Quantity
 from .utils import LightkurveWarning
 
-__all__ = ["Collection", "LightCurveCollection"]
+__all__ = ["Collection", "LightCurveCollection",
+           "TargetPixelFileCollection"]
 
 
 class Collection:
@@ -202,3 +204,14 @@ class LightCurveCollection(Collection):
         default on the card, in :data:`config.default_dtype`)."""
         from .batch import LightCurveStack
         return LightCurveStack.from_collection(self, **kwargs)
+
+
+class TargetPixelFileCollection(Collection):
+    """A list of TargetPixelFiles (reference ``collections.py:279-313``)."""
+
+    def to_stack(self, **kwargs):
+        """Pack the TPF cubes into a
+        :class:`~lightkurve_tpu_torch.batch.TPFStack` (keyword arguments
+        go to ``TPFStack.from_collection``)."""
+        from .batch import TPFStack
+        return TPFStack.from_collection(self, **kwargs)

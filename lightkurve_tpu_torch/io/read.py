@@ -1,10 +1,11 @@
 """Top-level ``read()`` dispatch (reference ``io/read.py:19-250``).
 
-A copy of ``lightkurve_tpu/io/read.py``'s ``read``, ``open`` and
-``read_lc_collection``: the product type is detected from the headers
-(:func:`.detect.detect_filetype`) and the file goes to its reader.  The
-Kepler, TESS, folded and generic readers are ported; a target pixel file
-or a high-level science product is detected and refused with a
+A copy of ``lightkurve_tpu/io/read.py``'s ``read``, ``open``,
+``read_lc_collection`` and ``read_tpf_collection``: the product type is
+detected from the headers (:func:`.detect.detect_filetype`) and the file
+goes to its reader.  The Kepler, TESS, folded and generic light-curve
+readers and the Kepler and TESS target pixel files are ported; a
+high-level science product is detected and refused with a
 :class:`~lightkurve_tpu_torch.utils.LightkurveError` that names the
 ROADMAP item that ports it.
 """
@@ -18,16 +19,24 @@ from .fits import open_fits
 
 log = logging.getLogger(__name__)
 
-__all__ = ["read", "open", "read_lc_collection", "READERS"]
+__all__ = ["read", "open", "read_lc_collection", "read_tpf_collection",
+           "READERS"]
 
 #: detected types whose readers wait for a later item of ROADMAP queue A
-NOT_PORTED = {
-    "KeplerTargetPixelFile": "A6 (pixels and correctors)",
-    "TessTargetPixelFile": "A6 (pixels and correctors)",
-    **{name: "A5's remainder (high-level science products)"
-       for name in ("QLP", "K2SFF", "EVEREST", "K2SC", "CDIPS", "PATHOS",
-                    "TASOC", "KEPSEISMIC", "TGLC", "ELEANOR")},
-}
+NOT_PORTED = {name: "A5's remainder (high-level science products)"
+              for name in ("QLP", "K2SFF", "EVEREST", "K2SC", "CDIPS",
+                           "PATHOS", "TASOC", "KEPSEISMIC", "TGLC",
+                           "ELEANOR")}
+
+
+def _tpf_reader(mission):
+    def _read(path_or_hdul, **kwargs):
+        from ..targetpixelfile import (KeplerTargetPixelFile,
+                                       TessTargetPixelFile)
+        cls = KeplerTargetPixelFile if mission == "Kepler" \
+            else TessTargetPixelFile
+        return cls(path_or_hdul, **kwargs)
+    return _read
 
 
 def _read_generic(path_or_hdul, quality_bitmask=None, **kwargs):
@@ -47,6 +56,8 @@ def _get_readers():
         "KeplerLightCurve": r.read_kepler_lightcurve,
         "TessLightCurve": r.read_tess_lightcurve,
         "Folded": r.read_folded_lightcurve,
+        "KeplerTargetPixelFile": _tpf_reader("Kepler"),
+        "TessTargetPixelFile": _tpf_reader("TESS"),
         # unrecognized-but-valid time-series products fall back to the
         # generic reader, which infers the time format from
         # BJDREFI/MJDREF/JDREF headers (reference io/read.py:141-147)
@@ -58,11 +69,12 @@ READERS = None
 
 
 def read(path_or_url, filetype=None, **kwargs):
-    """Read a Kepler/K2/TESS light-curve file
+    """Read a Kepler/K2/TESS light-curve or target pixel file
     (reference ``io/read.py:32-147``).
 
     Detects the product type from the FITS headers and dispatches to the
-    appropriate reader, returning a LightCurve subclass.
+    appropriate reader, returning a LightCurve or TargetPixelFile
+    subclass.
     """
     global READERS
     if READERS is None:
@@ -92,6 +104,8 @@ def read(path_or_url, filetype=None, **kwargs):
             f"{path_or_url} is a {filetype} product, whose reader "
             f"lightkurve_tpu_torch does not have yet (ROADMAP "
             f"{NOT_PORTED[filetype]}).")
+    if filetype.endswith("TargetPixelFile"):
+        return READERS[filetype](path_or_url, **kwargs)
     reader = READERS.get(filetype)
     if reader is None:
         raise LightkurveError(f"No reader registered for {filetype!r}")
@@ -123,8 +137,8 @@ def read_lc_collection(paths, **kwargs):
     """Read many light-curve files into a LightCurveCollection
     (reference ``io/read.py:176-212``).
 
-    Unreadable paths and non-LightCurve products are skipped with a
-    warning.  With ``stitch=True`` the collection is stitched into a
+    Unreadable paths and non-LightCurve products (e.g. TPFs) are skipped
+    with a warning.  With ``stitch=True`` the collection is stitched into a
     single LightCurve before returning."""
     from ..collections import LightCurveCollection
     from ..lightcurve import LightCurve
@@ -147,3 +161,17 @@ def read_lc_collection(paths, **kwargs):
     if stitch:
         return collection.stitch()
     return collection
+
+
+def read_tpf_collection(paths, **kwargs):
+    """Read many TPF files into a TargetPixelFileCollection
+    (reference ``io/read.py:214-250``)."""
+    from ..collections import TargetPixelFileCollection
+    tpfs = []
+    for p in paths:
+        try:
+            tpfs.append(read(p, **kwargs))
+        except Exception as e:
+            # skip ANY unreadable path (reference io/read.py:188-191)
+            log.warning(f"Skipping {p}: {e}")
+    return TargetPixelFileCollection(tpfs)

@@ -13,8 +13,9 @@ built inside those calls, in :data:`config.default_dtype` on
 ``"cpu"``); the container itself stays numpy.  ``fold`` and ``bin`` are
 host numpy, as in ``lightkurve_tpu``.
 
+``to_corrector("sff")`` gives the SFF corrector (:mod:`.correctors`).
 Plotting, the pandas and stingray exports, ASCII tables, the solar-system
-query and the corrector and seismology dispatchers are not ported yet
+query, the CBV corrector and the seismology dispatcher are not ported yet
 (ROADMAP A).  The batched counterpart is
 :class:`lightkurve_tpu_torch.batch.LightCurveStack`.
 """
@@ -1306,6 +1307,23 @@ class LightCurve:
                                                               **kwargs)
         from .periodogram import LombScarglePeriodogram
         return LombScarglePeriodogram.from_lightcurve(lc=self, **kwargs)
+
+    def to_corrector(self, method="sff", **kwargs):
+        """Return a corrector for this curve (reference ``:2732-2764``):
+        ``"sff"`` gives an :class:`~lightkurve_tpu_torch.correctors.
+        SFFCorrector`; ``"cbv"`` is not ported yet."""
+        if method == "pld":
+            raise ValueError(
+                "The 'pld' method can only be used on "
+                "`TargetPixelFile` objects, not `LightCurve` objects.")
+        method = validate_method(method, supported_methods=["sff", "cbv"])
+        if method == "cbv":
+            raise NotImplementedError(
+                "The CBV corrector is not ported to lightkurve_tpu_torch yet "
+                "(ROADMAP A6's remainder: CBVCorrector and its local-file "
+                "loaders).")
+        from .correctors import SFFCorrector
+        return SFFCorrector(self, **kwargs)
 
     # ------------------------------------------------------------------
     # exports

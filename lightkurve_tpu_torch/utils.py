@@ -4,8 +4,9 @@ helpers and the bin-edge rules of ``LightCurve.bin``.
 The part of ``lightkurve_tpu/utils.py`` the light-curve data model needs,
 copied (the port never imports the JAX package): the Kepler/TESS QUALITY
 bitmask vocabularies and ``create_quality_mask``, ``validate_method``,
-``running_mean``, ``bkjd_to_time``/``btjd_to_time`` and the automatic
-histogram bin-edge rules (``calculate_bin_edges``).  The batched torch
+``running_mean``, ``bkjd_to_time``/``btjd_to_time``, the automatic
+histogram bin-edge rules (``calculate_bin_edges``) and, for the target
+pixel files, the quadratic centroid (``centroid_quadratic``).  The batched torch
 variants of the numeric helpers live in :mod:`lightkurve_tpu_torch.ops`.
 """
 from __future__ import annotations
@@ -32,6 +33,7 @@ __all__ = [
     "bkjd_to_astropy_time",
     "btjd_to_astropy_time",
     "calculate_bin_edges",
+    "centroid_quadratic",
 ]
 
 
@@ -237,6 +239,52 @@ def btjd_to_time(btjd):
     btjd = np.atleast_1d(np.asarray(btjd, dtype=float)).copy()
     btjd[~np.isfinite(btjd)] = 0
     return Time(btjd, format="btjd", scale="tdb")
+
+
+# Pre-computed pseudo-inverse of the 3x3-patch quadratic design matrix
+# P(x, y) = a + b x + c y + d x^2 + e x y + f y^2 sampled on the integer grid
+# x, y in {-1, 0, 1} (Vakili & Hogg 2016, eqns 20-21).
+def _quadratic_pinv():
+    xs, ys = np.meshgrid([-1, 0, 1], [-1, 0, 1])
+    x = xs.ravel()
+    y = ys.ravel()
+    A = np.stack([np.ones(9), x, y, x**2, x * y, y**2], axis=1)
+    return np.linalg.pinv(A)
+
+
+_QUAD_PINV = _quadratic_pinv()
+
+
+def centroid_quadratic(data, mask=None):
+    """Quadratic (Vakili & Hogg 2016) sub-pixel centroid of a 2D image.
+
+    Fits P(x,y) = a + bx + cy + dx² + exy + fy² to the 3×3 patch centred on
+    the brightest (unmasked) pixel and returns the (column, row) of the
+    analytic maximum; (nan, nan) if degenerate (reference
+    ``utils.py:601-703``).  ``mask`` is True where pixels are USED.
+    """
+    data = _strip_quantity(data).astype(float)
+    if mask is not None:
+        data = data.copy()
+        data[~np.asarray(mask, dtype=bool)] = np.nan
+    if not np.isfinite(data).any():
+        return np.nan, np.nan
+    yy, xx = np.unravel_index(np.nanargmax(data), data.shape)
+    yy = min(max(yy, 1), data.shape[0] - 2)
+    xx = min(max(xx, 1), data.shape[1] - 2)
+
+    patch = data[yy - 1: yy + 2, xx - 1: xx + 2]
+    if np.any(np.isnan(patch)):
+        patch = patch.copy()
+        patch[np.isnan(patch)] = np.nanmean(patch)
+
+    a, b, c, d, e, f = _QUAD_PINV @ patch.ravel()
+    det = 4 * d * f - e ** 2
+    if abs(det) < 1e-6:
+        return np.nan, np.nan
+    xm = -(2 * f * b - c * e) / det
+    ym = -(2 * d * c - b * e) / det
+    return xx + xm, yy + ym
 
 
 # reference public names (utils.py:388-441) — aliases of the _to_time

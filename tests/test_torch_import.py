@@ -1,5 +1,7 @@
-"""lightkurve_tpu_torch imports without jax and without building anything,
-and chip_smoke.py refuses to run without a CUDA device."""
+"""lightkurve_tpu_torch imports without jax and without building anything
+(every module, the correctors included, and a light curve's SFF
+corrector runs without them), and chip_smoke.py refuses to run without a
+CUDA device."""
 import os
 import shutil
 import subprocess
@@ -42,6 +44,19 @@ assert pkg.prewarm_shared_sweep("cpu", wait=True) == []
 stack.flatten(window_length=11).remove_outliers()
 freqs, power = stack.to_periodogram()
 assert power.shape == (2, len(freqs)) and bool(power.isfinite().all())
+import torch
+from lightkurve_tpu_torch import config
+config.default_device, config.default_dtype = "cpu", torch.float64
+rng = np.random.default_rng(0)
+tt = 2000.0 + np.arange(300) * 0.0204
+ph = np.mod(tt, 0.25) / 0.25
+lc = pkg.KeplerLightCurve(time=tt, flux=1e4 * (1 - 4e-3 * ph ** 2)
+                          + rng.standard_normal(300), flux_err=np.ones(300),
+                          centroid_col=300 + 0.6 * ph, centroid_row=500
+                          + 0.3 * ph ** 1.3)
+sff = lc.to_corrector("sff")
+assert type(sff) is pkg.SFFCorrector, type(sff)
+assert np.isfinite(sff.correct(windows=5).flux.value).all()
 from lightkurve_tpu_torch.ops import _build
 from lightkurve_tpu_torch.io import native
 assert not _build._LOADED and not native._LIB, "a library was loaded"
@@ -61,7 +76,12 @@ def _env():
 def test_slice_imports_without_jax_or_builds():
     modules = port_modules()
     for name in ("ops.detrend", "ops.savgol", "ops.masked", "ops.stats",
-                 "ops.interp", "ops.bls_staged_fold", "ops.lombscargle"):
+                 "ops.interp", "ops.bls_staged_fold", "ops.lombscargle",
+                 "ops.solve", "ops.photometry", "ops.peaks", "wcs",
+                 "targetpixelfile", "correctors", "correctors.designmatrix",
+                 "correctors.corrector", "correctors.regressioncorrector",
+                 "correctors.pldcorrector", "correctors.sffcorrector",
+                 "correctors.metrics"):
         assert "lightkurve_tpu_torch." + name in modules
     out = subprocess.run([sys.executable, "-c", PROBE] + modules, cwd=ROOT,
                          env=_env(), capture_output=True, text=True,

@@ -1,5 +1,7 @@
 """lightkurve_tpu_torch FITS writing, native reading and streaming loader
 against lightkurve_tpu, on the same files."""
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -81,7 +83,32 @@ def write_curves(directory, lengths, seed=4):
     return paths
 
 
+#: how long a test waits for lightkurve_tpu's native reader (s)
+JAX_NATIVE_WAIT_S = 120.0
+
+
+def jax_native_reader():
+    """Make sure lightkurve_tpu's native FITS reader is loaded.  That
+    package compiles its library in place at first use, and under pytest's
+    workers several processes may compile it at the same moment: one that
+    opens the half-written file caches the pure-Python fallback for good.
+    So probe again (the cached state reset) until the library loads, for
+    at most :data:`JAX_NATIVE_WAIT_S`, and fail with the reason after
+    that."""
+    deadline = time.monotonic() + JAX_NATIVE_WAIT_S
+    while True:
+        jnative._LIB = None
+        if jnative.available():
+            return
+        if time.monotonic() > deadline:
+            pytest.fail(f"lightkurve_tpu's native FITS reader did not load "
+                        f"within {JAX_NATIVE_WAIT_S:g} s, so the JAX side "
+                        f"of this comparison has no native reader")
+        time.sleep(0.5)
+
+
 def test_native_reader_matches_jax(tmp_path):
+    jax_native_reader()
     paths = write_curves(tmp_path, [50, 64, 33])
     for p in paths:
         assert tnative.table_rows(p) == jnative.table_rows(p)
@@ -148,12 +175,24 @@ def test_assemble_host_stack_matches_jax(layout):
             np.testing.assert_array_equal(x, y)
 
 
-def test_stack_from_files_matches_jax(tmp_path):
-    """Flux, errors, mask and meta equal JAX's from_files.  Times follow
-    the streaming loader's repair rule (JAX's assemble_host_stack over the
-    same columns), which keeps them increasing across interior gaps."""
+def test_stack_from_files_matches_jax(tmp_path, monkeypatch):
+    """Flux, errors, mask and meta equal JAX's from_files, which must have
+    read through its native reader.  Times follow the streaming loader's
+    repair rule (JAX's assemble_host_stack over the same columns), which
+    keeps them increasing across interior gaps."""
+    jax_native_reader()
     paths = write_curves(tmp_path, [40, 64, 50])
+    native_reads = []
+    read_batch = jnative.read_batch
+
+    def counted(*args, **kwargs):
+        native_reads.append(args[1])
+        return read_batch(*args, **kwargs)
+
+    monkeypatch.setattr(jnative, "read_batch", counted)
     a = JStack.from_files(paths, dtype=jnp.float64, nthreads=2)
+    assert native_reads == ["TIME", "PDCSAP_FLUX", "PDCSAP_FLUX_ERR"], \
+        "lightkurve_tpu's from_files did not take its native reader"
     b = TStack.from_files(paths, dtype=torch.float64, nthreads=2,
                           device="cpu")
     for f in ("flux", "flux_err", "mask"):
