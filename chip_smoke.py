@@ -92,6 +92,32 @@ Phases:
      Kepler TPFs through to_corrector("sff") (CDPP below the raw curve's),
      a spline RegressionCorrector and the over-fitting metric; 2 files of
      each kind against float64 on the CPU; no kernel may launch in (b);
+ 14. CBV cotrending and asteroseismology: (a) one TESS CCD's CBV file (16
+     single-scale vectors, three multiscale bands of 8, 8 spike vectors,
+     float32, over phase 10's sector with its downlink gap flagged) and
+     256 SPOC-style target files (photon noise, 3% NaN cadences, phase
+     10's 400-ppm transits, a mix of single-scale and spike systematics at
+     0.1-1% of the flux in the SAP flux), each target through
+     read(flux_column="sap_flux"), to_corrector("cbv") and
+     correct_gaussian_prior (a second pass over 16 timed); correct() with
+     its alpha search on 4 (50 neighbours' SAP flux for the under-fitting
+     metric), correct_elasticnet on 4 (seconds, FISTA iterations),
+     interpolated CBVs on 4 (equal to the aligned result within 1e-6 of
+     the median flux), 2 against float64 on the CPU; no kernel may launch
+     there; then the corrected curves' to_stack(), flatten and bls_search
+     over 1-9 d in four calls with the launches the route rule gives
+     (K-WF x4 at 256 curves), recovery of the transits of expected SNR >=
+     8.745 and no lower than the uncorrected SAP flux's search, and K-WF,
+     K-SF and K-W against their plain versions on call 4's inputs; (b) 32
+     red giants as KEPSEISMIC files (the whole mission in long cadence,
+     ~65,000 cadences) and 4 solar-like stars as Kepler short-cadence
+     files (~130,000), synthetic oscillators from fixed seeds, each through
+     read, normalize, the PSD periodogram to Nyquist, flatten,
+     to_seismology, numax, Delta-nu and the scaling relations (timed on a
+     second call); the share with numax within 5% and Delta-nu within 2%
+     at least lightkurve_tpu's on the same stars on the CPU; 2 giants and
+     1 solar-like star against float64 on the CPU; no kernel may launch
+     in (b);
   9. one call past the one-hot fold's old memory ceiling: a year of
      two-minute cadences (262,800) x 2048 curves in float32, 4 periods
      near 300 d (~60,000 rows), through bls_power_shared_batch on the
@@ -112,7 +138,7 @@ Phases:
      one SweepRunner chunk's wall time per route through the entry point
      (the staged route at 8 periods per call), the route "auto" takes,
      the winners per (period, curve) against each other and C2's bound.
-Each path (the sweeps of phases 3, 4, 6, 7, 8, 10, 12 and 13 on the
+Each path (the sweeps of phases 3, 4, 6, 7, 8, 10, 12, 13 and 14 on the
 automatic route, the six forced-route runs of phases 4, 6 and 13, and
 phase 9) runs
 with every launch count set to 0 just before it and read just after; a
@@ -131,7 +157,8 @@ builds the kernels and profiles one full-size sweep chunk per shared-grid
 cell, phase 10's flatten, phase 11's default to_periodogram call and its
 fastchi2 call, phase 12's single-curve BLS periodogram, phase 13's
 pld_correct of its 512 targets and PLDCorrector.correct() of one TESS
-file, and two forced-route chunks instead (torch.profiler:
+file, phase 14's correct_gaussian_prior and correct() of one CBV target
+and one giant's seismology chain, and two forced-route chunks instead (torch.profiler:
 device time per kernel, the device's idle share, each kernel's bound over
 the chunk; the Lomb-Scargle calls' and the BLS periodogram's launches
 and device time by kind of op).
@@ -3482,6 +3509,759 @@ def phase_pixels_files(tmp, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 14 (a): CBV cotrending of a TESS CCD's targets, then the search
+# ---------------------------------------------------------------------------
+#: one CCD's CBVs and 256 of its two-minute targets on phase 10's sector
+CBV_B = 256
+CBV_SEED = 2035
+CBV_SECTOR, CBV_CAMERA, CBV_CCD = 99, 2, 4
+#: vectors per set, as SPOC writes them: single-scale, each of three
+#: multiscale bands, spike
+CBV_SINGLE, CBV_BAND, CBV_SPIKE = 16, 8, 8
+#: the CBV file spans the light curves' cadences and the downlink gap's
+#: 720 (flagged GAP); its cadence numbers start here
+CBV_CADENCE0 = 10_000
+CBV_GAP = (LONG_N // 2, LONG_N // 2 + 720)
+#: each target's SAP flux carries a mix of single-scale vectors 1-8 and of
+#: the spike vectors, each peaking at 0.1-1% of the flux
+CBV_MIX = 8
+CBV_SYSTEMATIC = (0.001, 0.01)
+#: the per-target correction (the upstream tutorials' call)
+CBV_CORRECT = dict(cbv_type=["SingleScale", "Spike"],
+                   cbv_indices=[np.arange(1, 9), "ALL"], alpha=1e-4)
+#: targets timed on a second pass; through correct() (alpha optimised,
+#: neighbours' SAP flux for the under-fitting metric), correct_elasticnet,
+#: interpolated CBVs, and float64 on the CPU
+CBV_TIMED = 16
+CBV_OPTIMISED = 4
+CBV_NEIGHBOURS = 50
+CBV_ELASTICNET = 4
+CBV_INTERPOLATED = 4
+CBV_F64 = 2
+#: interpolated against aligned CBVs, and the card against the CPU's
+#: float64: corrected flux within this share of the median flux
+CBV_RTOL = 1e-6
+
+
+def cbv_grid():
+    """The CBV file's cadence numbers and times (BTJD): phase 10's sector
+    with its downlink gap's cadences in place, and the light curves'
+    cadences among them (the gap's left out)."""
+    from tools import make_sector as ms
+    n = LONG_N + CBV_GAP[1] - CBV_GAP[0]
+    t = np.arange(n) * (2.0 / 60 / 24) + ms.T_OFFSET + 1500.0
+    cad = CBV_CADENCE0 + np.arange(n)
+    lc = np.ones(n, bool)
+    lc[CBV_GAP[0]:CBV_GAP[1]] = False
+    return cad, t, lc
+
+
+def cbv_vectors(t, seed=CBV_SEED):
+    """The CCD's vectors on the CBV grid ``t`` (zero in the gap): 16
+    single-scale and 8 per band, smooth, each set orthonormal (random
+    mixes of sinusoids of 0.3-13 d for the single scale, 5-30 d, 1-5 d and
+    0.2-1 d for bands 1-3, and a linear drift), and 8 sparse spike vectors
+    of unit norm (a few cadences each, as momentum dumps)."""
+    rng = np.random.default_rng(seed)
+    _, _, lc = cbv_grid()
+
+    def smooth(k, periods):
+        p = np.exp(rng.uniform(*np.log(periods), (k, 4)))
+        phase = rng.uniform(0, 2 * np.pi, (k, 4))
+        raw = np.sin(2 * np.pi * t[None, :, None] / p[:, None]
+                     + phase[:, None]).sum(-1)
+        raw[0] += np.linspace(-1, 1, t.size)
+        raw[:, ~lc] = 0.0
+        q, _ = np.linalg.qr(raw.T)
+        return q.T
+
+    spikes = np.zeros((CBV_SPIKE, t.size))
+    where = np.flatnonzero(lc)
+    for i in range(CBV_SPIKE):
+        at = rng.choice(where, 12, replace=False)
+        spikes[i, at] = rng.standard_normal(12)
+    spikes /= np.linalg.norm(spikes, axis=1, keepdims=True)
+    return {"single": smooth(CBV_SINGLE, (0.3, 13.0)),
+            "bands": [smooth(CBV_BAND, b) for b in ((5.0, 30.0), (1.0, 5.0),
+                                                     (0.2, 1.0))],
+            "spike": spikes}
+
+
+def write_cbv_file(directory, vectors):
+    """The CCD's CBV file in SPOC's layout (float32 vectors; TIME, CADENCENO
+    and GAP), named as the archive names it, so the loaders' pattern
+    finds it."""
+    from lightkurve_tpu_torch.io.fits import (BinTableHDU, HDUList, Header,
+                                              PrimaryHDU, write_fits)
+    cad, t, lc = cbv_grid()
+    tag = f"{CBV_CAMERA}.{CBV_CCD}"
+
+    def table(name, vecs):
+        cols = {"TIME": t, "CADENCENO": cad.astype(np.int32),
+                "GAP": (~lc).astype(np.uint8)}
+        cols.update({f"VECTOR_{i}": v.astype(np.float32)
+                     for i, v in enumerate(vecs, 1)})
+        return BinTableHDU(data=cols, header=Header({"EXTNAME": name}))
+
+    hdus = [PrimaryHDU(header=Header({
+        "TELESCOP": "TESS", "SECTOR": CBV_SECTOR, "CAMERA": CBV_CAMERA,
+        "CCD": CBV_CCD})), table(f"CBV.single-scale.{tag}", vectors["single"])]
+    hdus += [table(f"CBV.multiscale-band-{b}.{tag}", v)
+             for b, v in enumerate(vectors["bands"], 1)]
+    hdus.append(table(f"CBV.spike.{tag}", vectors["spike"]))
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, f"tess2020-s{CBV_SECTOR:04d}-{CBV_CAMERA}-"
+                                   f"{CBV_CCD}-0195-s_cbv.fits")
+    write_fits(HDUList(hdus), path, overwrite=True)
+    return path
+
+
+def cbv_targets(vectors, B=CBV_B, seed=CBV_SEED + 1):
+    """The CCD's targets as host arrays on the light curves' cadences:
+    star flux 10^3.5-10^5 e/s (phase 13's), photon noise of a two-minute
+    exposure, phase 10's 400-ppm transits (periods 1.2-8.5 d), 3% NaN
+    cadences; the SAP flux also carries each target's mix of the
+    systematics.  Returns the arrays and the truth (periods, expected SNR
+    of the transit)."""
+    rng = np.random.default_rng(seed)
+    cad, t, lc = cbv_grid()
+    t = t[lc]
+    N = t.size
+    star = 10 ** rng.uniform(*PIX_FLUX, B)
+    sigma = np.sqrt(star / PIX_EXPOSURE_S)
+    p_inj = rng.uniform(1.2, 8.5, B)
+    transit = np.ones((B, N))
+    inject_transits(transit, t, p_inj, rng, FLATTEN_DEPTH)
+    clean = star[:, None] * transit + sigma[:, None] * rng.standard_normal(
+        (B, N))
+    mix = np.concatenate([vectors["single"][:CBV_MIX], vectors["spike"]])[
+        :, lc]
+    coef = rng.uniform(-1, 1, (B, len(mix)))
+    coef *= (rng.uniform(*CBV_SYSTEMATIC, (B, len(mix))) * star[:, None]
+             / np.abs(mix).max(1))
+    coef[:, CBV_MIX:] *= rng.random((B, CBV_SPIKE)) < 0.5
+    sap = clean + coef @ mix
+    nan = rng.random((B, N)) < PIX_NAN_SHARE
+    n_in = ((transit < 1) & ~nan).sum(1)
+    snr = FLATTEN_DEPTH * star * np.sqrt(n_in) / sigma
+    return (dict(time=t, cadenceno=cad[lc], sap=np.where(nan, np.nan, sap),
+                 pdcsap=np.where(nan, np.nan, clean), sigma=sigma),
+            dict(p_inj=p_inj, snr=snr))
+
+
+def write_cbv_targets(directory, arrays):
+    """The targets as SPOC-style TESS light-curve files (TIME, CADENCENO,
+    SAP_FLUX, PDCSAP_FLUX and their errors in e-/s, QUALITY; SECTOR,
+    CAMERA and CCD in the header).  Returns the paths."""
+    from lightkurve_tpu_torch.io.fits import (BinTableHDU, HDUList, Header,
+                                              PrimaryHDU, write_fits)
+    os.makedirs(directory, exist_ok=True)
+    th = Header({"EXTNAME": "LIGHTCURVE", "BJDREFI": 2457000, "BJDREFF": 0.0,
+                 "TIMESYS": "TDB", "TUNIT1": "BJD - 2457000",
+                 "TUNIT3": "e-/s", "TUNIT4": "e-/s", "TUNIT5": "e-/s",
+                 "TUNIT6": "e-/s"})
+    N = arrays["time"].size
+    paths = []
+    for i in range(len(arrays["sap"])):
+        path = os.path.join(directory, f"tess2020-s{CBV_SECTOR:04d}-"
+                                       f"{i:016d}-0195-s_lc.fits")
+        ph = Header({"TELESCOP": "TESS", "MISSION": "TESS",
+                     "ORIGIN": "NASA/Ames",
+                     "CREATOR": "LightCurveExporterPipelineModule",
+                     "OBJECT": f"TIC {i}", "TICID": i, "SECTOR": CBV_SECTOR,
+                     "CAMERA": CBV_CAMERA, "CCD": CBV_CCD})
+        err = np.full(N, arrays["sigma"][i], np.float32)
+        cols = {"TIME": arrays["time"],
+                "CADENCENO": arrays["cadenceno"].astype(np.int32),
+                "SAP_FLUX": arrays["sap"][i].astype(np.float32),
+                "SAP_FLUX_ERR": err,
+                "PDCSAP_FLUX": arrays["pdcsap"][i].astype(np.float32),
+                "PDCSAP_FLUX_ERR": err,
+                "QUALITY": np.zeros(N, np.int32)}
+        write_fits(HDUList([PrimaryHDU(header=ph),
+                            BinTableHDU(data=cols, header=th)]), path,
+                   overwrite=True)
+        paths.append(path)
+    return paths
+
+
+def on_file_cadences(lc, corrected):
+    """``corrected`` (the corrector's light curve: ``lc`` less its NaN
+    cadences) back on all of ``lc``'s cadences, NaN where ``lc`` has no
+    flux, normalised: every target then shares one time grid in
+    ``to_stack()``."""
+    from lightkurve_tpu_torch.units import Quantity
+    out = lc.copy()
+    flux = np.full(len(lc), np.nan)
+    flux[np.isin(np.asarray(lc["cadenceno"]),
+                 np.asarray(corrected["cadenceno"]))] = \
+        corrected.flux.value
+    out.flux = Quantity(flux, lc.flux.unit)
+    return out.normalize()
+
+
+def cbv_neighbour_flux(corrector, others):
+    """The under-fitting metric's ``neighbor_flux``: each of ``others``
+    (light curves of the same CCD) normalised less one, on the corrector's
+    cadences (NaN where the neighbour has no flux), as the reference's
+    archive branch prepares them."""
+    cad = np.asarray(corrector.lc["cadenceno"])
+    out = []
+    for lc in others:
+        f = lc.flux.value / np.nanmedian(lc.flux.value) - 1.0
+        mine = np.asarray(lc["cadenceno"])
+        row = np.full(cad.size, np.nan)
+        common, ia, ib = np.intersect1d(cad, mine, return_indices=True)
+        row[ia] = f[ib]
+        out.append(row)
+    return out
+
+
+def cbv_correct(path, cbv_dir, **init):
+    """One target's correction as a user runs it: ``read`` of the SAP
+    flux, ``to_corrector("cbv")`` and ``correct_gaussian_prior``
+    (:data:`CBV_CORRECT`).  Returns the raw curve, the corrector and the
+    corrected curve."""
+    from lightkurve_tpu_torch.io.read import read
+    lc = read(path, flux_column="sap_flux")
+    corrector = lc.to_corrector("cbv", cbv_dir=cbv_dir, **init)
+    return lc, corrector, corrector.correct_gaussian_prior(**CBV_CORRECT)
+
+
+def phase_cbv_targets(tmp, card):
+    """Phase 14 (a), the per-target part (no kernel may launch): the CBV
+    file and 256 target files written; every target through
+    :func:`cbv_correct` (a second pass over :data:`CBV_TIMED` timed);
+    ``correct()`` with its alpha optimisation on :data:`CBV_OPTIMISED`
+    targets (their neighbours' SAP flux for the under-fitting metric;
+    seconds, alpha and both scores logged), ``correct_elasticnet`` on
+    :data:`CBV_ELASTICNET` (seconds and FISTA iterations), interpolated
+    CBVs on :data:`CBV_INTERPOLATED` (equal to the aligned result within
+    :data:`CBV_RTOL` of the median flux), and :data:`CBV_F64` targets
+    against float64 on the CPU.  Returns the corrected and raw curves on
+    the files' cadences, the truth and the numbers."""
+    import torch
+    from lightkurve_tpu_torch import config
+    from lightkurve_tpu_torch.io.read import read
+    vectors = cbv_vectors(cbv_grid()[1])
+    cbv_dir = os.path.join(tmp, "cbv")
+    t0 = time.perf_counter()
+    write_cbv_file(cbv_dir, vectors)
+    arrays, truth = cbv_targets(vectors)
+    paths = write_cbv_targets(os.path.join(tmp, "cbv_lc"), arrays)
+    write_s = time.perf_counter() - t0
+    start_sweep()
+    t0 = time.perf_counter()
+    raws, corrected = [], []
+    for p in paths:
+        lc, corrector, out = cbv_correct(p, cbv_dir)
+        raws.append(lc)
+        corrected.append(on_file_cadences(lc, out))
+        if len(raws) == 1:
+            n_sets = len(corrector.cbvs)
+            n_cols = len(corrector.design_matrix_collection.columns)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    _, per_target = sync_timed(lambda: [cbv_correct(p, cbv_dir)
+                                        for p in paths[:CBV_TIMED]])
+    per_target /= CBV_TIMED
+    if not all(np.isfinite(c.flux.value).sum() > 0.9 * len(c)
+               for c in corrected):
+        raise AssertionError("cbv: corrected flux mostly non-finite")
+    log(f"cbv: wrote the CCD's CBV file ({CBV_SINGLE} single-scale, 3 x "
+        f"{CBV_BAND} band, {CBV_SPIKE} spike vectors x {cbv_grid()[1].size} "
+        f"cadences) and {CBV_B} target files in {write_s:.3f}s; read -> "
+        f"to_corrector('cbv') -> correct_gaussian_prior ({n_cols} "
+        f"columns) of all {CBV_B} in {first_s:.3f}s, "
+        f"{per_target * 1e3:.1f} ms a target on a second pass over "
+        f"{CBV_TIMED} ({1 / per_target:.6g} targets/s); "
+        f"{n_sets} CBV sets loaded a target [{card}]")
+    opt = []
+    for i in range(CBV_OPTIMISED):
+        others = [raws[j] for j in range(CBV_B) if j != i][:CBV_NEIGHBOURS]
+        lc, corrector, _ = cbv_correct(paths[i], cbv_dir)
+        nb = cbv_neighbour_flux(corrector, others)
+        t0 = time.perf_counter()
+        corrector.correct(cbv_type=CBV_CORRECT["cbv_type"],
+                          cbv_indices=CBV_CORRECT["cbv_indices"],
+                          neighbor_flux=nb, verbose=False)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        opt.append(secs)
+        log(f"cbv: correct() of target {i}: alpha {corrector.alpha:.6g}, "
+            f"over-fitting {corrector.over_fitting_score:.4f}, "
+            f"under-fitting {corrector.under_fitting_score:.4f} (targets "
+            f"0.5), {secs:.3f}s [{card}]")
+        if not (0 <= corrector.over_fitting_score <= 1
+                and 0 <= corrector.under_fitting_score <= 1):
+            raise AssertionError("cbv: correct() scores out of [0, 1]")
+    en = []
+    for i in range(CBV_ELASTICNET):
+        _, corrector, _ = cbv_correct(paths[i], cbv_dir)
+        t0 = time.perf_counter()
+        out = corrector.correct_elasticnet(
+            cbv_type=CBV_CORRECT["cbv_type"],
+            cbv_indices=CBV_CORRECT["cbv_indices"], alpha=1e-4)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        en.append((secs, corrector.fista_iterations))
+        if not np.isfinite(out.flux.value).all():
+            raise AssertionError("cbv: correct_elasticnet not finite")
+    log("cbv: correct_elasticnet (alpha 1e-4, l1_ratio 0.01): " + ", ".join(
+        f"{s:.3f}s {it} FISTA iterations" for s, it in en) + f" [{card}]")
+    worst = 0.0
+    for i in range(CBV_INTERPOLATED):
+        _, _, aligned = cbv_correct(paths[i], cbv_dir)
+        _, _, interp = cbv_correct(paths[i], cbv_dir, interpolate_cbvs=True)
+        gap = np.max(np.abs(interp.flux.value - aligned.flux.value)) / \
+            np.median(aligned.flux.value)
+        worst = max(worst, float(gap))
+    log(f"cbv: interpolated (PCHIP at the CBVs' own nodes) against aligned "
+        f"CBVs on {CBV_INTERPOLATED} targets: {worst:.3g} of the median "
+        f"flux (bar {CBV_RTOL:g})")
+    if worst > CBV_RTOL:
+        raise AssertionError("cbv: interpolated CBVs differ from aligned")
+    prev = (config.default_device, config.default_dtype)
+    config.default_device, config.default_dtype = "cpu", torch.float64
+    try:
+        f64 = [cbv_correct(p, cbv_dir)[2] for p in paths[:CBV_F64]]
+    finally:
+        config.default_device, config.default_dtype = prev
+    f64_gap = max(
+        float(np.max(np.abs(on_file_cadences(raws[i], w).flux.value
+                            - corrected[i].flux.value)[
+            np.isfinite(corrected[i].flux.value)]))
+        for i, w in enumerate(f64))
+    log(f"cbv: {CBV_F64} targets, the card (float32 configuration) against "
+        f"the CPU's float64: corrected flux within {f64_gap:.3g} of the "
+        f"median flux (bar {CBV_RTOL:g}) [{card}]")
+    if f64_gap > CBV_RTOL:
+        raise AssertionError("cbv: the card's correction differs from the "
+                             "CPU's float64")
+    return dict(corrected=corrected, raw=[r.normalize() for r in raws],
+                truth=truth, per_target_s=per_target, first_s=first_s,
+                correct_s=opt, elasticnet=en, interp_gap=worst,
+                f64_gap=f64_gap)
+
+
+def cbv_search(lcs, truth, card, tag):
+    """``LightCurveCollection(lcs).to_stack()`` on the card (one time grid),
+    ``flatten`` and ``bls_search`` over 1-9 d in four calls; the recovery
+    of all and of the transits of expected SNR >= :data:`PIX_SNR`."""
+    import torch
+    from lightkurve_tpu_torch.collections import LightCurveCollection
+    stack = LightCurveCollection(lcs).to_stack()
+    if torch.unique(stack.time, dim=0).shape[0] != 1:
+        raise AssertionError(f"cbv, {tag}: the stack has several time grids")
+    flat, best, secs = pixel_search(stack)
+    share = recovery(best["period"], truth["p_inj"])
+    bright = truth["snr"] >= PIX_SNR
+    share_bright = recovery(best["period"][bright], truth["p_inj"][bright])
+    log(f"cbv, {tag}: to_stack -> flatten -> bls_search B={len(lcs)} "
+        f"P={LONG_GRID[2]} in 4 calls: {secs:.3f}s "
+        f"({len(lcs) * LONG_GRID[2] / secs:.6g} curve-period evals/s); "
+        f"recovered {share:.4f} of all, {share_bright:.4f} of the "
+        f"{int(bright.sum())} of expected SNR >= {PIX_SNR:g}; "
+        f"{recovery_bands(best, truth)} [{card}]")
+    return dict(flat=flat, seconds=secs, recovered=share,
+                recovered_bright=share_bright,
+                routes=expected_launches(flat, np.linspace(*LONG_GRID), 1024,
+                                         launch_periods=16))
+
+
+def check_cbv_kernels(flat, pvals):
+    """K-WF against its plain version on the inputs the entry point gives
+    it at call 4 of phase 14 (a)'s corrected search (:func:`entry_scan_args`,
+    its longest :data:`PIX_KERNEL_PERIODS` periods), at the float32 bars
+    (:func:`compare`).  Then K-SF's prefix rows on the same float32
+    columns (the staged route's fold, which the route rule does not take
+    here) against the plain fold of those columns in float64 (the float32
+    run's bins), within the fold bar of a column's sum |x|; the plain
+    version's float32 rows are measured beside it: on these targets'
+    nearly constant weights torch's float32 cumsum on the card drifts
+    past that bar (ROADMAP C).  Returns K-WF's max |error|."""
+    import torch
+    from lightkurve_tpu_torch.ops import bls_fused_weighted as bfw
+    from lightkurve_tpu_torch.ops.bls_staged_fold import (staged_fold,
+                                                          staged_fold_plain)
+    args, kw = entry_scan_args(flat, pvals)
+    ts, W, WY, pc, k_durs, dvals, d_phase, nbins, max_nbp, lik = args
+    log(f"cbv, call 4 kernels: B={W.shape[1]} N={W.shape[0]} "
+        f"P={pc.shape[0]} (periods {float(pc[0]):.4f}-{float(pc[-1]):.4f} "
+        f"d, {max_nbp} bins, fold sized for {nbins}) {W.dtype}")
+    got, want = bfw.fused_scan_weighted(*args, **kw), \
+        bfw.fused_scan_weighted_plain(*args, **kw)
+    err = compare("K-WF cbv call 4", got, want, False)[0]
+    del got, want
+    WWY = torch.cat([W, WY], dim=1)
+    scale = WWY.double().abs().sum(0)
+    share = {"K-SF": 0.0, "plain": 0.0}
+    for i in range(0, pc.shape[0], kw["chunk"]):
+        fold = (ts, WWY, pc[i:i + kw["chunk"]], d_phase, nbins, max_nbp,
+                max(k_durs), kw["wrap"])
+        exact = staged_fold_plain(ts, WWY.double(), *fold[2:])[0]
+        for name, rows in (("K-SF", staged_fold(*fold)[0]),
+                           ("plain", staged_fold_plain(*fold)[0])):
+            d = (rows.double() - exact).abs() / scale
+            share[name] = max(share[name], float(d.max()))
+    log(f"  K-SF cbv call 4 against the float64 fold: prefix rows within "
+        f"{share['K-SF']:.3g} of a column's sum |x| (bar {F32_FOLD_TOL:g}); "
+        f"the plain version's float32 rows {share['plain']:.3g}")
+    if share["K-SF"] > F32_FOLD_TOL:
+        raise AssertionError("K-SF cbv call 4: prefix rows off the float64 "
+                             "fold past the bar")
+    torch.cuda.empty_cache()
+    return {"K-WF": err}
+
+
+def phase_cbv_search(cbv, card):
+    """Phase 14 (a), the search of the CBV-corrected curves: recovery of
+    :data:`PIX_RECOVERY_SHARE` of the transits of expected SNR >=
+    :data:`PIX_SNR`."""
+    out = cbv_search(cbv["corrected"], cbv["truth"], card, "corrected")
+    if out["recovered_bright"] < PIX_RECOVERY_SHARE:
+        raise AssertionError(f"cbv: recovery {out['recovered_bright']} of "
+                             f"the detectable transits < "
+                             f"{PIX_RECOVERY_SHARE}")
+    return out
+
+
+def phase_cbv_raw(cbv, corrected, card):
+    """Phase 14 (a), the same search of the uncorrected SAP flux, whose
+    recovery the corrected search must not fall below."""
+    out = cbv_search(cbv["raw"], cbv["truth"], card, "uncorrected SAP")
+    if corrected["recovered"] < out["recovered"] or \
+            corrected["recovered_bright"] < out["recovered_bright"]:
+        raise AssertionError("cbv: the corrected search recovers fewer "
+                             "transits than the uncorrected one")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 14 (b): asteroseismology of Kepler stars on the card
+# ---------------------------------------------------------------------------
+#: 32 red giants (KEPSEISMIC files, the whole mission in long cadence) and
+#: 4 solar-like stars (one quarter of short cadence), made from these seeds
+SEIS_GIANTS = 32
+SEIS_DWARFS = 4
+SEIS_SEED = 2034
+#: cadences: Kepler's long (29.4244 min) and short (58.85 s) cadence
+SEIS_LC_MIN = 29.4244
+SEIS_SC_S = 58.85
+#: the mission (1,470 d, a gap of 6-11 d at each quarter's end, 1% of
+#: cadences lost at random: ~65,000 cadences) and one quarter (90 d, two
+#: 1-d monthly downlinks: ~130,000)
+SEIS_MISSION_DAYS = 1470.0
+SEIS_QUARTER_DAYS = 91.875
+SEIS_QUARTER_GAP_DAYS = (6.0, 11.0)
+SEIS_SC_DAYS = 90.0
+#: numax (uHz, log-uniform) of the giants and of the solar-like stars
+SEIS_GIANT_NUMAX = (30.0, 220.0)
+SEIS_DWARF_NUMAX = (1500.0, 3500.0)
+#: Delta-nu within this share of 0.294 numax^0.772 (Stello et al. 2009),
+#: the relation estimate_deltanu_acf2d centres its +-25% window on
+SEIS_DNU_SPREAD = 0.10
+#: the expected SNR of a radial mode at numax over the background
+SEIS_SNR = (5.0, 20.0)
+#: recovery: numax within 5%, Delta-nu within 2% of the injected values
+SEIS_NUMAX_RTOL = 0.05
+SEIS_DNU_RTOL = 0.02
+#: the share lightkurve_tpu reaches on these stars on the CPU in float64
+#: (tools/seismology_reference_rate.py): the bar of the port's share
+SEIS_REFERENCE_SHARE = 15 / 36
+#: stars held in float32 on the card against float64 on the CPU; where
+#: their numax falls on different grid points, the float64 smoothed metric
+#: at the two may differ by at most this share of its largest value (the
+#: float32 spectrum's rounding, a sum over 65,000-130,000 cadences, then
+#: the ACF's over ~3,000 lags)
+SEIS_F64_GIANTS = 2
+SEIS_F64_DWARFS = 1
+SEIS_F32_METRIC_TOL = 1e-3
+
+
+def seismic_star(seed, dwarf=False, days=None, granulation=1.0):
+    """One synthetic solar-like oscillator as host arrays (time in days
+    from the first cadence, relative flux, its error) and its truth.
+
+    The time series is drawn in the frequency domain on a regular grid
+    (one inverse real FFT): a white-noise floor, one Harvey granulation
+    profile of knee 0.3 numax, and l = 0, 1, 2 modes (visibilities 1, 1.5,
+    0.6; the asymptotic relation with epsilon = 0.6 + 0.5 log10 dnu, d01 =
+    0.025 dnu, d02 = 0.12 dnu) as Lorentzians of width ``gamma`` under a
+    Gaussian envelope of FWHM 0.66 numax^0.88 (giants; Mosser et al.
+    2010) or 0.25 numax (solar-like stars, the estimator's own rule),
+    each frequency bin a complex Gaussian of the model's power (the
+    chi-squared scatter of stochastic excitation).  Then the gaps are
+    cut: quarterly ones and 1% random losses (giants), two downlinks
+    (solar-like stars).  ``days`` shortens the series; ``granulation``
+    scales the granulation's power (0: white noise alone)."""
+    rng = np.random.default_rng(seed)
+    if dwarf:
+        dt = SEIS_SC_S / 86400.0
+        days = days or SEIS_SC_DAYS
+        numax = np.exp(rng.uniform(*np.log(SEIS_DWARF_NUMAX)))
+        fwhm = 0.25 * numax
+        gamma = rng.uniform(1.0, 2.0)
+        white_ppm = rng.uniform(60.0, 120.0)
+    else:
+        dt = SEIS_LC_MIN / 1440.0
+        days = days or SEIS_MISSION_DAYS
+        numax = np.exp(rng.uniform(*np.log(SEIS_GIANT_NUMAX)))
+        fwhm = 0.66 * numax ** 0.88
+        gamma = rng.uniform(0.08, 0.2)
+        white_ppm = rng.uniform(30.0, 80.0)
+    n = int(days / dt)
+    dnu = 0.294 * numax ** 0.772 * rng.uniform(1 - SEIS_DNU_SPREAD,
+                                               1 + SEIS_DNU_SPREAD)
+    nu = np.arange(n // 2 + 1) / (n * dt * 86400.0) * 1e6       # uHz
+    nyq = nu[-1]
+    white = white_ppm ** 2 / nyq                     # ppm^2 / uHz
+    knee = 0.3 * numax
+    gran = granulation * rng.uniform(1.0, 3.0) * white * (
+        1 + (1 / 0.3) ** 4)
+    bkg = gran / (1 + (nu / knee) ** 4) + white
+    snr = rng.uniform(*SEIS_SNR)
+    height = (snr - 1) * (gran / (1 + (numax / knee) ** 4) + white)
+    eps = np.clip(0.6 + 0.5 * np.log10(dnu), 0.5, 1.5)
+    sig = fwhm / (2 * np.sqrt(2 * np.log(2)))
+    power = bkg.copy()
+    df = nu[1]
+    half = int(50 * gamma / df) + 1
+    for order in range(int((numax - 4 * sig) / dnu) - 1,
+                       int((numax + 4 * sig) / dnu) + 2):
+        for f, vis in ((dnu * (order + eps), 1.0),
+                       (dnu * (order + 0.5 + eps) - 0.025 * dnu, 1.5),
+                       (dnu * (order + eps) - 0.12 * dnu, 0.6)):
+            if not 0 < f < nyq:
+                continue
+            h = height * vis * np.exp(-0.5 * ((f - numax) / sig) ** 2)
+            k = int(f / df)
+            sl = slice(max(k - half, 1), min(k + half, nu.size))
+            power[sl] += h / (1 + 4 * ((nu[sl] - f) / gamma) ** 2)
+    amp = n * np.sqrt(power * df / 4)
+    spec = amp * (rng.standard_normal(nu.size)
+                  + 1j * rng.standard_normal(nu.size))
+    spec[0] = 0.0
+    x = np.fft.irfft(spec, n)                        # ppm
+    t = np.arange(n) * dt
+    keep = np.ones(n, bool)
+    if dwarf:
+        for start in (30.0, 60.0):
+            keep &= ~((t >= start) & (t < start + 1.0))
+    else:
+        for q in np.arange(SEIS_QUARTER_DAYS, days, SEIS_QUARTER_DAYS):
+            keep &= ~((t >= q) & (t < q + rng.uniform(
+                *SEIS_QUARTER_GAP_DAYS)))
+        keep &= rng.random(n) >= 0.01
+    truth = dict(numax=numax, deltanu=dnu, snr=snr, gamma=gamma,
+                 teff=rng.uniform(5500, 6200) if dwarf
+                 else rng.uniform(4500, 5100))
+    return (t[keep], 1.0 + 1e-6 * x[keep],
+            np.full(int(keep.sum()), white_ppm * 1e-6), truth)
+
+
+def write_seismic_stars(directory, giants=SEIS_GIANTS, dwarfs=SEIS_DWARFS):
+    """The giants as KEPSEISMIC files (ORIGIN "CEA & SSI", times in MJD,
+    relative FLUX and FLUX_ERR) and the solar-like stars as Kepler
+    short-cadence light-curve files (BKJD, SAP and PDCSAP flux in e-/s),
+    written with the port's FITS writer.  Returns the paths and truths."""
+    from lightkurve_tpu_torch.io.fits import (BinTableHDU, HDUList, Header,
+                                              PrimaryHDU, write_fits)
+    os.makedirs(directory, exist_ok=True)
+    paths, truths = [], []
+    for i in range(giants + dwarfs):
+        dwarf = i >= giants
+        t, f, fe, truth = seismic_star(SEIS_SEED + i, dwarf)
+        kic = 1_000_000 + i
+        if dwarf:
+            f0 = 1e6
+            path = os.path.join(directory, f"kplr{kic:09d}-2010_slc.fits")
+            h0 = {"TELESCOP": "Kepler", "MISSION": "Kepler",
+                  "CREATOR": "FluxExporter2PipelineModule",
+                  "ORIGIN": "NASA/Ames", "OBJECT": f"KIC {kic}",
+                  "KEPLERID": kic, "QUARTER": 5, "OBSMODE": "short cadence"}
+            cols = {"TIME": 350.0 + t,
+                    "CADENCENO": np.arange(t.size, dtype=np.int32),
+                    "SAP_FLUX": (f0 * f).astype(np.float32),
+                    "SAP_FLUX_ERR": (f0 * fe).astype(np.float32),
+                    "PDCSAP_FLUX": (f0 * f).astype(np.float32),
+                    "PDCSAP_FLUX_ERR": (f0 * fe).astype(np.float32),
+                    "SAP_QUALITY": np.zeros(t.size, np.int32)}
+            th = {"EXTNAME": "LIGHTCURVE", "BJDREFI": 2454833,
+                  "BJDREFF": 0.0, "TIMESYS": "TDB", "TUNIT3": "e-/s",
+                  "TUNIT4": "e-/s", "TUNIT5": "e-/s", "TUNIT6": "e-/s"}
+        else:
+            path = os.path.join(
+                directory, f"hlsp_kepseismic_kepler_phot_kplr{kic:09d}-"
+                "20d_kepler_v1_cor-filt-inp.fits")
+            h0 = {"TELESCOP": "Kepler", "ORIGIN": "CEA & SSI",
+                  "OBJECT": f"KIC {kic}", "KEPLERID": kic}
+            cols = {"TIME": 54964.5 + t, "FLUX": f, "FLUX_ERR": fe}
+            th = {"EXTNAME": "LIGHTCURVE", "MJDREF": 0.0}
+        write_fits(HDUList([PrimaryHDU(header=Header(h0)),
+                            BinTableHDU(data=cols, header=Header(th))]),
+                   path, overwrite=True)
+        paths.append(path)
+        truths.append(truth)
+    return paths, truths
+
+
+def seismology_chain(lc, teff):
+    """One star through the port's public chain: ``normalize``, the PSD
+    periodogram to Nyquist, ``flatten``, ``to_seismology``, numax, Delta-nu
+    and the three scaling relations at ``teff``.  Returns the results."""
+    pg = lc.normalize().to_periodogram(normalization="psd")
+    snr = pg.flatten()
+    seis = snr.to_seismology()
+    numax = seis.estimate_numax()
+    deltanu = seis.estimate_deltanu()
+    return dict(pg=snr, seis=seis, numax=float(numax.value),
+                deltanu=float(deltanu.value),
+                radius=float(seis.estimate_radius(teff=teff).value),
+                mass=float(seis.estimate_mass(teff=teff).value),
+                logg=float(seis.estimate_logg(teff=teff).value))
+
+
+def seismology_recovered(outs, truths):
+    """Per star: numax within :data:`SEIS_NUMAX_RTOL` and Delta-nu within
+    :data:`SEIS_DNU_RTOL` of the injected values."""
+    return np.array([abs(o["numax"] / t["numax"] - 1) < SEIS_NUMAX_RTOL
+                     and abs(o["deltanu"] / t["deltanu"] - 1) < SEIS_DNU_RTOL
+                     for o, t in zip(outs, truths)])
+
+
+def phase_seismology(tmp, card):
+    """Phase 14 (b), no kernel may launch: the stars of
+    :func:`write_seismic_stars` through :func:`seismology_chain` on the
+    card in float32 (each timed on a second call: ``read``, the
+    periodogram, its ``flatten`` and the estimators); the share recovered
+    (:func:`seismology_recovered`) at least lightkurve_tpu's on the CPU
+    (:data:`SEIS_REFERENCE_SHARE`); :data:`SEIS_F64_GIANTS` giants and
+    :data:`SEIS_F64_DWARFS` solar-like stars against float64 on the CPU
+    (numax on the same grid point, or else the smoothed metric's gap
+    between the two points within :data:`SEIS_F32_METRIC_TOL`; Delta-nu
+    within one lag bin).  Returns the numbers."""
+    import torch
+    from lightkurve_tpu_torch import config
+    from lightkurve_tpu_torch.io.read import read
+    paths, truths = write_seismic_stars(os.path.join(tmp, "seis"))
+    outs, times = [], {"read": [], "chain": []}
+    start_sweep()
+    for path, truth in zip(paths, truths):
+        read(path)
+        lc, read_s = sync_timed(lambda: read(path))
+        seismology_chain(lc, truth["teff"])
+        out, chain_s = sync_timed(lambda: seismology_chain(lc,
+                                                           truth["teff"]))
+        outs.append(out)
+        times["read"].append(read_s)
+        times["chain"].append(chain_s)
+        if not all(np.isfinite(out[k]) for k in ("numax", "deltanu",
+                                                  "radius", "mass", "logg")):
+            raise AssertionError(f"seismology: non-finite result, {path}")
+    ok = seismology_recovered(outs, truths)
+    g = SEIS_GIANTS
+    med = {k: (float(np.median(v[:g])), float(np.median(v[g:])))
+           for k, v in times.items()}
+    total = sum(times["read"]) + sum(times["chain"])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    nf = [len(o["pg"].frequency) for o in outs]
+    log(f"seismology: {g} KEPSEISMIC giants ({int(np.median(nf[:g]))} "
+        f"frequencies to Nyquist) and {SEIS_DWARFS} short-cadence stars "
+        f"({int(np.median(nf[g:]))}): "
+        f"recovered {ok.mean():.4f} (giants {ok[:g].mean():.4f}, "
+        f"solar-like {ok[g:].mean():.4f}; numax within "
+        f"{SEIS_NUMAX_RTOL:g}, Delta-nu within {SEIS_DNU_RTOL:g}; bar "
+        f"{SEIS_REFERENCE_SHARE:.4f}, lightkurve_tpu on the CPU in "
+        f"float64); per star (medians, second call) read "
+        f"{med['read'][0] * 1e3:.1f} / {med['read'][1] * 1e3:.1f} ms, chain "
+        f"{med['chain'][0] * 1e3:.1f} / {med['chain'][1] * 1e3:.1f} ms "
+        f"(giant / solar-like); {len(outs) / total:.6g} stars/s; "
+        f"{peak:.3f} GiB peak device memory [{card}]")
+    numax_err = [o["numax"] / t["numax"] - 1 for o, t in zip(outs, truths)]
+    log("  numax error per star: " + " ".join(f"{e:+.3f}" for e in numax_err))
+    if ok.mean() < SEIS_REFERENCE_SHARE:
+        raise AssertionError(f"seismology: recovered {ok.mean()} < the "
+                             f"reference's {SEIS_REFERENCE_SHARE}")
+    picks = list(range(SEIS_F64_GIANTS)) + list(range(g, g + SEIS_F64_DWARFS))
+    prev = (config.default_device, config.default_dtype)
+    config.default_device, config.default_dtype = "cpu", torch.float64
+    try:
+        f64 = [seismology_chain(read(paths[i]), truths[i]["teff"])
+               for i in picks]
+    finally:
+        config.default_device, config.default_dtype = prev
+    worst = dict(metric=0.0, gap=0.0, deltanu_bins=0.0, power=0.0)
+    for i, want in zip(picks, f64):
+        got = outs[i]
+        d32 = got["seis"].numax.diagnostics
+        d64 = want["seis"].numax.diagnostics
+        m32, m64 = d32["metric_smooth"], d64["metric_smooth"]
+        a32, a64 = int(np.argmax(m32)), int(np.argmax(m64))
+        scale = np.abs(m64).max()
+        gap = abs(m64[a64] - m64[a32]) / scale
+        metric_err = np.abs(m32 - m64).max() / scale
+        fs = np.median(np.diff(got["pg"].frequency.value))
+        dnu_bins = abs(got["deltanu"] - want["deltanu"]) / fs
+        p32, p64 = got["pg"].power.value, want["pg"].power.value
+        power_err = float(np.max(np.abs(p32 - p64)) / np.max(p64))
+        worst["metric"] = max(worst["metric"], float(metric_err))
+        worst["gap"] = max(worst["gap"], float(gap))
+        worst["deltanu_bins"] = max(worst["deltanu_bins"], float(dnu_bins))
+        worst["power"] = max(worst["power"], power_err)
+        log(f"  star {i}: float32 card numax {got['numax']:.4f}, float64 "
+            f"CPU {want['numax']:.4f} (metric within {metric_err:.3g} of its "
+            f"largest value; the two argmaxes {gap:.3g} apart); Delta-nu "
+            f"{got['deltanu']:.6f} against {want['deltanu']:.6f} "
+            f"({dnu_bins:.3g} lag bins); SNR spectrum within {power_err:.3g} "
+            f"of its peak")
+        if gap > SEIS_F32_METRIC_TOL or dnu_bins > 1:
+            raise AssertionError(f"seismology: star {i}'s float32 numax or "
+                                 "Delta-nu differs from float64 past the "
+                                 "bar")
+    return dict(recovered=float(ok.mean()), giants=float(ok[:g].mean()),
+                dwarfs=float(ok[g:].mean()), stars_per_s=len(outs) / total,
+                med=med, f64=worst)
+
+
+def phase_cbv_seismology(tmp, card, sweep, runs):
+    """Phase 14, each part a path of its own: (a) the per-target CBV
+    corrections (no kernel may launch), the search of the corrected
+    curves and of the uncorrected SAP flux (their launches as the route
+    rule gives them, through ``sweep``), K-WF, K-SF and K-W against their
+    plain versions on the corrected search's call 4; (b) the seismology
+    of the Kepler stars (no kernel may launch).  Adds the paths' launches
+    to ``runs``; returns the numbers and the kernels' errors."""
+    import torch
+    t0 = time.time()
+    cbv, runs["CBV, per target (phase 14)"] = drive(
+        "CBV, per target (phase 14)", phase_cbv_targets, tmp, card,
+        forbid=tuple(kernel_table()))
+    found = sweep("CBV -> search (phase 14)", phase_cbv_search, cbv, card)
+    raw = sweep("CBV, uncorrected -> search (phase 14)", phase_cbv_raw, cbv,
+                found, card)
+    call4 = np.linspace(*LONG_GRID)[3072:]
+    errs = check_cbv_kernels(found.pop("flat"), call4[-PIX_KERNEL_PERIODS:])
+    raw.pop("flat")
+    numbers = dict(per_target_s=cbv["per_target_s"],
+                   correct_s=cbv["correct_s"], elasticnet=cbv["elasticnet"],
+                   search_s=found["seconds"],
+                   recovered=found["recovered"],
+                   recovered_bright=found["recovered_bright"],
+                   raw_recovered=raw["recovered"],
+                   raw_recovered_bright=raw["recovered_bright"])
+    del cbv, found, raw
+    torch.cuda.empty_cache()
+    seis, runs["seismology (phase 14)"] = drive(
+        "seismology (phase 14)", phase_seismology, tmp, card,
+        forbid=tuple(kernel_table()))
+    numbers["seismology"] = seis
+    torch.cuda.empty_cache()
+    log(f"phase 14: {time.time() - t0:.1f}s")
+    return numbers, errs
+
+
+# ---------------------------------------------------------------------------
 # --profile: one full-size sweep chunk per regime under torch.profiler
 # ---------------------------------------------------------------------------
 def chunk_bounds(stack, periods, impl, launch_periods=8):
@@ -3556,7 +4336,9 @@ def phase_profile(tmp, B=2048):
     one-curve fastchi2 call; phase 12's BLS periodogram of one flattened
     curve of that sector (the reference's default grid); phase 13's
     ``pld_correct`` of its 512 targets and ``PLDCorrector.correct()`` of
-    one of its TESS files (device time by kind of op); and
+    one of its TESS files; phase 14's ``correct_gaussian_prior`` and
+    ``correct()`` of one CBV target and one giant's seismology chain
+    (device time by kind of op); and
     the two forced chunks of phases 4 and 6 (the weighted cell's first
     2048 periods on the staged route, the two-sector chunk 4 on the fused
     one) through the entry point (:func:`route_call`).  Prints device
@@ -3570,6 +4352,7 @@ def phase_profile(tmp, B=2048):
     from lightkurve_tpu_torch.batch import LightCurveStack
     from lightkurve_tpu_torch.collections import LightCurveCollection
     from lightkurve_tpu_torch.correctors import PLDCorrector
+    from lightkurve_tpu_torch.io.read import read
     from lightkurve_tpu_torch.ops.lombscargle import lombscargle_fastchi2
     from lightkurve_tpu_torch.parallel.checkpoint import SweepRunner
     from tools import make_sector as ms
@@ -3591,6 +4374,17 @@ def phase_profile(tmp, B=2048):
         window_length=FLATTEN_KW["window_length"])
     pixels = pixel_sector(PIX_B, PIX_SEED, "cuda")[0]
     tess_file = tess_tpfs(1)[0][0]
+    cbv_dir = os.path.join(tmp, "cbv")
+    vectors = cbv_vectors(cbv_grid()[1])
+    write_cbv_file(cbv_dir, vectors)
+    cbv_paths = write_cbv_targets(os.path.join(tmp, "cbv_lc"), cbv_targets(
+        vectors, B=CBV_NEIGHBOURS + 1)[0])
+    _, cbv_one, _ = cbv_correct(cbv_paths[0], cbv_dir)
+    cbv_nb = cbv_neighbour_flux(cbv_one, [
+        read(p, flux_column="sap_flux") for p in cbv_paths[1:]])
+    giant_path, giant = (v[0] for v in write_seismic_stars(
+        os.path.join(tmp, "seis"), giants=1, dwarfs=0))
+    giant_lc = read(giant_path)
     t8, y8, dy8 = bench_ls_inputs(1)
     curve = LightCurveStack.from_numpy(
         t8[None], y8.cpu().numpy(), dy8.cpu().numpy(),
@@ -3615,7 +4409,13 @@ def phase_profile(tmp, B=2048):
               np.linspace(*LONG_GRID)[3072:], "auto"),
              ("pld_correct, phase 13", pixels, (), "pld_correct"),
              ("PLDCorrector.correct, one TESS file, phase 13", tess_file,
-              (), "pld_corrector"))
+              (), "pld_corrector"),
+             ("CBV correct_gaussian_prior, one target, phase 14",
+              cbv_paths[0], (), "cbv_gaussian"),
+             ("CBV correct() with the alpha search, one target, phase 14",
+              cbv_paths[0], (), "cbv_correct"),
+             ("seismology chain, one KEPSEISMIC giant, phase 14", giant_lc,
+              (), "seismology"))
     for i, (name, stack, periods, impl) in enumerate(cells):
         def chunk(tag):
             if impl == "flatten":
@@ -3631,6 +4431,15 @@ def phase_profile(tmp, B=2048):
                 stack.pld_correct(**PIX_PLD)
             elif impl == "pld_corrector":
                 PLDCorrector(stack).correct()
+            elif impl == "cbv_gaussian":
+                cbv_correct(stack, cbv_dir)
+            elif impl == "cbv_correct":
+                cbv_correct(stack, cbv_dir)[1].correct(
+                    cbv_type=CBV_CORRECT["cbv_type"],
+                    cbv_indices=CBV_CORRECT["cbv_indices"],
+                    neighbor_flux=cbv_nb, verbose=False)
+            elif impl == "seismology":
+                seismology_chain(stack, giant["teff"])
             elif impl == "auto":
                 SweepRunner(stack, periods, DURATIONS,
                             os.path.join(tmp, f"profile_{i}_{tag}.npz"),
@@ -3663,8 +4472,14 @@ def phase_profile(tmp, B=2048):
                 end = hi
         wall = span.end - span.start
         device = sum(us for us, _ in by_name.values())
+        kinds = ("periodogram", "fastchi2", "bls_periodogram", "pld_correct",
+                 "pld_corrector", "cbv_gaussian", "cbv_correct",
+                 "seismology")
         shape = (f"pixels {tuple(stack.flux.shape)}"
                  if impl in ("pld_correct", "pld_corrector")
+                 else f"one target, {LONG_N} cadences"
+                 if impl.startswith("cbv")
+                 else f"{len(stack)} cadences" if impl == "seismology"
                  else f"B={len(stack)} N={stack.shape[1]} P={len(periods)}")
         log(f"profile {name}: {shape}: device "
             f"{device / 1e3:.3f} ms, busy {busy / 1e3:.3f} ms of "
@@ -3673,8 +4488,7 @@ def phase_profile(tmp, B=2048):
         for k, (us, cnt) in sorted(by_name.items(),
                                    key=lambda kv: -kv[1][0])[:8]:
             log(f"  {us / 1e3:10.3f} ms {us / device:.4f} x{cnt} {k[:100]}")
-        if impl in ("periodogram", "fastchi2", "bls_periodogram",
-                    "pld_correct", "pld_corrector"):
+        if impl in kinds:
             log(f"  {sum(n for _, n in by_name.values())} launches; by op: "
                 + ", ".join(
                 f"{k} {us / 1e3:.3f} ms {us / device:.4f}"
@@ -3842,6 +4656,7 @@ def main():
         torch.cuda.empty_cache()
         px_numbers, files = phase_pixels(tmp, card, sweep, runs)
         px_errs = px_numbers.pop("errs")
+        p14, p14_errs = phase_cbv_seismology(tmp, card, sweep, runs)
     torch.cuda.empty_cache()
     ls = phase_ls()
     path = "past the one-hot ceiling (phase 9)"
@@ -3856,7 +4671,7 @@ def main():
     for key, (e, t, b, per) in long.items():
         errs[key], times[key], bounds[key], per_launch[key] = e, t, b, per
     errs["K-F"] = max(errs["K-F"], kf_err)
-    for key, e in px_errs.items():
+    for key, e in (*px_errs.items(), *p14_errs.items()):
         errs[key] = max(errs[key], e)
     phase_routes()
     log(f"main paths: uniform {uni['rate']:.6g}, weighted "
@@ -3868,7 +4683,11 @@ def main():
         f"{lcs_numbers['rate']:.6g} curve-period evals/s, per curve BLS "
         f"{single['bls_s'] * 1e3:.1f} ms; pixels: photometry + PLD "
         f"{PIX_B / (px_numbers['phot_s'] + px_numbers['pld_s']):.6g} "
-        f"targets/s, TPF read {files['files_per_s']:.6g} files/s; LS sector "
+        f"targets/s, TPF read {files['files_per_s']:.6g} files/s; CBV "
+        f"{1 / p14['per_target_s']:.6g} targets/s, search after CBV "
+        f"recovered {p14['recovered_bright']:.4f} of SNR >= {PIX_SNR:g}; "
+        f"seismology {p14['seismology']['stars_per_s']:.6g} stars/s, "
+        f"recovered {p14['seismology']['recovered']:.4f}; LS sector "
         f"{ls['sector']['rate']:.6g}, "
         f"LS bench shape {ls['bench']['rate']:.6g} curve-frequency "
         f"evals/s; per-curve fast "

@@ -18,9 +18,15 @@ grids by group, per-curve methods) in checkpointed chunks
 :func:`read` also opens Kepler and TESS target pixel files
 (:mod:`.targetpixelfile`), whose aperture photometry runs as torch
 reductions (:mod:`.ops.photometry`) and whose systematics the regression
-correctors remove (:mod:`.correctors`: PLD, SFF, design matrices; the
-solves in :mod:`.ops.solve`); a ``TargetPixelFileCollection`` packs into a
-``TPFStack`` whose ``pld_correct`` corrects every target in one batch.
+correctors remove (:mod:`.correctors`: PLD, SFF, CBV from local CBV
+files, design matrices; the solves in :mod:`.ops.solve`); a
+``TargetPixelFileCollection`` packs into a ``TPFStack`` whose
+``pld_correct`` corrects every target in one batch.  :func:`read` also
+opens the high-level science products (QLP, K2SFF, EVEREST, CDIPS,
+PATHOS, TASOC, KEPSEISMIC, TGLC, ELEANOR, K2SC).  A periodogram's or a
+light curve's ``to_seismology`` gives numax, Δν and the scaling-relation
+estimates (:mod:`.seismology`; the windows' autocorrelations in one
+batched FFT, :mod:`.ops.acf`).
 
 Modules mirror ``lightkurve_tpu``'s names.  Importing the package builds
 nothing and needs neither a GPU nor ``nvcc``: kernels compile on first use
@@ -58,6 +64,23 @@ _LAZY = {
     "RegressionCorrector": ".correctors",
     "PLDCorrector": ".correctors",
     "SFFCorrector": ".correctors",
+    "CBVCorrector": ".correctors",
+    "CotrendingBasisVectors": ".correctors",
+    "KeplerCotrendingBasisVectors": ".correctors",
+    "TessCotrendingBasisVectors": ".correctors",
+    "load_kepler_cbvs": ".correctors",
+    "load_tess_cbvs": ".correctors",
+    "Seismology": ".seismology",
+    "SeismologyQuantity": ".seismology",
+    "estimate_numax_acf2d": ".seismology.numax_estimators",
+    "estimate_deltanu_acf2d": ".seismology.deltanu_estimators",
+    "diagnose_numax_acf2d": ".seismology.numax_estimators",
+    "diagnose_deltanu_acf2d": ".seismology.deltanu_estimators",
+    "estimate_radius": ".seismology.stellar_estimators",
+    "estimate_mass": ".seismology.stellar_estimators",
+    "estimate_logg": ".seismology.stellar_estimators",
+    "channel_to_module_output": ".utils",
+    "module_output_to_channel": ".utils",
     "LightCurveStack": ".batch",
     "SweepRunner": ".parallel.checkpoint",
     "StreamingStackLoader": ".io.pipeline",

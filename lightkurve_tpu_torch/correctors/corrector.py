@@ -1,8 +1,6 @@
 """Abstract Corrector contract (reference ``correctors/corrector.py:12-153``).
 
-A copy of ``lightkurve_tpu/correctors/corrector.py``; the under-fitting
-metric, which fetches neighbouring targets over the network, is not
-ported and raises.
+A copy of ``lightkurve_tpu/correctors/corrector.py``.
 """
 from __future__ import annotations
 
@@ -42,9 +40,10 @@ class Corrector(ABC):
                                           **kwargs)
 
     def compute_underfit_metric(self, **kwargs):
-        """Measure degree of under-fitting (reference ``corrector.py:121``):
-        not ported, it downloads the neighbouring targets' light curves."""
-        raise NotImplementedError(
-            "compute_underfit_metric is not ported to lightkurve_tpu_torch "
-            "(ROADMAP A7: search.py and the archive client need the "
-            "network, which the port does not use).")
+        """Measure degree of under-fitting (reference ``corrector.py:121``);
+        the neighbours' fluxes come as ``neighbor_flux``
+        (:func:`~.metrics.underfit_metric_neighbors`)."""
+        from .metrics import underfit_metric_neighbors
+        self._validate_corrected_lc()
+        return underfit_metric_neighbors(self.corrected_lc.normalize(),
+                                         **kwargs)

@@ -2,8 +2,8 @@
 
 A copy of ``lightkurve_tpu/io/detect.py``: sniffs ORIGIN/CREATOR/TELESCOP
 keywords and column structure to identify the 15 Kepler/K2/TESS product
-flavours, every one of them, including those whose readers are not
-ported yet (:func:`lightkurve_tpu_torch.io.read.read` says so).
+flavours, each of which :func:`lightkurve_tpu_torch.io.read.read` hands
+to its reader.
 """
 from __future__ import annotations
 

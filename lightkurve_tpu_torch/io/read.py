@@ -3,11 +3,9 @@
 A copy of ``lightkurve_tpu/io/read.py``'s ``read``, ``open``,
 ``read_lc_collection`` and ``read_tpf_collection``: the product type is
 detected from the headers (:func:`.detect.detect_filetype`) and the file
-goes to its reader.  The Kepler, TESS, folded and generic light-curve
-readers and the Kepler and TESS target pixel files are ported; a
-high-level science product is detected and refused with a
-:class:`~lightkurve_tpu_torch.utils.LightkurveError` that names the
-ROADMAP item that ports it.
+goes to its reader: the Kepler, TESS, folded and generic light curves,
+the ten high-level science products (:mod:`.readers`) and the Kepler and
+TESS target pixel files.
 """
 from __future__ import annotations
 
@@ -21,12 +19,6 @@ log = logging.getLogger(__name__)
 
 __all__ = ["read", "open", "read_lc_collection", "read_tpf_collection",
            "READERS"]
-
-#: detected types whose readers wait for a later item of ROADMAP queue A
-NOT_PORTED = {name: "A5's remainder (high-level science products)"
-              for name in ("QLP", "K2SFF", "EVEREST", "K2SC", "CDIPS",
-                           "PATHOS", "TASOC", "KEPSEISMIC", "TGLC",
-                           "ELEANOR")}
 
 
 def _tpf_reader(mission):
@@ -56,6 +48,16 @@ def _get_readers():
         "KeplerLightCurve": r.read_kepler_lightcurve,
         "TessLightCurve": r.read_tess_lightcurve,
         "Folded": r.read_folded_lightcurve,
+        "QLP": r.read_qlp_lightcurve,
+        "K2SFF": r.read_k2sff_lightcurve,
+        "EVEREST": r.read_everest_lightcurve,
+        "K2SC": r.read_k2sc_lightcurve,
+        "CDIPS": r.read_cdips_lightcurve,
+        "PATHOS": r.read_pathos_lightcurve,
+        "TASOC": r.read_tasoc_lightcurve,
+        "KEPSEISMIC": r.read_kepseismic_lightcurve,
+        "TGLC": r.read_tglc_lightcurve,
+        "ELEANOR": r.read_eleanor_lightcurve,
         "KeplerTargetPixelFile": _tpf_reader("Kepler"),
         "TessTargetPixelFile": _tpf_reader("TESS"),
         # unrecognized-but-valid time-series products fall back to the
@@ -69,7 +71,7 @@ READERS = None
 
 
 def read(path_or_url, filetype=None, **kwargs):
-    """Read a Kepler/K2/TESS light-curve or target pixel file
+    """Read any supported Kepler/K2/TESS data product
     (reference ``io/read.py:32-147``).
 
     Detects the product type from the FITS headers and dispatches to the
@@ -99,11 +101,6 @@ def read(path_or_url, filetype=None, **kwargs):
             f"Not recognized as a supported data product: {path_or_url}. "
             "This file may be corrupt due to an interrupted download. "
             "Please remove it from your disk and try again.")
-    if filetype in NOT_PORTED:
-        raise LightkurveError(
-            f"{path_or_url} is a {filetype} product, whose reader "
-            f"lightkurve_tpu_torch does not have yet (ROADMAP "
-            f"{NOT_PORTED[filetype]}).")
     if filetype.endswith("TargetPixelFile"):
         return READERS[filetype](path_or_url, **kwargs)
     reader = READERS.get(filetype)

@@ -13,10 +13,10 @@ built inside those calls, in :data:`config.default_dtype` on
 ``"cpu"``); the container itself stays numpy.  ``fold`` and ``bin`` are
 host numpy, as in ``lightkurve_tpu``.
 
-``to_corrector("sff")`` gives the SFF corrector (:mod:`.correctors`).
-Plotting, the pandas and stingray exports, ASCII tables, the solar-system
-query, the CBV corrector and the seismology dispatcher are not ported yet
-(ROADMAP A).  The batched counterpart is
+``to_corrector`` gives the SFF or CBV corrector (:mod:`.correctors`) and
+``to_seismology`` the asteroseismology dispatcher (:mod:`.seismology`).
+Plotting, the pandas and stingray exports, ASCII tables and the
+solar-system query are not ported yet (ROADMAP A).  The batched counterpart is
 :class:`lightkurve_tpu_torch.batch.LightCurveStack`.
 """
 from __future__ import annotations
@@ -1308,22 +1308,24 @@ class LightCurve:
         from .periodogram import LombScarglePeriodogram
         return LombScarglePeriodogram.from_lightcurve(lc=self, **kwargs)
 
+    def to_seismology(self, **kwargs):
+        """A :class:`~lightkurve_tpu_torch.seismology.Seismology` of this
+        curve's flattened periodogram (reference ``:1358``)."""
+        from .seismology import Seismology
+        return Seismology.from_lightcurve(self, **kwargs)
+
     def to_corrector(self, method="sff", **kwargs):
-        """Return a corrector for this curve (reference ``:2732-2764``):
-        ``"sff"`` gives an :class:`~lightkurve_tpu_torch.correctors.
-        SFFCorrector`; ``"cbv"`` is not ported yet."""
+        """Return a corrector: 'sff' or 'cbv' (reference ``:2732-2764``)."""
         if method == "pld":
             raise ValueError(
                 "The 'pld' method can only be used on "
                 "`TargetPixelFile` objects, not `LightCurve` objects.")
         method = validate_method(method, supported_methods=["sff", "cbv"])
-        if method == "cbv":
-            raise NotImplementedError(
-                "The CBV corrector is not ported to lightkurve_tpu_torch yet "
-                "(ROADMAP A6's remainder: CBVCorrector and its local-file "
-                "loaders).")
-        from .correctors import SFFCorrector
-        return SFFCorrector(self, **kwargs)
+        if method == "sff":
+            from .correctors import SFFCorrector
+            return SFFCorrector(self, **kwargs)
+        from .correctors import CBVCorrector
+        return CBVCorrector(self, **kwargs)
 
     # ------------------------------------------------------------------
     # exports

@@ -123,7 +123,9 @@ def elasticnet_fista(X, y, alpha, l1_ratio, tol=1e-14, max_iter=50_000):
     step falls to ``tol`` (relative to ``max(1, |w|)``) or ``max_iter``;
     once converged the state stays as it is, so checking convergence on
     the host only every :data:`FISTA_CHECK_EVERY` iterations gives the
-    reference's result.  Returns ``w`` (k,)."""
+    reference's result.  Returns ``w`` (k,) and the iterations run (a
+    multiple of :data:`FISTA_CHECK_EVERY` unless ``max_iter`` ended the
+    loop)."""
     with full_f32_matmul(X.device):
         n = X.shape[0]
         G = (X.T @ X) / n
@@ -142,7 +144,8 @@ def elasticnet_fista(X, y, alpha, l1_ratio, tol=1e-14, max_iter=50_000):
         v = w
         t = torch.ones((), dtype=X.dtype, device=X.device)
         delta = torch.full((), torch.inf, dtype=X.dtype, device=X.device)
-        for i in range(int(max_iter)):
+        i = 0
+        while i < int(max_iter):
             active = delta > tol * torch.clamp(w.abs().max(), min=1.0)
             if i % FISTA_CHECK_EVERY == 0 and not bool(active):
                 break
@@ -156,4 +159,5 @@ def elasticnet_fista(X, y, alpha, l1_ratio, tol=1e-14, max_iter=50_000):
             v = torch.where(active, v_new, v)
             t = torch.where(active, t_new, t)
             delta = torch.where(active, delta_new, delta)
-    return w
+            i += 1
+    return w, i

@@ -9,8 +9,9 @@ Lomb-Scargle from :mod:`lightkurve_tpu_torch.ops.lombscargle`, BLS from
 or :func:`~lightkurve_tpu_torch.ops.bls.bls_power`, and the transit model
 from :func:`~lightkurve_tpu_torch.ops.bls.bls_objective_single` -- in
 :data:`config.default_dtype` on :func:`config.resolve_device` (the card
-unless the configuration says ``"cpu"``).  ``plot`` and ``to_seismology``
-are not ported yet (ROADMAP A).
+unless the configuration says ``"cpu"``).  ``to_seismology`` gives the
+asteroseismology dispatcher (:mod:`.seismology`); ``plot`` is not ported
+yet (ROADMAP A).
 """
 from __future__ import annotations
 
@@ -187,6 +188,12 @@ class Periodogram:
     def to_table(self):
         return {"frequency": self.frequency, "period": self.period,
                 "power": self.power}
+
+    def to_seismology(self, **kwargs):
+        """A :class:`~lightkurve_tpu_torch.seismology.Seismology` of this
+        periodogram (reference ``periodogram.py:187``)."""
+        from .seismology import Seismology
+        return Seismology(self, **kwargs)
 
     def copy(self):
         return deepcopy(self)

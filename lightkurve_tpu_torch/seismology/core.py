@@ -1,0 +1,230 @@
+"""Seismology butler: estimate numax, Δν, radius, mass, logg.
+
+Counterpart of ``lightkurve_tpu/seismology/core.py`` (reference
+``seismology/core.py``): the method dispatch, the result tray and the
+echelle diagram's data (the spectrum folded at Δν, host numpy).  The
+plots (``plot_echelle``, ``diagnose_*``) and ``interact_echelle`` are not
+ported.
+"""
+from __future__ import annotations
+
+import logging
+import warnings
+
+import numpy as np
+
+from ..periodogram import SNRPeriodogram
+from ..units import Quantity
+from ..utils import LightkurveWarning, validate_method
+from .utils import get_fwhm
+from .numax_estimators import estimate_numax_acf2d
+from .deltanu_estimators import estimate_deltanu_acf2d
+from .stellar_estimators import estimate_radius, estimate_mass, estimate_logg
+
+log = logging.getLogger(__name__)
+
+
+def _not_ported(what):
+    raise NotImplementedError(
+        f"{what} is not ported to lightkurve_tpu_torch (ROADMAP A5: "
+        "plotting, no matplotlib on the card's machine).")
+
+__all__ = ["Seismology"]
+
+
+class Seismology:
+    """Enables asteroseismic quantities to be estimated from periodograms
+    (reference ``seismology/core.py:37-920``)."""
+
+    def __init__(self, periodogram):
+        if not isinstance(periodogram, SNRPeriodogram):
+            warnings.warn(
+                "Seismology received a periodogram which does not appear to "
+                "have been background-corrected. Please consider calling "
+                "`periodogram.flatten()` prior to extracting seismological "
+                "parameters.", LightkurveWarning)
+        self.periodogram = periodogram
+
+    def __repr__(self):
+        attrs = ["numax", "deltanu", "mass", "radius", "logg"]
+        have = [a for a in attrs if hasattr(self, a)]
+        if not have:
+            tray = " - no values have been computed so far."
+        else:
+            tray = " - computed values:\n * " + "\n * ".join(
+                repr(getattr(self, a)) for a in have)
+        return f"Seismology(ID: {self.periodogram.label}){tray}"
+
+    @staticmethod
+    def from_lightcurve(lc, **kwargs):
+        log.info("Building a Seismology object directly from a light curve "
+                 "uses default periodogram parameters. For further "
+                 "tuneability, create a periodogram object first, using "
+                 "`to_periodogram`.")
+        return Seismology(periodogram=lc.normalize().remove_nans()
+                          .fill_gaps().to_periodogram(**kwargs).flatten())
+
+    def _validate_numax(self, numax):
+        if numax is None:
+            try:
+                return self.numax
+            except AttributeError:
+                raise AttributeError("You need to call "
+                                     "`Seismology.estimate_numax()` first.")
+        return numax
+
+    def _validate_deltanu(self, deltanu):
+        if deltanu is None:
+            try:
+                return self.deltanu
+            except AttributeError:
+                raise AttributeError("You need to call "
+                                     "`Seismology.estimate_deltanu()` first.")
+        return deltanu
+
+    # -- estimators -----------------------------------------------------------
+    def estimate_numax(self, method="acf2d", **kwargs):
+        """Estimate the frequency of maximum power (reference ``:597-650``)."""
+        method = validate_method(method, supported_methods=["acf2d"])
+        self.numax = estimate_numax_acf2d(self.periodogram, **kwargs)
+        return self.numax
+
+    def estimate_deltanu(self, method="acf2d", numax=None):
+        """Estimate the large frequency spacing (reference ``:676-736``)."""
+        method = validate_method(method, supported_methods=["acf2d"])
+        numax = self._validate_numax(numax)
+        self.deltanu = estimate_deltanu_acf2d(self.periodogram, numax=numax)
+        return self.deltanu
+
+    def diagnose_numax(self, numax=None):
+        """Diagnostic plot of the numax estimate (reference ``:652-674``):
+        not ported."""
+        _not_ported("Seismology.diagnose_numax")
+
+    def diagnose_deltanu(self, deltanu=None):
+        """Diagnostic plot of the deltanu estimate (reference
+        ``:738-758``): not ported."""
+        _not_ported("Seismology.diagnose_deltanu")
+
+    def estimate_radius(self, teff=None, numax=None, deltanu=None,
+                        teff_err=None, numax_err=None, deltanu_err=None):
+        """Stellar radius from scaling relations (reference ``:760-812``)."""
+        numax = self._validate_numax(numax)
+        deltanu = self._validate_deltanu(deltanu)
+        teff = self._teff(teff)
+        if numax_err is None:
+            numax_err = getattr(numax, "error", None)
+        if deltanu_err is None:
+            deltanu_err = getattr(deltanu, "error", None)
+        self.radius = estimate_radius(numax, deltanu, teff,
+                                      numax_err=numax_err,
+                                      deltanu_err=deltanu_err,
+                                      teff_err=teff_err)
+        return self.radius
+
+    def estimate_mass(self, teff=None, numax=None, deltanu=None,
+                      teff_err=None, numax_err=None, deltanu_err=None):
+        """Stellar mass from scaling relations (reference ``:814-866``)."""
+        numax = self._validate_numax(numax)
+        deltanu = self._validate_deltanu(deltanu)
+        teff = self._teff(teff)
+        if numax_err is None:
+            numax_err = getattr(numax, "error", None)
+        if deltanu_err is None:
+            deltanu_err = getattr(deltanu, "error", None)
+        self.mass = estimate_mass(numax, deltanu, teff, numax_err=numax_err,
+                                  deltanu_err=deltanu_err, teff_err=teff_err)
+        return self.mass
+
+    def estimate_logg(self, teff=None, numax=None, teff_err=None,
+                      numax_err=None):
+        """Surface gravity from scaling relations (reference ``:868-918``)."""
+        numax = self._validate_numax(numax)
+        teff = self._teff(teff)
+        if numax_err is None:
+            numax_err = getattr(numax, "error", None)
+        self.logg = estimate_logg(numax, teff, numax_err=numax_err,
+                                  teff_err=teff_err)
+        return self.logg
+
+    def _teff(self, teff):
+        if teff is None:
+            teff = self.periodogram.meta.get("TEFF")
+            if teff is None:
+                raise ValueError(
+                    "You must provide an effective temperature `teff`, "
+                    "because the metadata does not contain one.")
+        return teff
+
+    # -- echelle ---------------------------------------------------------------
+    def _clean_echelle(self, deltanu=None, numax=None,
+                       minimum_frequency=None, maximum_frequency=None,
+                       smooth_filter_width=0.1, scale="linear"):
+        """Build the folded power image (reference ``core.py:134-320``)."""
+        if minimum_frequency is None and maximum_frequency is None:
+            numax = self._validate_numax(numax)
+        deltanu = self._validate_deltanu(deltanu)
+        deltanu_v = float(Quantity(deltanu,
+                                   self.periodogram.frequency.unit).value)
+        if smooth_filter_width:
+            pg = self.periodogram.smooth(filter_width=smooth_filter_width)
+        else:
+            pg = self.periodogram
+        freq = pg.frequency.value
+        power = pg.power.value
+        fmin, fmax = freq[0], freq[-1]
+        if numax is not None and (minimum_frequency is not None
+                                  or maximum_frequency is not None):
+            warnings.warn("You have passed both a numax and a frequency "
+                          "limit. The frequency limit will override the "
+                          "numax input.", LightkurveWarning)
+        if numax is not None and minimum_frequency is None and \
+                maximum_frequency is None:
+            numax_v = float(Quantity(numax,
+                                     self.periodogram.frequency.unit).value)
+            fwhm = get_fwhm(self.periodogram, numax_v)
+            fmin = max(numax_v - 2 * fwhm, fmin)
+            fmax = min(numax_v + 2 * fwhm, fmax)
+        if minimum_frequency is not None:
+            fmin = float(Quantity(minimum_frequency,
+                                  self.periodogram.frequency.unit).value)
+        if maximum_frequency is not None:
+            fmax = float(Quantity(maximum_frequency,
+                                  self.periodogram.frequency.unit).value)
+        if fmin > freq[-1] or fmax > freq[-1] + deltanu_v:
+            raise ValueError("You can't pass a frequency limit above the "
+                             "periodogram's maximum frequency.")
+
+        fs = np.median(np.diff(freq))
+        # fold: rows of length deltanu
+        n_rows = int((fmax - fmin) / deltanu_v)
+        n_cols = int(deltanu_v / fs)
+        if n_rows < 1 or n_cols < 1:
+            raise ValueError("deltanu is too small to produce an echelle "
+                             "diagram on this grid.")
+        start = np.argmin(np.abs(freq - fmin))
+        ep = np.zeros((n_rows, n_cols))
+        for r in range(n_rows):
+            lo = start + r * n_cols
+            seg = power[lo: lo + n_cols]
+            ep[r, :len(seg)] = seg
+        x_f = (np.arange(n_cols) * fs) % deltanu_v
+        y_f = freq[start] + deltanu_v * np.arange(n_rows)
+        if scale == "log":
+            ep = np.log10(np.maximum(ep, 1e-30))
+        return ep, x_f, y_f
+
+    def plot_echelle(self, deltanu=None, numax=None, minimum_frequency=None,
+                     maximum_frequency=None, smooth_filter_width=0.1,
+                     scale="linear", ax=None, cmap="Blues", **kwargs):
+        """Plot the echelle diagram (reference ``core.py:322-501``): not
+        ported."""
+        _not_ported("Seismology.plot_echelle")
+
+    def interact_echelle(self, notebook_url=None, n_panels=5, **kwargs):
+        """The echelle explorer (reference ``core.py:502-640``): not
+        ported."""
+        raise NotImplementedError(
+            "Seismology.interact_echelle is not ported to "
+            "lightkurve_tpu_torch (ROADMAP A5: plotting, and A7: "
+            "interact_html's precompute).")

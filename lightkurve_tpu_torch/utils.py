@@ -34,6 +34,8 @@ __all__ = [
     "btjd_to_astropy_time",
     "calculate_bin_edges",
     "centroid_quadratic",
+    "channel_to_module_output",
+    "module_output_to_channel",
 ]
 
 
@@ -395,3 +397,28 @@ def calculate_bin_edges(x, bins):
             return bayesian_blocks(x)
         raise ValueError(f"unknown bin method {bins!r}")
     return np.histogram_bin_edges(x, bins=bins)
+
+
+# Kepler's CCD channels 1-84 map onto its 21 science modules (2-24 without
+# 5 and 21), 4 outputs per module, in channel order
+_KEPLER_MODULES = [2, 3, 4, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18,
+                   19, 20, 22, 23, 24]
+
+
+def channel_to_module_output(channel):
+    """Return (module, output) for a Kepler CCD channel number 1-84."""
+    channel = int(channel)
+    if channel < 1 or channel > 84:
+        raise ValueError("Channel number must be in the range 1-84.")
+    idx = channel - 1
+    return _KEPLER_MODULES[idx // 4], idx % 4 + 1
+
+
+def module_output_to_channel(module, output):
+    """Return the Kepler CCD channel for a (module, output) pair."""
+    module, output = int(module), int(output)
+    if module not in _KEPLER_MODULES:
+        raise ValueError(f"Module {module} is not a science module.")
+    if output < 1 or output > 4:
+        raise ValueError("Output must be in the range 1-4.")
+    return _KEPLER_MODULES.index(module) * 4 + output

@@ -371,7 +371,10 @@ def test_to_corrector_entry_points():
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         assert isinstance(lc.to_corrector("sff"), tcor.SFFCorrector)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lc.to_corrector("cbv")
+    # the CBV corrector wants e-/s fluxes, as the reference's does
+    jl, _ = sff_lcs(n=300)
+    for curve in (jl, lc):
+        with pytest.raises(ValueError, match="e-/s"):
+            curve.to_corrector("cbv")
     with pytest.raises(ValueError):
         lc.to_corrector("pld")

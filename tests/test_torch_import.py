@@ -1,7 +1,8 @@
 """lightkurve_tpu_torch imports without jax and without building anything
-(every module, the correctors included, and a light curve's SFF
-corrector runs without them), and chip_smoke.py refuses to run without a
-CUDA device."""
+(every module, the correctors, the CBV corrector, the seismology package
+and the science-product readers included; a light curve's SFF corrector
+and a spectrum's numax and Delta-nu run without them), and chip_smoke.py
+refuses to run without a CUDA device."""
 import os
 import shutil
 import subprocess
@@ -57,6 +58,16 @@ lc = pkg.KeplerLightCurve(time=tt, flux=1e4 * (1 - 4e-3 * ph ** 2)
 sff = lc.to_corrector("sff")
 assert type(sff) is pkg.SFFCorrector, type(sff)
 assert np.isfinite(sff.correct(windows=5).flux.value).all()
+from lightkurve_tpu_torch.periodogram import SNRPeriodogram
+from lightkurve_tpu_torch.units import Quantity
+freq = np.arange(1.0, 400.0, 0.1)
+power = 1 + sum(40 * np.exp(-0.5 * ((freq - 220) / 50) ** 2)
+                * np.exp(-0.5 * ((freq - 220 - k * 16.97) / 0.3) ** 2)
+                for k in range(-8, 9))
+seis = SNRPeriodogram(Quantity(freq, "uHz"), Quantity(power, "")
+                      ).to_seismology()
+assert abs(float(seis.estimate_numax().value) / 220 - 1) < 0.1
+assert abs(float(seis.estimate_deltanu().value) / 16.97 - 1) < 0.05
 from lightkurve_tpu_torch.ops import _build
 from lightkurve_tpu_torch.io import native
 assert not _build._LOADED and not native._LIB, "a library was loaded"
@@ -81,7 +92,11 @@ def test_slice_imports_without_jax_or_builds():
                  "targetpixelfile", "correctors", "correctors.designmatrix",
                  "correctors.corrector", "correctors.regressioncorrector",
                  "correctors.pldcorrector", "correctors.sffcorrector",
-                 "correctors.metrics"):
+                 "correctors.metrics", "correctors.cbvcorrector",
+                 "ops.acf", "seismology", "seismology.core",
+                 "seismology.utils", "seismology.numax_estimators",
+                 "seismology.deltanu_estimators",
+                 "seismology.stellar_estimators", "io.readers"):
         assert "lightkurve_tpu_torch." + name in modules
     out = subprocess.run([sys.executable, "-c", PROBE] + modules, cwd=ROOT,
                          env=_env(), capture_output=True, text=True,

@@ -153,7 +153,9 @@ def test_elasticnet_fista_matches_jax(l1_ratio):
     y = X @ w + 0.1 * rng.standard_normal(300)
     want = np.asarray(jsolve.elasticnet_fista(
         jnp.asarray(X), jnp.asarray(y), 0.05, l1_ratio))
-    got = tsolve.elasticnet_fista(t(X), t(y), 0.05, l1_ratio).numpy()
+    got, iterations = tsolve.elasticnet_fista(t(X), t(y), 0.05, l1_ratio)
+    got = got.numpy()
+    assert 0 < iterations < 50_000
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=1e-14)
 
 
