@@ -79,9 +79,10 @@ Phases:
      peak memory), flatten and bls_search over 1-9 d in four calls with
      the launches the route rule gives (K-WF x4 at 512 curves); the same
      search of the uncorrected aperture flux; call 4 through both routes
-     (K-WF; K-SF and K-W) within C2's bound, and K-WF, K-SF and K-W
-     against their plain versions on the inputs the entry point gives
-     them there (its 256 longest periods); recovery of the transits of
+     (K-WF; K-SF and K-W) within C2's bound, and K-WF and K-W against
+     their plain versions and K-SF against the float64 fold of its
+     float32 columns, on the inputs the entry point gives them there (its
+     256 longest periods); recovery of the transits of
      expected SNR >= 8.745 and no lower than the uncorrected search's; 4
      targets' float32 corrected flux against float64 on the CPU; (b)
      files written by the port's to_fits and read back (files/s): 8 TESS
@@ -118,6 +119,26 @@ Phases:
      at least lightkurve_tpu's on the same stars on the CPU; 2 giants and
      1 solar-like star against float64 on the CPU; no kernel may launch
      in (b);
+ 15. PRF photometry: (a) bench.py's two-star 9 x 9 GaussianPRF scene at
+     19,440 cadences (float32 images, 20 LM iterations, the fit in
+     float64 as ROADMAP C4 has it) through
+     PRFPhotometry.run, the second run timed (cadence-fits/s), the
+     medians within 5% (fluxes), 0.05 px (positions) and 20% (background)
+     of the truth, 2,048 cadences against the same fit on the CPU within
+     1e-12;
+     (b) phase 13's 8 TESS files through read ->
+     extract_prf_photometry() -> to_lightcurve(time=...) (timed per file
+     on a second pass), the all-NaN cadences' flux set to NaN, then
+     to_stack() -> flatten -> bls_search over 1-9 d in four calls (K-WF x4
+     by the route rule at 8 curves), the injected period within 1% on all
+     8, and K-WF and K-SF against their plain versions on call 4's
+     inputs; to_lightcurve(method="prf") on arange(n); 2 files' first
+     2,048 cadences against the same fit on the CPU within 1e-12 of the
+     median flux;
+     (c) phase 13's 4 K2 files through prf_lightcurve() (SimpleKeplerPRF
+     of the CHANNEL keyword), and one through a KeplerPRF read from a
+     calibration file the smoke writes, within 1e-4 of the same fit with
+     the Gaussian it was made from; no kernel may launch in the fits;
   9. one call past the one-hot fold's old memory ceiling: a year of
      two-minute cadences (262,800) x 2048 curves in float32, 4 periods
      near 300 d (~60,000 rows), through bls_power_shared_batch on the
@@ -138,7 +159,7 @@ Phases:
      one SweepRunner chunk's wall time per route through the entry point
      (the staged route at 8 periods per call), the route "auto" takes,
      the winners per (period, curve) against each other and C2's bound.
-Each path (the sweeps of phases 3, 4, 6, 7, 8, 10, 12, 13 and 14 on the
+Each path (the sweeps of phases 3, 4, 6, 7, 8, 10, 12, 13, 14 and 15 on the
 automatic route, the six forced-route runs of phases 4, 6 and 13, and
 phase 9) runs
 with every launch count set to 0 just before it and read just after; a
@@ -158,10 +179,11 @@ cell, phase 10's flatten, phase 11's default to_periodogram call and its
 fastchi2 call, phase 12's single-curve BLS periodogram, phase 13's
 pld_correct of its 512 targets and PLDCorrector.correct() of one TESS
 file, phase 14's correct_gaussian_prior and correct() of one CBV target
-and one giant's seismology chain, and two forced-route chunks instead (torch.profiler:
-device time per kernel, the device's idle share, each kernel's bound over
-the chunk; the Lomb-Scargle calls' and the BLS periodogram's launches
-and device time by kind of op).
+and one giant's seismology chain, phase 15's extract_prf_photometry of one
+TESS file, and two forced-route chunks instead (torch.profiler: device
+time per kernel, the device's idle share, each kernel's bound over the
+chunk; the Lomb-Scargle calls', the BLS periodogram's, the pixel calls'
+and the PRF fit's launches and device time by kind of op).
 
     python3 chip_smoke.py --ls-f64
 
@@ -973,6 +995,8 @@ def phase_main_shapes():
     import torch
     from lightkurve_tpu_torch.ops import (bls_fused, bls_fused_weighted,
                                           bls_window)
+    from lightkurve_tpu_torch.roofline import (bound_fused, bound_weighted,
+                                               bound_weighted_fused)
     errs, times, bounds, launches = {}, {}, {}, {}
     for dtype, P in ((torch.float64, 64), (torch.float32, 256)):
         f64 = dtype == torch.float64
@@ -1079,124 +1103,6 @@ def time_pair(name, kern, plain, args, run_plain=None):
     log(f"times {name}: kernel {k1:.3f}/{k2:.3f} ms, plain "
         f"{p1:.3f}/{p2:.3f} ms")
     return min(k1, k2), min(p1, p2)
-
-
-# ---------------------------------------------------------------------------
-# the least time the card could take (bound_ms): the larger of the bytes
-# the function must move (inputs read once, outputs written once) over the
-# memory rate, and its operations over the float32 rate
-# ---------------------------------------------------------------------------
-PEAK_BYTES_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
-PEAK_F32_S = 67e12          # H100 SXM float32 outside the tensor cores
-#: operations per window and curve of the weighted scan (K-W, K-WF), whose
-#: weights differ per curve: two prefix differences, w_out, the two
-#: reciprocals and their sum, depth (two products, one difference), the
-#: objective (two products) and the running-maximum compare
-OPS_WEIGHTED = 12
-#: the uniform scans (K-F, K-U) share the counts between curves: per window
-#: and curve they need the flux prefix difference, depth (two products,
-#: one difference), the objective (two products) and the compare ...
-OPS_UNIFORM_CURVE = 7
-#: ... and once per window for all curves n_in, n_out, the two
-#: reciprocals, their sum and 0.5 * n_in
-OPS_UNIFORM_WINDOW = 6
-
-
-def _windows(nbp, k_durs):
-    """Windows the scans evaluate per curve: every start bin r < nbins_p of
-    every duration k <= nbins_p, summed over the periods."""
-    nbp = np.asarray(nbp.cpu() if hasattr(nbp, "cpu") else nbp, np.int64)
-    return int(sum(int(p) * sum(k <= p for k in k_durs) for p in nbp))
-
-
-def _bound(nbytes, ops):
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_S
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
-
-
-def _outputs_bytes(C, B, item):
-    return 5 * C * B * item + C * 8          # five (C, B) fields, pc, nbins_p
-
-
-def _uniform_scan_ops(B, windows):
-    return (B * OPS_UNIFORM_CURVE + OPS_UNIFORM_WINDOW) * windows
-
-
-def _fold_ops(n, nbp, k_max, wrap):
-    """Adds per column of one fold over the periods: one deposit per
-    sample, the prefix of every row, and in wrap mode one add per wrap row
-    (the extension rows are total + prefix; no second deposit is
-    needed)."""
-    rows = int(np.sum(nbp + k_max - 1))
-    return n * len(nbp) + rows + (k_max - 1) * len(nbp) * bool(wrap)
-
-
-def bound_fused(ts, Y0, pc, k_durs, dur_values, d_phase, nbins, max_nbp,
-                like=True, wrap=True, chunk=8):
-    """K-F: reads the flux (n, B) and times once; per period it folds every
-    sample into each curve's column and the shared count column
-    (:func:`_fold_ops`) and scans the windows."""
-    from lightkurve_tpu_torch.ops.bls_fused import nbins_per_period
-    n, B = Y0.shape
-    item = Y0.element_size()
-    nbp = nbins_per_period(pc, d_phase).cpu().numpy()
-    fold = (B + 1) * _fold_ops(n, nbp, max(k_durs), wrap)
-    return _bound((n * B + n + B) * item + _outputs_bytes(len(nbp), B, item),
-                  fold + _uniform_scan_ops(B, _windows(nbp, k_durs)))
-
-
-def bound_weighted_fused(ts, W, WY, pc, k_durs, dur_values, d_phase, nbins,
-                         max_nbp, like=True, wrap=True, chunk=8):
-    """K-WF: reads W, WY (n, B) and the times once; per period it folds
-    every sample into each curve's two columns (:func:`_fold_ops`) and
-    scans the windows at 12 operations per window and curve."""
-    from lightkurve_tpu_torch.ops.bls_fused import nbins_per_period
-    n, B = W.shape
-    item = W.element_size()
-    nbp = nbins_per_period(pc, d_phase).cpu().numpy()
-    fold = 2 * B * _fold_ops(n, nbp, max(k_durs), wrap)
-    return _bound((2 * n * B + n + 2 * B) * item
-                  + _outputs_bytes(len(nbp), B, item),
-                  fold + B * OPS_WEIGHTED * _windows(nbp, k_durs))
-
-
-def bound_weighted(csum, nbp, pc, total, k_durs, dur_values, d_phase,
-                   like=True):
-    """K-W: reads the prefix sums (C, npad, 2B) once and scans the
-    windows of every curve."""
-    C, npad, twoB = csum.shape
-    item = csum.element_size()
-    return _bound(csum.numel() * item + twoB * item
-                  + _outputs_bytes(C, twoB // 2, item),
-                  twoB // 2 * OPS_WEIGHTED * _windows(nbp, k_durs))
-
-
-def bound_uniform(cs_y, cs_n, nbp, pc, tot_y, n_total, k_durs, dur_values,
-                  d_phase, like=True):
-    """K-U: reads the flux prefix sums (C, npad, B) and the count prefix
-    (C, npad) once and scans the windows of every curve."""
-    C, npad, B = cs_y.shape
-    item = cs_y.element_size()
-    return _bound((cs_y.numel() + cs_n.numel() + B) * item
-                  + _outputs_bytes(C, B, item),
-                  _uniform_scan_ops(B, _windows(nbp, k_durs)))
-
-
-def bound_staged_fold(ts, X, pc, d_phase, nbins, max_nbp, k_max, wrap=True):
-    """K-SF: per period it reads the row of ``X`` (n, cols) of each of its
-    m deposits (counted from this run's fold: the samples, and in wrap
-    mode those of the first npad - nbins_p rows again) and its int32
-    source, the npad + 1 row starts, and writes npad prefix rows; one add
-    per value read."""
-    from lightkurve_tpu_torch.ops.bls_fused import fold_rows
-    from lightkurve_tpu_torch.ops.bls_staged_fold import fold_deposits
-    cols, item = X.shape[1], X.element_size()
-    npad = fold_rows(nbins, max_nbp, k_max)
-    _, row_start, _ = fold_deposits(ts, pc, d_phase, nbins, npad, wrap)
-    m, C = int(row_start[:, -1].sum()), pc.shape[0]
-    return _bound((m + C * npad) * cols * item + (m + C * (npad + 1)) * 4,
-                  m * cols)
 
 
 # ---------------------------------------------------------------------------
@@ -1471,6 +1377,7 @@ def fold_times(x, slice_periods=8):
     from lightkurve_tpu_torch.ops.bls_fused import uniform_fold
     from lightkurve_tpu_torch.ops.bls_staged_fold import (staged_fold,
                                                           staged_fold_plain)
+    from lightkurve_tpu_torch.roofline import bound_staged_fold
     ts, Y0, pc = x["ts"], x["Y0"], x["pc"]
     k_durs, _, d_phase = x["common"]
     args = (ts, Y0, pc, d_phase, x["nbins"], x["max_nbp"], max(k_durs))
@@ -1516,6 +1423,7 @@ def phase_long_shapes(slice_periods=32):
     from lightkurve_tpu_torch.ops import bls_fused, bls_window
     from lightkurve_tpu_torch.ops.bls_staged_fold import (staged_fold,
                                                           staged_fold_plain)
+    from lightkurve_tpu_torch.roofline import bound_uniform
     kern, plain = (bls_window.window_scan_uniform,
                    bls_window.window_scan_uniform_plain)
     two = np.linspace(*TWO_SECTOR_GRID)
@@ -3132,19 +3040,59 @@ def entry_scan_args(stack, pvals):
     return seen[0]
 
 
+def fold_against_f64(name, ts, WWY, pc, d_phase, nbins, max_nbp, k_max,
+                     wrap, chunk):
+    """K-SF on the float32 columns ``WWY`` (n, cols), ``chunk`` periods a
+    launch as the staged route launches it, against the plain fold of the
+    same columns in float64 on the float32 run's bins: each prefix row
+    within :data:`F32_FOLD_TOL` of its column's sum |x|; the count prefix
+    and the bins equal to the plain version's in float32, whose rows are
+    measured against the float64 fold beside K-SF's (on nearly constant
+    weights torch's float32 cumsum on the card drifts past that bar,
+    ROADMAP C).  Returns K-SF's max |error| against the float64 fold and
+    each launch's (arguments, result)."""
+    import torch
+    from lightkurve_tpu_torch.ops.bls_staged_fold import (staged_fold,
+                                                          staged_fold_plain)
+    scale = WWY.double().abs().sum(0).clamp(
+        min=torch.finfo(torch.float64).tiny)
+    share = {"K-SF": 0.0, "plain": 0.0}
+    err, launches = 0.0, []
+    for i in range(0, pc.shape[0], chunk):
+        fold = (ts, WWY, pc[i:i + chunk], d_phase, nbins, max_nbp, k_max,
+                wrap)
+        got, plain = staged_fold(*fold), staged_fold_plain(*fold)
+        if not (torch.equal(got[1], plain[1])
+                and torch.equal(got[2], plain[2])):
+            raise AssertionError(f"{name}: count prefix or bins differ")
+        exact = staged_fold_plain(ts, WWY.double(), *fold[2:])[0]
+        for who, rows in (("K-SF", got[0]), ("plain", plain[0])):
+            d = (rows.double() - exact).abs()
+            share[who] = max(share[who], float((d / scale).max()))
+            if who == "K-SF":
+                err = max(err, float(d.max()))
+        launches.append((fold, got))
+    log(f"  {name} against the float64 fold: max |prefix error| {err:.3g}, "
+        f"{share['K-SF']:.3g} of a column's sum |x| (bar {F32_FOLD_TOL:g}); "
+        f"the plain version's float32 rows {share['plain']:.3g}")
+    if share["K-SF"] > F32_FOLD_TOL:
+        raise AssertionError(f"{name}: prefix rows off the float64 fold "
+                             "past the bar")
+    return err, launches
+
+
 def check_pixel_kernels(flat, pvals):
     """The kernels of phase 13 (a)'s call 4 against their plain versions
     on the inputs the entry point gives them there (:func:`entry_scan_args`
     of the flattened corrected stack at ``pvals``, its longest
     :data:`PIX_KERNEL_PERIODS` periods), at the float32 bars: K-WF in one
-    launch (:func:`compare`); K-SF (:func:`compare_fold`) and K-W on the
-    K-SF rows (:func:`compare`) 8 periods a launch, as the staged route
-    launches them.  Returns each kernel's max |error|."""
+    launch (:func:`compare`); K-SF against the float64 fold
+    (:func:`fold_against_f64`) and K-W on the K-SF rows (:func:`compare`)
+    8 periods a launch, as the staged route launches them.  Returns each
+    kernel's max |error|."""
     import torch
     from lightkurve_tpu_torch.ops import bls_fused_weighted as bfw
     from lightkurve_tpu_torch.ops import bls_window
-    from lightkurve_tpu_torch.ops.bls_staged_fold import (staged_fold,
-                                                          staged_fold_plain)
     args, kw = entry_scan_args(flat, pvals)
     ts, W, WY, pc, k_durs, dvals, d_phase, nbins, max_nbp, lik = args
     log(f"pixels, call 4 kernels: B={W.shape[1]} N={W.shape[0]} "
@@ -3157,19 +3105,14 @@ def check_pixel_kernels(flat, pvals):
     del got, want
     WWY = torch.cat([W, WY], dim=1)
     total = WWY.sum(0)
-    folds, scans, plains = [], [], []
-    for i in range(0, pc.shape[0], kw["chunk"]):
-        fold = (ts, WWY, pc[i:i + kw["chunk"]], d_phase, nbins, max_nbp,
-                max(k_durs), kw["wrap"])
-        csum, cn, nbp = staged_fold(*fold)
-        folds.append(((csum, cn, nbp), staged_fold_plain(*fold)))
+    errs["K-SF"], folds = fold_against_f64(
+        "K-SF pixels call 4", ts, WWY, pc, d_phase, nbins, max_nbp,
+        max(k_durs), kw["wrap"], kw["chunk"])
+    scans, plains = [], []
+    for fold, (csum, _, nbp) in folds:
         scan = (csum, nbp, fold[2], total, k_durs, dvals, d_phase, lik)
         scans.append(bls_window.window_scan(*scan))
         plains.append(bls_window.window_scan_plain(*scan))
-    cat = lambda parts: tuple(torch.cat(p) for p in zip(*parts))  # noqa
-    errs["K-SF"] = compare_fold("K-SF pixels call 4",
-                                cat([g for g, _ in folds]),
-                                cat([w for _, w in folds]), WWY, False)
     del folds
     errs["K-W"] = compare("K-W pixels call 4", *(
         {f: torch.cat([p[f] for p in parts]) for f in parts[0]}
@@ -3217,20 +3160,22 @@ def check_pixels_f64(px, card, n=PIX_F64_TARGETS):
     return dict(gap=gap, cdpp=ratio)
 
 
-def tess_tpfs(n=PIX_FILES, seed=PIX_SEED + 1):
+def tess_tpfs(n=PIX_FILES, seed=PIX_SEED + 1, device="cuda"):
     """:data:`PIX_FILES` TESS target pixel files of :func:`pixel_sector`
-    (brighter stars) as the port's ``TessTargetPixelFile``: SPOC's columns
+    (brighter stars, made on ``device``) as the port's
+    ``TessTargetPixelFile``: SPOC's columns
     (TIME, CADENCENO, FLUX, FLUX_ERR, FLUX_BKG, FLUX_BKG_ERR, QUALITY,
     POS_CORR1/2), the aperture extension (bit 2: the pipeline aperture,
     bit 4: background pixels beyond 4 px), a TAN WCS.  Returns them and
     the injected periods."""
     import torch
     from lightkurve_tpu_torch.targetpixelfile import TessTargetPixelFile
-    stack, truth = pixel_sector(n, seed, "cuda", flux_range=PIX_FILE_FLUX)
+    stack, truth = pixel_sector(n, seed, device, flux_range=PIX_FILE_FLUX)
     flux, err = stack.flux.cpu().numpy(), stack.flux_err.cpu().numpy()
     ap = stack.aperture.cpu().numpy()
     del stack
-    torch.cuda.empty_cache()
+    if device != "cpu":
+        torch.cuda.empty_cache()
     H, W = PIX_SHAPE
     yy, xx = np.mgrid[:H, :W]
     far = np.hypot(xx - (W - 1) / 2, yy - (H - 1) / 2) > 4.0
@@ -3869,49 +3814,31 @@ def cbv_search(lcs, truth, card, tag):
                                          launch_periods=16))
 
 
-def check_cbv_kernels(flat, pvals):
+def check_weighted_kernels(label, flat, pvals):
     """K-WF against its plain version on the inputs the entry point gives
-    it at call 4 of phase 14 (a)'s corrected search (:func:`entry_scan_args`,
-    its longest :data:`PIX_KERNEL_PERIODS` periods), at the float32 bars
-    (:func:`compare`).  Then K-SF's prefix rows on the same float32
-    columns (the staged route's fold, which the route rule does not take
-    here) against the plain fold of those columns in float64 (the float32
-    run's bins), within the fold bar of a column's sum |x|; the plain
-    version's float32 rows are measured beside it: on these targets'
-    nearly constant weights torch's float32 cumsum on the card drifts
-    past that bar (ROADMAP C).  Returns K-WF's max |error|."""
+    it at call 4 of a weighted search of ``flat`` (:func:`entry_scan_args`,
+    its longest :data:`PIX_KERNEL_PERIODS` periods ``pvals``), at the
+    float32 bars (:func:`compare`): phase 14 (a)'s corrected search and
+    phase 15 (b)'s.  Then K-SF on the same float32 columns (the staged
+    route's fold, which the route rule does not take there) against the
+    float64 fold (:func:`fold_against_f64`).  Returns each kernel's max
+    |error|."""
     import torch
     from lightkurve_tpu_torch.ops import bls_fused_weighted as bfw
-    from lightkurve_tpu_torch.ops.bls_staged_fold import (staged_fold,
-                                                          staged_fold_plain)
     args, kw = entry_scan_args(flat, pvals)
     ts, W, WY, pc, k_durs, dvals, d_phase, nbins, max_nbp, lik = args
-    log(f"cbv, call 4 kernels: B={W.shape[1]} N={W.shape[0]} "
+    log(f"{label}, call 4 kernels: B={W.shape[1]} N={W.shape[0]} "
         f"P={pc.shape[0]} (periods {float(pc[0]):.4f}-{float(pc[-1]):.4f} "
         f"d, {max_nbp} bins, fold sized for {nbins}) {W.dtype}")
     got, want = bfw.fused_scan_weighted(*args, **kw), \
         bfw.fused_scan_weighted_plain(*args, **kw)
-    err = compare("K-WF cbv call 4", got, want, False)[0]
+    errs = {"K-WF": compare(f"K-WF {label} call 4", got, want, False)[0]}
     del got, want
-    WWY = torch.cat([W, WY], dim=1)
-    scale = WWY.double().abs().sum(0)
-    share = {"K-SF": 0.0, "plain": 0.0}
-    for i in range(0, pc.shape[0], kw["chunk"]):
-        fold = (ts, WWY, pc[i:i + kw["chunk"]], d_phase, nbins, max_nbp,
-                max(k_durs), kw["wrap"])
-        exact = staged_fold_plain(ts, WWY.double(), *fold[2:])[0]
-        for name, rows in (("K-SF", staged_fold(*fold)[0]),
-                           ("plain", staged_fold_plain(*fold)[0])):
-            d = (rows.double() - exact).abs() / scale
-            share[name] = max(share[name], float(d.max()))
-    log(f"  K-SF cbv call 4 against the float64 fold: prefix rows within "
-        f"{share['K-SF']:.3g} of a column's sum |x| (bar {F32_FOLD_TOL:g}); "
-        f"the plain version's float32 rows {share['plain']:.3g}")
-    if share["K-SF"] > F32_FOLD_TOL:
-        raise AssertionError("K-SF cbv call 4: prefix rows off the float64 "
-                             "fold past the bar")
+    errs["K-SF"], _ = fold_against_f64(
+        f"K-SF {label} call 4", ts, torch.cat([W, WY], dim=1), pc, d_phase,
+        nbins, max_nbp, max(k_durs), kw["wrap"], kw["chunk"])
     torch.cuda.empty_cache()
-    return {"K-WF": err}
+    return errs
 
 
 def phase_cbv_search(cbv, card):
@@ -4228,8 +4155,9 @@ def phase_cbv_seismology(tmp, card, sweep, runs):
     """Phase 14, each part a path of its own: (a) the per-target CBV
     corrections (no kernel may launch), the search of the corrected
     curves and of the uncorrected SAP flux (their launches as the route
-    rule gives them, through ``sweep``), K-WF, K-SF and K-W against their
-    plain versions on the corrected search's call 4; (b) the seismology
+    rule gives them, through ``sweep``), K-WF against its plain version
+    and K-SF against the float64 fold on the corrected search's call 4;
+    (b) the seismology
     of the Kepler stars (no kernel may launch).  Adds the paths' launches
     to ``runs``; returns the numbers and the kernels' errors."""
     import torch
@@ -4241,7 +4169,8 @@ def phase_cbv_seismology(tmp, card, sweep, runs):
     raw = sweep("CBV, uncorrected -> search (phase 14)", phase_cbv_raw, cbv,
                 found, card)
     call4 = np.linspace(*LONG_GRID)[3072:]
-    errs = check_cbv_kernels(found.pop("flat"), call4[-PIX_KERNEL_PERIODS:])
+    errs = check_weighted_kernels("cbv", found.pop("flat"),
+                                  call4[-PIX_KERNEL_PERIODS:])
     raw.pop("flat")
     numbers = dict(per_target_s=cbv["per_target_s"],
                    correct_s=cbv["correct_s"], elasticnet=cbv["elasticnet"],
@@ -4262,6 +4191,291 @@ def phase_cbv_seismology(tmp, card, sweep, runs):
 
 
 # ---------------------------------------------------------------------------
+# phase 15: PRF photometry on the card, then the search
+# ---------------------------------------------------------------------------
+#: bench.py's two-star 9 x 9 GaussianPRF scene (its ``_c_prf`` cell) at one
+#: TESS sector of two-minute images, 20 LM iterations, noise of 2 e/s
+PRF_TRUTH = np.array([2.83, 3.12, 5000.0, 6.17, 5.88, 3000.0, 40.0])
+PRF_NOISE = 2.0
+PRF_ITERS = 20
+PRF_SEED = 2036
+#: the scene's bars (bench.py's prf_two_star_flux_ok and the reference's
+#: two-star test): each star's median flux, its position and the background
+PRF_FLUX_RTOL = 0.05
+PRF_POS_ATOL = 0.05
+PRF_BKG_RTOL = 0.2
+#: cadences of the card's fit (float64, ROADMAP C4) held against the same
+#: fit on the CPU on the same float32 images, and the bar: the scene's
+#: fitted parameters relative to themselves, the files' PRF flux relative
+#: to its median
+PRF_F64_CADENCES = 2048
+PRF_F64_RTOL = 1e-12
+#: the calibration-file PRF against the Gaussian it was made from
+PRF_KEPLER_RTOL = 1e-4
+PRF_SIGMA_KEPLER = 1.5 / 2.3548
+
+
+def prf_scene_model():
+    """The bench's two-star scene model (the port's classes)."""
+    from lightkurve_tpu_torch.prf import (BackgroundPrior, GaussianPRF,
+                                          GaussianPrior, StarPrior, TPFModel,
+                                          UniformPrior)
+    prf = GaussianPRF(shape=(9, 9), column=0, row=0)
+    stars = [StarPrior(col=GaussianPrior(2.8, 0.5),
+                       row=GaussianPrior(3.1, 0.5),
+                       flux=UniformPrior(0.0, 2e4)),
+             StarPrior(col=GaussianPrior(6.2, 0.5),
+                       row=GaussianPrior(5.9, 0.5),
+                       flux=UniformPrior(0.0, 2e4))]
+    return TPFModel(star_priors=stars, prfmodel=prf,
+                    background_prior=BackgroundPrior(
+                        flux=UniformPrior(0.0, 100.0)))
+
+
+def prf_scene(card, n=LONG_N):
+    """Phase 15 (a): the scene's images at ``n`` cadences (made in float64
+    on the host, the truth plus Gaussian noise) as a float32 cube on the
+    card, fitted there by ``PRFPhotometry.run`` (20 iterations, in float64
+    as ROADMAP C4 has it; the second run timed by
+    ``diagnostics.KernelTimer``); the medians against the truth; the first
+    :data:`PRF_F64_CADENCES` against the same fit on the CPU on the same
+    float32 images.  Returns the numbers."""
+    import torch
+    from lightkurve_tpu_torch import diagnostics
+    from lightkurve_tpu_torch.prf import PRFPhotometry
+    model = prf_scene_model()
+    img = model.predict_from_array(torch.as_tensor(PRF_TRUTH)).numpy()
+    rng = np.random.default_rng(PRF_SEED)
+    cube = torch.as_tensor(img[None] + PRF_NOISE * rng.standard_normal(
+        (n,) + img.shape), device="cuda").float()
+    phot = PRFPhotometry(model)
+    phot.run(cube, n_iter=PRF_ITERS)
+    with diagnostics.KernelTimer("prf scene, second run"):
+        fitted = phot.run(cube, n_iter=PRF_ITERS)
+    secs = diagnostics.report()["prf scene, second run"]["max_s"]
+    med = np.median(fitted.astype(float), axis=0)
+    t = PRF_TRUTH
+    flux = [abs(med[i] - t[i]) / t[i] for i in (2, 5)]
+    pos = [abs(med[i] - t[i]) for i in (0, 1, 3, 4)]
+    bkg = abs(med[6] - t[6]) / t[6]
+    cpu = PRFPhotometry(model).run(cube[:PRF_F64_CADENCES].cpu().double(),
+                                   n_iter=PRF_ITERS)
+    gap = float(np.max(np.abs(fitted[:PRF_F64_CADENCES] - cpu)
+                       / np.abs(cpu)))
+    log(f"PRF scene: {n} cadences x 9x9, 2 stars + background, "
+        f"{PRF_ITERS} iterations, float32 images: second run "
+        f"{secs * 1e3:.3f} ms "
+        f"({n / secs:.6g} cadence-fits/s); median fluxes off the truth by "
+        f"{flux[0]:.3g}, {flux[1]:.3g} (bar {PRF_FLUX_RTOL:g}), positions by "
+        f"{max(pos):.3g} px (bar {PRF_POS_ATOL:g}), background by {bkg:.3g} "
+        f"(bar {PRF_BKG_RTOL:g}); {PRF_F64_CADENCES} cadences, the card's "
+        f"float64 fit against the CPU's: {gap:.3g} relative at most (bar "
+        f"{PRF_F64_RTOL:g}); "
+        f"losses finite {bool(np.isfinite(phot.losses).all())} [{card}]")
+    if max(flux) > PRF_FLUX_RTOL or max(pos) > PRF_POS_ATOL or \
+            bkg > PRF_BKG_RTOL:
+        raise AssertionError("PRF scene: the fit missed the truth")
+    if gap > PRF_F64_RTOL or not np.isfinite(phot.losses).all():
+        raise AssertionError("PRF scene: the card's fit differs from the "
+                             "CPU's past the bar, or a loss is not finite")
+    return dict(seconds=secs, rate=n / secs, flux=max(flux), pos=max(pos),
+                bkg=bkg, f64_gap=gap)
+
+
+def prf_lightcurve(tpf):
+    """``extract_prf_photometry()`` of a TESS TPF as a light curve on its
+    time axis, the flux of cadences whose image is all NaN set to NaN (the
+    reference fits those as zero images)."""
+    from lightkurve_tpu_torch.lightcurve import TessLightCurve
+    lc = tpf.extract_prf_photometry().to_lightcurve(time=tpf.time.value)
+    empty = np.isnan(tpf.flux.value).all(axis=(1, 2))
+    return TessLightCurve(time=lc.time.value,
+                          flux=np.where(empty, np.nan, lc.flux.value),
+                          meta=dict(tpf.meta))
+
+
+def prf_files(tmp, card):
+    """Phase 15 (b): phase 13 (b)'s TESS files written by ``to_fits``, each
+    through ``read`` and :func:`prf_lightcurve` (a second pass timed per
+    file by ``diagnostics.KernelTimer``); ``to_lightcurve(method="prf")``'s
+    time axis ``arange(n)``; the first :data:`PRF_F64_CADENCES` cadences of
+    :data:`PIX_F64_FILES` files against the same fit on the CPU.  No BLS
+    kernel may launch here.  Returns the light curves, the injected
+    periods and the numbers."""
+    import torch
+    from lightkurve_tpu_torch import config, diagnostics
+    from lightkurve_tpu_torch.io.read import read
+    paths, p_inj, _ = write_tess_tpfs(os.path.join(tmp, "prf_tess"))
+    tpfs = [read(p) for p in paths]
+    lcs = [prf_lightcurve(tpf) for tpf in tpfs]
+    per_file = []
+    for i, tpf in enumerate(tpfs):
+        name = f"prf file {i}"
+        with diagnostics.KernelTimer(name):
+            lcs[i] = prf_lightcurve(tpf)
+        per_file.append(diagnostics.report()[name]["max_s"])
+    for i, lc in enumerate(lcs):
+        ok = np.isfinite(lc.flux.value)
+        if ok.sum() < 0.9 * LONG_N or np.median(lc.flux.value[ok]) <= 0:
+            raise AssertionError(f"PRF file {i}: flux mostly non-finite or "
+                                 "not positive")
+    arange = tpfs[0].to_lightcurve(method="prf")
+    if not np.array_equal(arange.time.value,
+                          np.arange(len(tpfs[0].time), dtype=float)):
+        raise AssertionError("PRF: to_lightcurve(method='prf')'s time axis "
+                             "is not arange(n)")
+    cads = np.arange(PRF_F64_CADENCES)
+    prev = (config.default_device, config.default_dtype)
+    config.default_device, config.default_dtype = "cpu", torch.float64
+    try:
+        f64 = [tpf.extract_prf_photometry(cadences=cads).opt_params[:, 2]
+               for tpf in tpfs[:PIX_F64_FILES]]
+    finally:
+        config.default_device, config.default_dtype = prev
+    gap = 0.0
+    for tpf, lc, want in zip(tpfs, lcs, f64):
+        empty = np.isnan(tpf.flux.value[cads]).all(axis=(1, 2))
+        got = lc.flux.value[cads]
+        gap = max(gap, float(np.max(np.abs(got - want)[~empty])
+                             / np.median(want[~empty])))
+    med_ms = float(np.median(per_file)) * 1e3
+    log(f"PRF files: {len(paths)} TESS TPFs ({LONG_N} x {PIX_SHAPE[0]}x"
+        f"{PIX_SHAPE[1]}) through read -> extract_prf_photometry (GaussianPRF, "
+        f"one star and the background) -> to_lightcurve: second pass "
+        f"{med_ms:.3f} ms a file (median; {min(per_file) * 1e3:.3f}-"
+        f"{max(per_file) * 1e3:.3f}); to_lightcurve(method='prf') on "
+        f"arange(n); {PIX_F64_FILES} files' first {PRF_F64_CADENCES} cadences, "
+        f"the card's float64 fit against the CPU's: {gap:.3g} of the median "
+        f"flux (bar "
+        f"{PRF_F64_RTOL:g}) [{card}]")
+    if gap > PRF_F64_RTOL:
+        raise AssertionError("PRF files: the card's fit differs from the "
+                             "CPU's past the bar")
+    return dict(lcs=lcs, p_inj=p_inj, per_file_ms=med_ms, f64_gap=gap)
+
+
+def prf_search(files, card):
+    """Phase 15 (b), the search: ``LightCurveCollection(lcs).to_stack()``
+    on the card, ``flatten`` and ``bls_search`` over 1-9 d in four calls
+    (:func:`pixel_search`); the injected period within 1% on every file.
+    Returns the numbers and the flattened stack."""
+    from lightkurve_tpu_torch.collections import LightCurveCollection
+    stack = LightCurveCollection(files["lcs"]).to_stack()
+    flat, best, secs = pixel_search(stack)
+    share = recovery(best["period"], files["p_inj"])
+    log(f"PRF -> search: to_stack -> flatten -> bls_search B={len(stack)} "
+        f"P={LONG_GRID[2]} in 4 calls: {secs:.3f}s; recovered {share:.4f} "
+        f"(periods {np.round(best['period'], 4).tolist()}, injected "
+        f"{np.round(files['p_inj'], 4).tolist()}) [{card}]")
+    if share < 1.0:
+        raise AssertionError("PRF -> search: an injected period was missed")
+    return dict(flat=flat, seconds=secs, recovered=share,
+                routes=expected_launches(flat, np.linspace(*LONG_GRID), 1024,
+                                         launch_periods=16))
+
+
+def write_kepler_prf(directory, channel):
+    """A ``kplrMM.O_*_prf.fits`` calibration file of ``channel`` whose five
+    images (four corners and the centre) are the supersampled Gaussian of
+    ``GaussianPRF(sigma=1.5/2.3548, oversample=50)``, written by the port's
+    FITS writer."""
+    from lightkurve_tpu_torch.io.fits import (HDUList, Header, ImageHDU,
+                                              PrimaryHDU)
+    from lightkurve_tpu_torch.prf import GaussianPRF
+    from lightkurve_tpu_torch.utils import channel_to_module_output
+    img = GaussianPRF((1, 1), sigma=PRF_SIGMA_KEPLER, oversample=50
+                      ).supersampled_prf.astype(">f4")
+    hdus = [PrimaryHDU(header=Header({"SIMPLE": True}))]
+    for crval1, crval2 in ((12, 20), (12, 1044), (1111, 20), (1111, 1044),
+                           (550, 532)):
+        hdus.append(ImageHDU(data=img, header=Header(
+            {"CRVAL1P": crval1, "CRVAL2P": crval2})))
+    module, output = channel_to_module_output(channel)
+    os.makedirs(directory, exist_ok=True)
+    HDUList(hdus).writeto(os.path.join(
+        directory, f"kplr{module:02}.{output}_2011265_prf.fits"),
+        overwrite=True)
+
+
+def prf_kepler(tmp, card):
+    """Phase 15 (c): phase 13 (b)'s K2 files through ``prf_lightcurve()``
+    (``SimpleKeplerPRF`` of the CHANNEL keyword; a second pass timed), then
+    one file's fit with the ``KeplerPRF`` of a calibration file
+    (:func:`write_kepler_prf`) against the same fit with the Gaussian it
+    was made from.  No BLS kernel may launch here."""
+    from lightkurve_tpu_torch import diagnostics
+    from lightkurve_tpu_torch.io.read import read
+    from lightkurve_tpu_torch.prf import GaussianPRF, SimpleKeplerPRF
+    paths, _ = write_k2_tpfs(os.path.join(tmp, "prf_k2"))
+    tpfs = [read(p) for p in paths]
+    for tpf in tpfs:
+        tpf.prf_lightcurve()
+    per_file = []
+    for i, tpf in enumerate(tpfs):
+        name = f"prf k2 file {i}"
+        with diagnostics.KernelTimer(name):
+            lc = tpf.prf_lightcurve()
+        per_file.append(diagnostics.report()[name]["max_s"])
+        if type(tpf.get_model().prfmodel) is not SimpleKeplerPRF or \
+                lc.meta["CHANNEL"] != tpf.channel or \
+                not np.isfinite(lc.flux.value).all() or \
+                not np.array_equal(lc.time.value, tpf.time.value):
+            raise AssertionError(f"PRF, K2 file {i}: the light curve's PRF, "
+                                 "meta, time or flux is wrong")
+    cal = os.path.join(tmp, "prf_cal")
+    tpf = tpfs[0]
+    write_kepler_prf(cal, tpf.channel)
+    kepler = tpf.extract_prf_photometry(
+        prf=tpf.get_prf_model(prf_dir=cal)).opt_params[:, 2]
+    gauss = tpf.extract_prf_photometry(prf=GaussianPRF(
+        shape=tpf.shape[1:], column=tpf.column, row=tpf.row,
+        sigma=PRF_SIGMA_KEPLER, oversample=50)).opt_params[:, 2]
+    gap = float(np.max(np.abs(kepler - gauss) / np.abs(gauss)))
+    med_ms = float(np.median(per_file)) * 1e3
+    log(f"PRF, K2 files: {len(paths)} files ({K2_N} x {K2_SHAPE[0]}x"
+        f"{K2_SHAPE[1]}) through prf_lightcurve(): {med_ms:.3f} ms a file "
+        f"(median, second pass); KeplerPRF from a calibration file against "
+        f"its Gaussian: flux within {gap:.3g} relative (bar "
+        f"{PRF_KEPLER_RTOL:g}) [{card}]")
+    if gap > PRF_KEPLER_RTOL:
+        raise AssertionError("PRF: the calibration-file fit differs from the "
+                             "Gaussian's")
+    return dict(per_file_ms=med_ms, kepler_gap=gap)
+
+
+def phase_prf(tmp, card, sweep, runs):
+    """Phase 15, each part a path of its own: (a) the bench's scene at a
+    sector's length, (b) the TESS files' PRF photometry (no kernel may
+    launch) and its search (the launches the route rule gives, through
+    ``sweep``) with K-WF and K-SF against their plain versions on its call
+    4 (:func:`check_weighted_kernels`), (c) the K2 files and the
+    calibration-file PRF (no kernel may launch).  Adds the paths' launches
+    to ``runs``; returns the numbers and the kernels' errors."""
+    import torch
+    t0 = time.time()
+    out = {}
+    out["scene"], runs["PRF, scene (phase 15)"] = drive(
+        "PRF, scene (phase 15)", prf_scene, card,
+        forbid=tuple(kernel_table()))
+    files, runs["PRF, TESS files (phase 15)"] = drive(
+        "PRF, TESS files (phase 15)", prf_files, tmp, card,
+        forbid=tuple(kernel_table()))
+    out["search"] = sweep("PRF -> search (phase 15)", prf_search, files,
+                          card)
+    call4 = np.linspace(*LONG_GRID)[3072:]
+    errs = check_weighted_kernels("prf", out["search"].pop("flat"),
+                                  call4[-PIX_KERNEL_PERIODS:])
+    out["files"] = {k: files[k] for k in ("per_file_ms", "f64_gap")}
+    del files
+    out["kepler"], runs["PRF, K2 files (phase 15)"] = drive(
+        "PRF, K2 files (phase 15)", prf_kepler, tmp, card,
+        forbid=tuple(kernel_table()))
+    torch.cuda.empty_cache()
+    log(f"phase 15: {time.time() - t0:.1f}s")
+    return out, errs
+
+
+# ---------------------------------------------------------------------------
 # --profile: one full-size sweep chunk per regime under torch.profiler
 # ---------------------------------------------------------------------------
 def chunk_bounds(stack, periods, impl, launch_periods=8):
@@ -4278,6 +4492,9 @@ def chunk_bounds(stack, periods, impl, launch_periods=8):
                                                     max_nbins_bound,
                                                     nbins_per_period)
     from lightkurve_tpu_torch.parallel.checkpoint import _chunk_nbins, _k_max
+    from lightkurve_tpu_torch.roofline import (bound_fused, bound_staged_fold,
+                                               bound_uniform, bound_weighted,
+                                               bound_weighted_fused)
     dtype = stack.flux.dtype
     n = stack.shape[1]
     uniform = is_uniform(stack)
@@ -4337,8 +4554,9 @@ def phase_profile(tmp, B=2048):
     curve of that sector (the reference's default grid); phase 13's
     ``pld_correct`` of its 512 targets and ``PLDCorrector.correct()`` of
     one of its TESS files; phase 14's ``correct_gaussian_prior`` and
-    ``correct()`` of one CBV target and one giant's seismology chain
-    (device time by kind of op); and
+    ``correct()`` of one CBV target and one giant's seismology chain;
+    phase 15's ``extract_prf_photometry`` of one TESS file (device time
+    by kind of op); and
     the two forced chunks of phases 4 and 6 (the weighted cell's first
     2048 periods on the staged route, the two-sector chunk 4 on the fused
     one) through the entry point (:func:`route_call`).  Prints device
@@ -4415,7 +4633,9 @@ def phase_profile(tmp, B=2048):
              ("CBV correct() with the alpha search, one target, phase 14",
               cbv_paths[0], (), "cbv_correct"),
              ("seismology chain, one KEPSEISMIC giant, phase 14", giant_lc,
-              (), "seismology"))
+              (), "seismology"),
+             ("extract_prf_photometry, one TESS file, phase 15", tess_file,
+              (), "prf"))
     for i, (name, stack, periods, impl) in enumerate(cells):
         def chunk(tag):
             if impl == "flatten":
@@ -4440,6 +4660,8 @@ def phase_profile(tmp, B=2048):
                     neighbor_flux=cbv_nb, verbose=False)
             elif impl == "seismology":
                 seismology_chain(stack, giant["teff"])
+            elif impl == "prf":
+                stack.extract_prf_photometry()
             elif impl == "auto":
                 SweepRunner(stack, periods, DURATIONS,
                             os.path.join(tmp, f"profile_{i}_{tag}.npz"),
@@ -4474,9 +4696,9 @@ def phase_profile(tmp, B=2048):
         device = sum(us for us, _ in by_name.values())
         kinds = ("periodogram", "fastchi2", "bls_periodogram", "pld_correct",
                  "pld_corrector", "cbv_gaussian", "cbv_correct",
-                 "seismology")
+                 "seismology", "prf")
         shape = (f"pixels {tuple(stack.flux.shape)}"
-                 if impl in ("pld_correct", "pld_corrector")
+                 if impl in ("pld_correct", "pld_corrector", "prf")
                  else f"one target, {LONG_N} cadences"
                  if impl.startswith("cbv")
                  else f"{len(stack)} cadences" if impl == "seismology"
@@ -4501,7 +4723,8 @@ def phase_profile(tmp, B=2048):
 
 def op_kinds(by_name):
     """Device time (us) of a trace's kernels summed by kind: sorts (cub's
-    radix sorts), scatters (``index_add_``), FFTs (cuFFT), dense solver
+    radix sorts), scatters and gathers (``index_add_``, indexing: the
+    ``scatter`` kind), FFTs (cuFFT), dense solver
     kernels (QR, SVD, Cholesky, LU: cuSOLVER, MAGMA), matrix products
     (cuBLAS, CUTLASS), reductions, and elementwise ops with copies and the
     rest."""
@@ -4657,6 +4880,7 @@ def main():
         px_numbers, files = phase_pixels(tmp, card, sweep, runs)
         px_errs = px_numbers.pop("errs")
         p14, p14_errs = phase_cbv_seismology(tmp, card, sweep, runs)
+        prf, prf_errs = phase_prf(tmp, card, sweep, runs)
     torch.cuda.empty_cache()
     ls = phase_ls()
     path = "past the one-hot ceiling (phase 9)"
@@ -4671,7 +4895,7 @@ def main():
     for key, (e, t, b, per) in long.items():
         errs[key], times[key], bounds[key], per_launch[key] = e, t, b, per
     errs["K-F"] = max(errs["K-F"], kf_err)
-    for key, e in (*px_errs.items(), *p14_errs.items()):
+    for key, e in (*px_errs.items(), *p14_errs.items(), *prf_errs.items()):
         errs[key] = max(errs[key], e)
     phase_routes()
     log(f"main paths: uniform {uni['rate']:.6g}, weighted "
@@ -4687,7 +4911,11 @@ def main():
         f"{1 / p14['per_target_s']:.6g} targets/s, search after CBV "
         f"recovered {p14['recovered_bright']:.4f} of SNR >= {PIX_SNR:g}; "
         f"seismology {p14['seismology']['stars_per_s']:.6g} stars/s, "
-        f"recovered {p14['seismology']['recovered']:.4f}; LS sector "
+        f"recovered {p14['seismology']['recovered']:.4f}; PRF scene "
+        f"{prf['scene']['rate']:.6g} cadence-fits/s, TESS file "
+        f"{prf['files']['per_file_ms']:.3f} ms, search after PRF recovered "
+        f"{prf['search']['recovered']:.4f}, K2 file "
+        f"{prf['kepler']['per_file_ms']:.3f} ms; LS sector "
         f"{ls['sector']['rate']:.6g}, "
         f"LS bench shape {ls['bench']['rate']:.6g} curve-frequency "
         f"evals/s; per-curve fast "

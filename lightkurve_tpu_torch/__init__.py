@@ -26,7 +26,12 @@ opens the high-level science products (QLP, K2SFF, EVEREST, CDIPS,
 PATHOS, TASOC, KEPSEISMIC, TGLC, ELEANOR, K2SC).  A periodogram's or a
 light curve's ``to_seismology`` gives numax, Δν and the scaling-relation
 estimates (:mod:`.seismology`; the windows' autocorrelations in one
-batched FFT, :mod:`.ops.acf`).
+batched FFT, :mod:`.ops.acf`).  PRF photometry fits a scene of stars and
+a background to every cadence of a TPF at once (:mod:`.prf`, batched
+Levenberg-Marquardt; ``TargetPixelFile.extract_prf_photometry``).
+:mod:`.diagnostics` traces and times regions on the card;
+:mod:`.roofline` counts the work of the hot paths against the card's
+published peaks.
 
 Modules mirror ``lightkurve_tpu``'s names.  Importing the package builds
 nothing and needs neither a GPU nor ``nvcc``: kernels compile on first use
@@ -38,6 +43,8 @@ package never imports ``jax``.
 import importlib
 
 __version__ = "0.1.0"
+
+from . import diagnostics  # noqa: E402
 
 _LAZY = {
     "LightCurve": ".lightcurve",

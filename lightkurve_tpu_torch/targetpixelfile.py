@@ -10,9 +10,10 @@ centroids, the background estimate) run as torch functions
 ``"cpu"``); the masks, the quadratic centroid and the WCS are host numpy.
 A stack of targets is :class:`lightkurve_tpu_torch.batch.TPFStack`.
 
-Plotting and the interactive widgets (no matplotlib or bokeh on the card's
-machine), PRF photometry and the solar-system query (network) are not
-ported: they raise and name their ROADMAP item.
+PRF photometry runs through :mod:`.prf` (one batched fit of every
+cadence on the device).  Plotting and the interactive widgets (no
+matplotlib or bokeh on the card's machine) and the solar-system query
+(network) are not ported: they raise and name their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -41,7 +42,6 @@ __all__ = ["TargetPixelFile", "KeplerTargetPixelFile",
 NOT_PORTED = {
     "plotting": "A6's remainder (plotting and the interactive widgets: "
                 "no matplotlib or bokeh on the card's machine)",
-    "prf": "A7 (PRF photometry, prf/*)",
     "network": "none: it needs the network, which the port does not use",
 }
 
@@ -647,13 +647,23 @@ class TargetPixelFile:
     # ------------------------------------------------------------------
     # PRF photometry (reference :2347-2403)
     # ------------------------------------------------------------------
-    def extract_prf_photometry(self, *args, **kwargs):
-        """PRF photometry (reference ``:2347-2403``): not ported."""
-        _not_ported("extract_prf_photometry", "prf")
+    def extract_prf_photometry(self, cadences=None, parallel=True, **kwargs):
+        """Fit the TPF cube with a PRF scene model (reference
+        ``targetpixelfile.py:2347-2403``): every cadence, or those in
+        ``cadences``, in one batched fit on :data:`config.default_device`
+        (``parallel`` is accepted and ignored)."""
+        from .prf import PRFPhotometry, TPFModel
+        model = kwargs.pop("model", None)
+        if model is None:
+            model = TPFModel.from_tpf(self, **kwargs)
+        phot = PRFPhotometry(model)
+        phot.run(self.flux.value, cadences=cadences)
+        return phot
 
-    def get_model(self, *args, **kwargs):
-        """The PRF scene model: not ported."""
-        _not_ported("get_model", "prf")
+    def get_model(self, star_priors=None, **kwargs):
+        """The PRF scene model of this TPF (:meth:`TPFModel.from_tpf`)."""
+        from .prf import TPFModel
+        return TPFModel.from_tpf(self, star_priors=star_priors, **kwargs)
 
     @property
     def astropy_time(self):
@@ -773,13 +783,33 @@ class KeplerTargetPixelFile(TargetPixelFile):
                         "CHANNEL": self.channel, "MISSION": self.mission})
         return lc
 
-    def get_prf_model(self, *args, **kwargs):
-        """The Kepler PRF model: not ported."""
-        _not_ported("get_prf_model", "prf")
+    def get_prf_model(self, prf_dir=None):
+        """A PRF model of this TPF's channel, column and row: the
+        calibration-file :class:`~.prf.KeplerPRF` when a local calibration
+        directory is given, else the analytic
+        :class:`~.prf.SimpleKeplerPRF` (nothing is downloaded)."""
+        from .prf import KeplerPRF, SimpleKeplerPRF
+        shape = self.shape[1:]
+        if prf_dir is not None:
+            return KeplerPRF(channel=self.channel, shape=shape,
+                             column=self.column, row=self.row,
+                             prf_dir=prf_dir)
+        return SimpleKeplerPRF(channel=self.channel, shape=shape,
+                               column=self.column, row=self.row)
 
-    def prf_lightcurve(self, *args, **kwargs):
-        """A PRF-photometry light curve: not ported."""
-        _not_ported("prf_lightcurve", "prf")
+    def prf_lightcurve(self, **kwargs):
+        """PRF-photometry light curve on the TPF's time axis with mission
+        meta attached (reference ``targetpixelfile.py:2383-2403``)."""
+        lc = self.extract_prf_photometry(**kwargs).to_lightcurve(
+            time=self.time.value)
+        lc.meta.update({
+            "QUALITY": None, "CHANNEL": self.channel,
+            "CAMPAIGN": self.campaign, "QUARTER": self.quarter,
+            "MISSION": self.mission, "RA_OBJ": self.ra,
+            "DEC_OBJ": self.dec, "TARGETID": self.targetid,
+        })
+        return KeplerLightCurve(time=lc.time.value, flux=lc.flux,
+                                meta=lc.meta)
 
 
 class TessTargetPixelFile(TargetPixelFile):

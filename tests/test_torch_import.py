@@ -1,7 +1,8 @@
 """lightkurve_tpu_torch imports without jax and without building anything
-(every module, the correctors, the CBV corrector, the seismology package
-and the science-product readers included; a light curve's SFF corrector
-and a spectrum's numax and Delta-nu run without them), and chip_smoke.py
+(every module, the correctors, the CBV corrector, the seismology package,
+the science-product readers, PRF photometry, models, diagnostics and
+roofline included; a light curve's SFF corrector, a spectrum's numax and
+Delta-nu and a 4-cadence PRF fit run without them), and chip_smoke.py
 refuses to run without a CUDA device."""
 import os
 import shutil
@@ -68,6 +69,20 @@ seis = SNRPeriodogram(Quantity(freq, "uHz"), Quantity(power, "")
                       ).to_seismology()
 assert abs(float(seis.estimate_numax().value) / 220 - 1) < 0.1
 assert abs(float(seis.estimate_deltanu().value) / 16.97 - 1) < 0.05
+from lightkurve_tpu_torch.prf import (GaussianPRF, GaussianPrior,
+                                      PRFPhotometry, StarPrior, TPFModel,
+                                      UniformPrior)
+from lightkurve_tpu_torch import models, diagnostics, roofline
+assert models.PRFPhotometry is PRFPhotometry
+prf = GaussianPRF(shape=(5, 5))
+scene = TPFModel([StarPrior(GaussianPrior(2.4, 1.0), GaussianPrior(2.6, 1.0),
+                            UniformPrior(0.0, 400.0))], prfmodel=prf)
+img = scene.predict([2.5, 2.5, 100.0, 0.0])
+fitted = PRFPhotometry(scene).run(np.stack([img] * 4), device="cpu")
+assert fitted.shape == (4, 4) and np.allclose(fitted[:, 2], 100.0, rtol=1e-3)
+with diagnostics.KernelTimer("probe", device="cpu"):
+    pass
+assert roofline.device_peaks("cpu")["kind"] == "cpu"
 from lightkurve_tpu_torch.ops import _build
 from lightkurve_tpu_torch.io import native
 assert not _build._LOADED and not native._LIB, "a library was loaded"
@@ -96,7 +111,9 @@ def test_slice_imports_without_jax_or_builds():
                  "ops.acf", "seismology", "seismology.core",
                  "seismology.utils", "seismology.numax_estimators",
                  "seismology.deltanu_estimators",
-                 "seismology.stellar_estimators", "io.readers"):
+                 "seismology.stellar_estimators", "io.readers", "prf",
+                 "prf.prfmodel", "prf.tpfmodel", "models", "diagnostics",
+                 "roofline"):
         assert "lightkurve_tpu_torch." + name in modules
     out = subprocess.run([sys.executable, "-c", PROBE] + modules, cwd=ROOT,
                          env=_env(), capture_output=True, text=True,

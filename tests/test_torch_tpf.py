@@ -323,12 +323,11 @@ def test_read_tpf_collection_and_refusals(tmp_path):
     assert isinstance(coll, TColl) and len(coll) == 3
     t = coll[0]
     for name in ("plot", "plot_pixels", "animate", "interact",
-                 "interact_sky", "extract_prf_photometry", "get_model",
-                 "query_solar_system_objects"):
+                 "interact_sky", "query_solar_system_objects"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             getattr(t, name)()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t.to_lightcurve(method="prf")
+    lc = t.to_lightcurve(method="prf")
+    assert len(lc) == len(t) and np.isfinite(lc.flux.value).all()
 
 
 def stack_pair(n_targets=4, n=150, shape=(7, 7)):
