@@ -139,6 +139,36 @@ Phases:
      of the CHANNEL keyword), and one through a KeplerPRF read from a
      calibration file the smoke writes, within 1e-4 of the same fit with
      the Gaussian it was made from; no kernel may launch in the fits;
+ 16. the archive search and the explorers (HOME, XDG_* and
+     LIGHTKURVE_CACHE_DIR inside the run's temporary directory): 512
+     targets x 2 sectors of phase 10's data (19,440 cadences each, the
+     second sector 27.4 d after the first, transits of 1.2-17 d) written
+     as 1,024 SPOC-named TESS light-curve files, and 8 SPOC-named pixel
+     files of phase 13 (b); (a) every target through
+     search_lightcurve("TIC ...", author="SPOC", exptime=120,
+     archive_dir=...) -> download_all() -> stitch() twice (the second
+     pass timed: targets/s, files/s), LightCurveCollection(stitched)
+     .to_stack() on the card (timed), bit-equal to the stack of
+     read_lc_collection of the same paths stitched per target, flatten
+     (window 901) and bls_search over 1-18 d in four calls (K-WF x4 by the
+     route rule at 512 curves), recovery of 99%, K-WF and K-SF against
+     their plain versions on call 4's inputs; (b) 16 targets through a
+     RecordedMASTTransport listing the same products: rows and
+     download_all() equal to the archive scan's; (c) 64 FFIs of 256 x 256
+     as the transport's ffi_sectors: search_tesscut -> download(
+     cutout_size=11) equal to the host's cut, to_lightcurve() on the card
+     within 1e-6 of the CPU's float64; (d) interact_bls(html=...) on one
+     stitched curve (20,000 periods and refined grids at up to 8 peaks;
+     seconds, second call) against the card's float64 page, a
+     2,000-period page in float32 and
+     float64 on the card against the CPU's float64 (power within 1e-5 and
+     1e-9 of the peak plus one printed digit, the same best period or a
+     tie; every precompute on the card), the pixel, sky (25 sources
+     through the TPF's WCS) pages, whose data the host computes, equal to
+     the CPU's float64 pages, and the echelle page (one KEPSEISMIC giant)
+     within 5e-4 of the float64 page's peak, a one-bin shift of that
+     spectrum reading above it; search -> stitch at least 25 targets/s
+     and the explorer under 2 s; no kernel may launch in (b)-(d);
   9. one call past the one-hot fold's old memory ceiling: a year of
      two-minute cadences (262,800) x 2048 curves in float32, 4 periods
      near 300 d (~60,000 rows), through bls_power_shared_batch on the
@@ -159,9 +189,9 @@ Phases:
      one SweepRunner chunk's wall time per route through the entry point
      (the staged route at 8 periods per call), the route "auto" takes,
      the winners per (period, curve) against each other and C2's bound.
-Each path (the sweeps of phases 3, 4, 6, 7, 8, 10, 12, 13, 14 and 15 on the
-automatic route, the six forced-route runs of phases 4, 6 and 13, and
-phase 9) runs
+Each path (the sweeps of phases 3, 4, 6, 7, 8, 10, 12, 13, 14, 15 and 16
+on the automatic route, the six forced-route runs of phases 4, 6 and 13,
+and phase 9) runs
 with every launch count set to 0 just before it and read just after; a
 path fails if a plain version ran, and a sweep fails unless its launches
 are what the route rule (ops.bls.fold_route) gives its chunks.  The
@@ -180,10 +210,12 @@ fastchi2 call, phase 12's single-curve BLS periodogram, phase 13's
 pld_correct of its 512 targets and PLDCorrector.correct() of one TESS
 file, phase 14's correct_gaussian_prior and correct() of one CBV target
 and one giant's seismology chain, phase 15's extract_prf_photometry of one
-TESS file, and two forced-route chunks instead (torch.profiler: device
-time per kernel, the device's idle share, each kernel's bound over the
-chunk; the Lomb-Scargle calls', the BLS periodogram's, the pixel calls'
-and the PRF fit's launches and device time by kind of op).
+TESS file, phase 16's search -> download_all -> stitch of one target and
+interact_bls(html=...) of its stitched curve, and two forced-route chunks
+instead (torch.profiler: device time per kernel, the device's idle share,
+each kernel's bound over the chunk; the Lomb-Scargle calls', the BLS
+periodogram's, the pixel calls', the PRF fit's, the search's and the
+explorer's launches and device time by kind of op).
 
     python3 chip_smoke.py --ls-f64
 
@@ -195,6 +227,7 @@ import argparse
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -1815,19 +1848,21 @@ def torch_default_tf32():
 
 
 def flatten_arrays(B=2048, seed=2031, depth=FLATTEN_DEPTH,
-                   rotation=FLATTEN_ROTATION):
+                   rotation=FLATTEN_ROTATION, periods=(1.2, 8.5), t=None):
     """Phase 10's SPOC-like batch as host arrays (time, flux, flux_err,
     mask): B curves over one 27-d sector of two-minute cadences (19,440)
-    with a mid-sector downlink gap; per-cadence dy 0.7-1.3 x 2e-4; a
-    stellar trend per curve (a sinusoid of 0.5-1% at a period in
-    ``rotation`` and a linear drift of up to 0.5% over the sector); one
-    box transit of 0.1 d and ``depth`` each (periods 1.2-8.5 d); ~0.1%
-    outliers at 10 dy; ~3% masked cadences.  Returns the arrays, the
-    injected transit periods and the rotation periods."""
+    with a mid-sector downlink gap, or over the times ``t``; per-cadence
+    dy 0.7-1.3 x 2e-4; a stellar trend per curve (a sinusoid of 0.5-1% at
+    a period in ``rotation`` and a linear drift of up to 0.5% over the
+    span); one box transit of 0.1 d and ``depth`` each (periods in
+    ``periods``, d); ~0.1% outliers at 10 dy; ~3% masked cadences.
+    Returns the arrays, the injected transit periods and the rotation
+    periods."""
     from tools import make_sector as ms
     rng = np.random.default_rng(seed)
-    t = sector_times(1)
-    t[LONG_N // 2:] += DOWNLINK_GAP_DAYS
+    if t is None:
+        t = sector_times(1)
+        t[LONG_N // 2:] += DOWNLINK_GAP_DAYS
     shape = (B, t.size)
     dy = ms.NOISE * rng.uniform(0.7, 1.3, shape)
     amplitude = rng.uniform(0.005, 0.01, (B, 1))
@@ -1836,7 +1871,7 @@ def flatten_arrays(B=2048, seed=2031, depth=FLATTEN_DEPTH,
         2 * np.pi * t / p_rot + rng.uniform(0, 2 * np.pi, (B, 1)))
         + rng.uniform(-0.005, 0.005, (B, 1)) * (t - t[0]) / (t[-1] - t[0]))
     flux = np.ones(shape)
-    p_inj = rng.uniform(1.2, 8.5, B)
+    p_inj = rng.uniform(*periods, B)
     inject_transits(flux, t, p_inj, rng, depth)
     flux = flux * trend + dy * rng.standard_normal(shape)
     out = rng.random(shape) < 0.001
@@ -2430,15 +2465,21 @@ LC_FOLD_BIN = 0.01
 LC_MIN_PERIOD = LONG_GRID[0]
 
 
-def write_lc_sector(directory, arrays):
+def write_lc_sector(directory, arrays, names=None, tics=None, sector=99):
     """Phase 10's sector as SPOC-style TESS light-curve files (TIME,
     PDCSAP_FLUX, PDCSAP_FLUX_ERR, QUALITY), written with the port's FITS
     writer: every file flags the same :data:`LC_EVENTS` cadences with
     :data:`LC_EVENT_FLAG`; each curve's own masked cadences have NaN flux
-    and no flag.  Returns the paths."""
+    and no flag.  ``names`` (file names), ``tics`` (TIC ids) and
+    ``sector`` default to ``tess-s0099-{i:016d}_lc.fits``, ``i`` and 99.
+    Returns the paths."""
     from lightkurve_tpu_torch.io.fits import (BinTableHDU, HDUList, Header,
                                               PrimaryHDU, write_fits)
     t, flux, dy, mask = arrays
+    if names is None:
+        names = [f"tess-s0099-{i:016d}_lc.fits" for i in range(len(flux))]
+    if tics is None:
+        tics = list(range(len(flux)))
     os.makedirs(directory, exist_ok=True)
     quality = np.zeros(t.shape[1], np.int32)
     quality[LC_EVENTS] = LC_EVENT_FLAG
@@ -2447,11 +2488,12 @@ def write_lc_sector(directory, arrays):
                     "TUNIT2": "e-/s", "TUNIT3": "e-/s"}
     paths = []
     for i in range(len(flux)):
-        path = os.path.join(directory, f"tess-s0099-{i:016d}_lc.fits")
+        path = os.path.join(directory, names[i])
         ph = Header({"TELESCOP": "TESS", "MISSION": "TESS",
                      "ORIGIN": "NASA/Ames",
                      "CREATOR": "LightCurveExporterPipelineModule",
-                     "OBJECT": f"TIC {i}", "TICID": i, "SECTOR": 99})
+                     "OBJECT": f"TIC {tics[i]}", "TICID": int(tics[i]),
+                     "SECTOR": sector})
         table = BinTableHDU(data={
             "TIME": t[i],
             "PDCSAP_FLUX": np.where(mask[i], flux[i], np.nan).astype(
@@ -4476,6 +4518,674 @@ def phase_prf(tmp, card, sweep, runs):
 
 
 # ---------------------------------------------------------------------------
+# phase 16: the archive search and the explorers on the card
+# ---------------------------------------------------------------------------
+#: the archive's targets, each observed in two consecutive sectors
+ARC_B = 512
+ARC_SEED = 2037
+#: the sectors with their SPOC file-name stamps and release numbers; the
+#: second starts SECTOR_DAYS after the first (phase 6's times)
+ARC_SECTORS = ((14, "2019198215352", "0150"), (15, "2019226182529", "0151"))
+#: TIC ids of 9 digits, spread over the catalogue
+ARC_TIC0, ARC_TIC_STEP = 141_000_000, 104_729
+#: injected transit periods (d): at least three transits in two sectors
+ARC_PERIODS = (1.2, 17.0)
+#: targets also searched through a recorded MAST transport
+ARC_MAST = 16
+#: TESScut: the sector's FFIs, their size and the cutout's
+ARC_FFIS = 64
+ARC_FFI_SHAPE = (256, 256)
+ARC_CUTOUT = 11
+#: the card's float32 cutout photometry against the CPU's float64
+ARC_CUTOUT_RTOL = 1e-6
+#: the BLS explorer's base grid (``interact_bls(html=...)``'s least) and
+#: the smaller page held against the CPU's float64 run
+ARC_BLS_RESOLUTION = 20_000
+ARC_SMALL_PAGE = dict(resolution=2000, refine_peaks=2)
+#: the explorer's power: float32 on the card within this share of the
+#: peak of float64 (C3), float64 on the card within the CPU tests' share
+#: of the CPU's; both plus one unit in the last printed digit
+ARC_PAGE_F32_RTOL = 1e-5
+ARC_PAGE_F64_RTOL = 1e-9
+#: the sky page's catalogue: sources placed through the TPF's own WCS
+ARC_SKY_SOURCES = 25
+#: the echelle page's SNR spectrum, float32 on the card, within this share
+#: of the float64 page's peak (1.96e-4 in three runs on an H100); the
+#: control, the float64 spectrum one frequency bin off, must read above it
+ARC_ECHELLE_RTOL = 5e-4
+#: PERF.md section 2's limits: search -> download_all -> stitch targets/s
+#: and the seconds to write one stitched curve's BLS explorer
+ARC_TARGETS_PER_S = 25.0
+ARC_PAGE_SECONDS = 2.0
+
+
+def archive_tics(B=ARC_B):
+    return ARC_TIC0 + ARC_TIC_STEP * np.arange(B)
+
+
+def archive_name(tic, sector, kind="lc"):
+    """SPOC's file name of a target's light curve (``kind="lc"``) or
+    pixel file (``"tp"``) in one of :data:`ARC_SECTORS`."""
+    stamp, release = next((st, rel) for sec, st, rel in ARC_SECTORS
+                          if sec == sector)
+    return f"tess{stamp}-s{sector:04d}-{int(tic):016d}-{release}-s_{kind}.fits"
+
+
+@contextlib.contextmanager
+def archive_env(tmp):
+    """``HOME``, ``XDG_CONFIG_HOME``, ``XDG_CACHE_HOME`` and
+    ``LIGHTKURVE_CACHE_DIR`` inside ``tmp``, no archive or MAST variables
+    and no configured cache directory inside the block; restored after."""
+    from lightkurve_tpu_torch.config import conf
+    homes = ("HOME", "XDG_CONFIG_HOME", "XDG_CACHE_HOME",
+             "LIGHTKURVE_CACHE_DIR")
+    unset = ("LIGHTKURVE_TPU_ARCHIVE", "LIGHTKURVE_TPU_MAST_FIXTURES",
+             "LIGHTKURVE_TPU_MAST_HTTP")
+    saved = {k: os.environ.get(k) for k in homes + unset}
+    saved_cache = conf.cache_dir
+    for k in unset:
+        os.environ.pop(k, None)
+    for k in homes:
+        os.environ[k] = os.path.join(tmp, "env", k.lower())
+        os.makedirs(os.environ[k], exist_ok=True)
+    conf.cache_dir = None
+    try:
+        yield
+    finally:
+        conf.cache_dir = saved_cache
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def port_on(device, dtype):
+    """The single-curve classes' device and dtype inside the block."""
+    from lightkurve_tpu_torch import config
+    prev = (config.default_device, config.default_dtype)
+    config.default_device, config.default_dtype = device, dtype
+    try:
+        yield
+    finally:
+        config.default_device, config.default_dtype = prev
+
+
+@contextlib.contextmanager
+def bls_devices(seen):
+    """Append the device of every per-curve binned BLS result (the BLS
+    explorer's precompute) to ``seen`` inside the block."""
+    from lightkurve_tpu_torch.ops import bls
+    real = bls.bls_power_binned
+
+    def spy(*args, **kwargs):
+        out = real(*args, **kwargs)
+        seen.append(out["power"].device.type)
+        return out
+
+    bls.bls_power_binned = spy
+    try:
+        yield
+    finally:
+        bls.bls_power_binned = real
+
+
+def archive_files(tmp, card, B=ARC_B):
+    """Phase 16's archive: :data:`ARC_B` targets in the two
+    :data:`ARC_SECTORS`, phase 10's data (:func:`flatten_arrays`) over
+    phase 6's two-sector times with transits of 1.2-17 d, written by
+    :func:`write_lc_sector` under SPOC's names (1,024 light-curve files),
+    and :func:`tess_tpfs`'s 8 pixel files under the first 8 targets'
+    SPOC names.  Returns the directory, each target's two paths (sector
+    order), the TIC ids, the injected periods and the pixel files."""
+    arrays, p_inj, _ = flatten_arrays(B, ARC_SEED, periods=ARC_PERIODS,
+                                      t=sector_times(2))
+    tics = archive_tics(B)
+    directory = os.path.join(tmp, "archive")
+    t0 = time.perf_counter()
+    by_sector = []
+    for k, (sector, _, _) in enumerate(ARC_SECTORS):
+        part = tuple(a[:, k * LONG_N:(k + 1) * LONG_N] for a in arrays)
+        by_sector.append(write_lc_sector(
+            directory, part, names=[archive_name(tic, sector)
+                                    for tic in tics],
+            tics=tics, sector=sector))
+    lc_s = time.perf_counter() - t0
+    tpfs, _ = tess_tpfs()
+    t0 = time.perf_counter()
+    tpf_paths = []
+    for tic, tpf in zip(tics, tpfs):
+        tpf.meta.update(OBJECT=f"TIC {tic}", TICID=int(tic),
+                        SECTOR=ARC_SECTORS[0][0])
+        path = os.path.join(directory, archive_name(tic, ARC_SECTORS[0][0],
+                                                    "tp"))
+        tpf.to_fits(path, overwrite=True)
+        tpf_paths.append(path)
+    log(f"archive: wrote {2 * B} SPOC-named light-curve files (2 "
+        f"sectors x {B} targets x {LONG_N} cadences) in {lc_s:.3f}s and "
+        f"{len(tpf_paths)} pixel files in {time.perf_counter() - t0:.3f}s "
+        f"[{card}]")
+    return dict(dir=directory, paths=list(zip(*by_sector)), tics=tics,
+                p_inj=p_inj, tpf_paths=tpf_paths)
+
+
+def archive_target(tic, directory):
+    """One target's ``search_lightcurve(f"TIC {tic}", author="SPOC",
+    exptime=120, archive_dir=...)``."""
+    from lightkurve_tpu_torch.search import search_lightcurve
+    return search_lightcurve(f"TIC {tic}", author="SPOC", exptime=120,
+                             archive_dir=directory)
+
+
+def archive_pass(files):
+    """Every target's search -> ``download_all()`` -> ``stitch()``;
+    returns (result, stitched curve) per target."""
+    out = []
+    for tic in files["tics"]:
+        result = archive_target(tic, files["dir"])
+        out.append((result, result.download_all().stitch()))
+    return out
+
+
+def archive_search(files, card, chunk_periods=1024):
+    """Phase 16 (a): every target through :func:`archive_pass` twice (the
+    second pass timed: targets/s and files/s), each result the target's
+    two files in sector order; ``LightCurveCollection(stitched)
+    .to_stack()`` on the card in float32 (one time grid; timed), bit-equal
+    to the stack of ``read_lc_collection`` of the same 1,024 paths
+    stitched per target; ``flatten`` (:data:`FLATTEN_KW`) and
+    ``bls_search`` over :data:`TWO_SECTOR_GRID` in four calls; recovery of
+    :data:`RECOVERY_SHARE`.  Returns the numbers, the routes the rule
+    gives, the flattened stack and the second pass's results."""
+    import torch
+    from lightkurve_tpu_torch.collections import LightCurveCollection
+    from lightkurve_tpu_torch.io.read import read_lc_collection
+    B = len(files["tics"])
+    t0 = time.perf_counter()
+    first = archive_pass(files)
+    cold_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    second = archive_pass(files)
+    warm_s = time.perf_counter() - t0
+    for (result, lc), (_, lc1), paths in zip(second, first, files["paths"]):
+        if [r["path"] for r in result.table] != list(paths) or \
+                not np.array_equal(lc.flux.value, lc1.flux.value,
+                                   equal_nan=True):
+            raise AssertionError(f"archive: the search of {paths[0]} did "
+                                 "not give its two sectors in order, or "
+                                 "the two passes differ")
+    stitched = [lc for _, lc in second]
+    log(f"archive: search -> download_all -> stitch of {B} targets (2 "
+        f"files each): {warm_s:.3f}s on the second pass, "
+        f"{B / warm_s:.6g} targets/s (limit {ARC_TARGETS_PER_S:g}), "
+        f"{2 * B / warm_s:.6g} files/s; first pass {cold_s:.3f}s [{card}]")
+    start_sweep()
+    stack, stack_s = sync_timed(
+        lambda: LightCurveCollection(stitched).to_stack())
+    n = len(stitched[0])
+    if (stack.shape != (B, n) or stack.device.type != "cuda"
+            or stack.flux.dtype != torch.float32
+            or not bool(torch.all(stack.time == stack.time[0:1]))):
+        raise AssertionError("archive: to_stack() is not one float32 time "
+                             "grid on the card")
+    t0 = time.perf_counter()
+    coll = read_lc_collection([p for pair in files["paths"] for p in pair])
+    direct = LightCurveCollection([
+        LightCurveCollection([coll[2 * i], coll[2 * i + 1]]).stitch()
+        for i in range(B)]).to_stack()
+    direct_s = time.perf_counter() - t0
+    same = {f: bool(torch.equal(getattr(stack, f), getattr(direct, f)))
+            for f in ("time", "flux", "flux_err", "mask")}
+    log(f"archive: to_stack() {stack_s:.3f}s, shape {stack.shape}; against "
+        f"read_lc_collection of the same {2 * B} paths stitched per target "
+        f"({direct_s:.3f}s): bit-equal {same} [{card}]")
+    if not all(same.values()):
+        raise AssertionError("archive: the searched stack differs from the "
+                             "direct read's")
+    del direct, coll
+    start_sweep()
+    flat, flatten_s = sync_timed(lambda: stack.flatten(**FLATTEN_KW))
+    periods = np.linspace(*TWO_SECTOR_GRID)
+    routes = expected_launches(flat, periods, chunk_periods,
+                               launch_periods=16)
+    start_sweep()
+    t0 = time.perf_counter()
+    best = lc_search(flat, periods, chunk_periods)
+    search_s = time.perf_counter() - t0
+    share = recovery(best["period"], files["p_inj"])
+    rate = B * len(periods) / search_s
+    missed = np.flatnonzero(np.abs(best["period"] - files["p_inj"])
+                            / files["p_inj"] >= RECOVERY_RTOL)
+    log(f"archive: stack.flatten (window 901) {flatten_s:.3f}s; bls_search "
+        f"B={B} N={n} P={len(periods)} in {len(periods) // chunk_periods} "
+        f"calls {search_s:.3f}s ({rate:.6g} curve-period evals/s); "
+        f"recovered {share:.4f}; missed (injected -> found, d): "
+        + ", ".join(f"{files['p_inj'][i]:.4f} -> {best['period'][i]:.4f}"
+                    for i in missed[:12])
+        + f"; {peak_memory()} [{card}]")
+    if share < RECOVERY_SHARE:
+        raise AssertionError(f"archive recovery {share} < {RECOVERY_SHARE}")
+    if B / warm_s < ARC_TARGETS_PER_S:
+        raise AssertionError(f"archive: {B / warm_s} targets/s < "
+                             f"{ARC_TARGETS_PER_S}")
+    return dict(cold_s=cold_s, seconds=warm_s, targets_per_s=B / warm_s,
+                files_per_s=2 * B / warm_s, stack_s=stack_s,
+                flatten_s=flatten_s, search_s=search_s, rate=rate,
+                recovered=share, routes=routes, flat=flat, results=second)
+
+
+def archive_mast(tmp, files, results, card):
+    """Phase 16 (b): :data:`ARC_MAST` targets through a
+    ``RecordedMASTTransport`` whose fixture lists their two products as
+    MAST's observations and products tables: each search's rows (file,
+    target, mission, author, exptime, sector) equal the archive scan's,
+    and its ``download_all()`` (into a download directory) the same
+    curves bit for bit.  No kernel may launch."""
+    from lightkurve_tpu_torch.mast import RecordedMASTTransport
+    from lightkurve_tpu_torch.search import search_lightcurve
+    observations, products = [], []
+    for i, tic in enumerate(files["tics"][:ARC_MAST]):
+        for (sector, _, _), path in zip(ARC_SECTORS, files["paths"][i]):
+            obs_id = f"tess_s{sector:04d}_{tic}"
+            name = os.path.basename(path)
+            observations.append({
+                "obs_id": obs_id, "target_name": str(tic),
+                "s_ra": 80.0 + 0.01 * i, "s_dec": -70.0, "project": "TESS",
+                "provenance_name": "SPOC", "t_exptime": 120,
+                "sequence_number": sector, "dataproduct_type": "timeseries",
+                "description": f"TESS Sector {sector}"})
+            products.append({"obs_id": obs_id, "productFilename": name,
+                             "description": "Light curves",
+                             "dataURI": f"mast:TESS/product/{name}",
+                             "local_path": path})
+    transport = RecordedMASTTransport({"observations": observations,
+                                       "products": products})
+    keys = ("productFilename", "target_name", "mission", "author",
+            "sequence_number")
+    t0 = time.perf_counter()
+    for i, tic in enumerate(files["tics"][:ARC_MAST]):
+        got = search_lightcurve(f"TIC {tic}", author="SPOC", exptime=120,
+                                transport=transport)
+        want = results[i][0]
+        rows = [tuple(r[k] for k in keys) + (float(r["exptime"]),)
+                for r in got.table]
+        if rows != [tuple(r[k] for k in keys) + (float(r["exptime"]),)
+                    for r in want.table]:
+            raise AssertionError(f"archive, MAST: TIC {tic}'s rows differ "
+                                 "from the archive scan's")
+        for a, b in zip(got.download_all(download_dir=os.path.join(
+                tmp, "mast_download")), want.download_all()):
+            if not all(np.array_equal(getattr(a, c).value,
+                                      getattr(b, c).value, equal_nan=True)
+                       for c in ("time", "flux", "flux_err")):
+                raise AssertionError(f"archive, MAST: TIC {tic}'s download "
+                                     "differs from the archive scan's")
+    secs = time.perf_counter() - t0
+    log(f"archive, MAST: {ARC_MAST} targets through the recorded "
+        f"transport ({len(observations)} observations, {len(products)} "
+        f"products): rows and download_all equal to the archive scan's; "
+        f"{secs:.3f}s [{card}]")
+    return dict(seconds=secs)
+
+
+def archive_tesscut(tmp, files, card):
+    """Phase 16 (c): :data:`ARC_FFIS` FFIs of 256 x 256 float32 with a TAN
+    WCS (a star at the first target's position, 0.5%-deep dips) as the
+    transport's ``ffi_sectors``; ``search_tesscut`` ->
+    ``download(cutout_size=11)`` -> ``to_lightcurve()``: the cube equals
+    the same 11 x 11 cut taken from the images on the host, and the card's
+    float32 photometry the CPU's float64 within :data:`ARC_CUTOUT_RTOL`.
+    No kernel may launch."""
+    import torch
+    from lightkurve_tpu_torch.io.fits import (HDUList, Header, ImageHDU,
+                                              PrimaryHDU, write_fits)
+    from lightkurve_tpu_torch.mast import RecordedMASTTransport
+    from lightkurve_tpu_torch.search import search_tesscut
+    rng = np.random.default_rng(ARC_SEED + 1)
+    tic, (ra, dec) = int(files["tics"][0]), (80.0, -70.0)
+    sector = ARC_SECTORS[0][0]
+    H, W = ARC_FFI_SHAPE
+    col, row = 130, 117                  # the target's pixel (0-based)
+    yy, xx = np.mgrid[:H, :W]
+    psf = np.exp(-((xx - col - 0.2) ** 2 + (yy - row + 0.1) ** 2) / 2.2)
+    directory = os.path.join(tmp, "ffi")
+    os.makedirs(directory, exist_ok=True)
+    paths, images = [], []
+    t0 = time.perf_counter()
+    for i in range(ARC_FFIS):
+        star = 5e4 * (1 - 0.005 * (i % 16 < 2))
+        img = (100.0 + star / (2.2 * np.pi) * psf
+               + 3.0 * rng.standard_normal((H, W))).astype(np.float32)
+        header = Header({"TELESCOP": "TESS", "TIME": 1683.36 + i / 48,
+                         "CADENCENO": i, "SECTOR": sector, "CAMERA": 1,
+                         "CCD": 1, "CRPIX1": col + 1.0, "CRPIX2": row + 1.0,
+                         "CRVAL1": ra, "CRVAL2": dec, "CDELT1": -21 / 3600,
+                         "CDELT2": 21 / 3600, "CTYPE1": "RA---TAN",
+                         "CTYPE2": "DEC--TAN"})
+        path = os.path.join(directory, f"tess2019199-s{sector:04d}-1-1-"
+                            f"{i:04d}_ffic.fits")
+        write_fits(HDUList([PrimaryHDU(), ImageHDU(data=img,
+                                                   header=header)]), path)
+        paths.append(path)
+        images.append(img)
+    write_s = time.perf_counter() - t0
+    transport = RecordedMASTTransport({
+        "resolver": {f"tic {tic}": [ra, dec]},
+        "observations": [{
+            "obs_id": f"tess_ffi_s{sector:04d}",
+            "target_name": f"TESS FFI: Camera 1 CCD 1 Sector {sector}",
+            "s_ra": ra, "s_dec": dec, "project": "TESS",
+            "provenance_name": "SPOC", "t_exptime": 1800,
+            "sequence_number": sector, "dataproduct_type": "image",
+            "t_min": 58683.86, "description": "TESS FFI"}],
+        "products": [], "ffi_sectors": {str(sector): paths}})
+    result = search_tesscut(f"TIC {tic}", sector=sector, transport=transport)
+    if len(result) != 1 or result.table[0]["author"] != "TESScut":
+        raise AssertionError("archive, TESScut: search_tesscut found "
+                             f"{len(result)} cutouts")
+    tpf, cut_s = sync_timed(lambda: result.download(cutout_size=ARC_CUTOUT))
+    half = ARC_CUTOUT // 2
+    want = np.stack(images)[:, row - half:row + half + 1,
+                            col - half:col + half + 1].astype(np.float64)
+    same = np.array_equal(np.asarray(tpf.flux.value), want)
+    lc, phot_s = sync_timed(tpf.to_lightcurve)
+    with port_on("cpu", torch.float64):
+        lc64 = tpf.to_lightcurve()
+    f32, f64 = np.asarray(lc.flux.value), np.asarray(lc64.flux.value)
+    err = float(np.max(np.abs(f32 - f64) / np.abs(f64)))
+    log(f"archive, TESScut: {ARC_FFIS} FFIs of {H} x {W} (written in "
+        f"{write_s:.3f}s); search_tesscut -> download(cutout_size="
+        f"{ARC_CUTOUT}) {cut_s:.3f}s, shape {tpf.shape}, equal to the host "
+        f"cut: {same}; to_lightcurve() on the card {phot_s * 1e3:.1f} ms, "
+        f"float32 within {err:.3g} of the CPU's float64 (bar "
+        f"{ARC_CUTOUT_RTOL:g}) [{card}]")
+    if not same or tpf.shape != (ARC_FFIS, ARC_CUTOUT, ARC_CUTOUT) or \
+            err > ARC_CUTOUT_RTOL:
+        raise AssertionError("archive, TESScut: the cutout or its "
+                             "photometry differs")
+    return dict(download_s=cut_s, phot_ms=phot_s * 1e3, err=err)
+
+
+def page_parts(path):
+    """A page's text outside its ``const D = {...};`` and ``D`` parsed."""
+    html = open(path).read()
+    m = re.search(r"const D = (\{.*?\});\n", html, re.S)
+    blob = re.sub(r"([,{])([A-Za-z_][A-Za-z0-9_]*):", r'\1"\2":', m.group(1))
+    return html[:m.start()] + html[m.end():], json.loads(blob)
+
+
+def printed_unit(x, sig):
+    """One unit in the last of ``sig`` printed significant digits of x."""
+    x = np.abs(np.asarray(x, float))
+    with np.errstate(divide="ignore", invalid="ignore"):
+        e = np.floor(np.log10(np.where(x > 0, x, 1.0)))
+    return 10.0 ** (e - sig + 1)
+
+
+def page_values(v):
+    return np.array([np.nan if u is None else u for u in v], float)
+
+
+#: significant digits of the pages' arrays (``interact_html._js_array``)
+PAGE_SIG = {"p": 9, "t0": 9, "t": 10}
+
+
+def compare_bls_pages(tag, got, want, rtol, n_base):
+    """Two BLS explorer pages of one curve: the same text outside ``D``;
+    on the periods both pages hold (at least the ``n_base`` of the base
+    grid; the refined grids follow each page's peaks), the power within
+    ``rtol`` of the peak plus one printed unit; the same ``best`` period,
+    or one whose power ties to that bar, and there the same duration; the
+    embedded curve equal.  Returns the power's error over the peak."""
+    og, dg = page_parts(got)
+    ow, dw = page_parts(want)
+    pg, pw = page_values(dg["p"]), page_values(dw["p"])
+    common, ig, iw = np.intersect1d(pg, pw, return_indices=True)
+    a, b = page_values(dg["power"])[ig], page_values(dw["power"])[iw]
+    peak = np.nanmax(page_values(dw["power"]))
+    unit = np.maximum(printed_unit(a, 6), printed_unit(b, 6))
+    over = np.abs(a - b) - (rtol * peak + unit)
+    nan_same = np.array_equal(np.isnan(a), np.isnan(b))
+    worst = float(np.nanmax(np.abs(a - b)) / peak)
+    bg, bw = dg["best"], dw["best"]
+    pbg, pbw = dg["power"][bg], dw["power"][bw]
+    tie = abs(pbg - pbw) <= rtol * peak + max(printed_unit(pbw, 6),
+                                              printed_unit(pbg, 6))
+    same = pg[bg] == pw[bw]
+    log(f"{tag}: {len(common)} of {len(pg)} periods common; power within "
+        f"{worst:.3g} of the peak (bar {rtol:g} + one printed digit); best "
+        f"{pg[bg]:.9g} d (power {pbg}) against {pw[bw]:.9g} d ({pbw}): "
+        f"{'same' if same else 'tie' if tie else 'DIFFERENT'}")
+    if (og != ow or len(common) < n_base or not nan_same
+            or np.nanmax(over) > 0 or not (same or tie)
+            or (same and dg["dur"][bg] != dw["dur"][bw])
+            or dg["t"] != dw["t"] or dg["f"] != dw["f"]):
+        raise AssertionError(f"{tag}: the pages differ past the bar")
+    return worst
+
+
+def compare_pages(tag, got, want, rtol, what="card page"):
+    """A pixel, sky or echelle page (``what`` names it in the log)
+    against the same page written on the CPU in float64: the text outside ``D`` equal but the slider's numbers
+    (within ``rtol`` relative); in ``D`` every number within ``rtol`` of
+    its array's largest value plus one printed unit, the rest equal."""
+    og, dg = page_parts(got)
+    ow, dw = page_parts(want)
+    attr = r'((?:min|max|step|value)=")([-+0-9.e]+)(")'
+    ng = [float(m[1]) for m in re.findall(attr, og)]
+    nw = [float(m[1]) for m in re.findall(attr, ow)]
+    worst = 0.0
+    ok = (re.sub(attr, r"\1#\3", og) == re.sub(attr, r"\1#\3", ow)
+          and len(ng) == len(nw) and dg.keys() == dw.keys()
+          and all(abs(x - y) <= rtol * abs(y) for x, y in zip(ng, nw)))
+
+    def close(x, y, sig):
+        nonlocal worst
+        a, b = page_values(x), page_values(y)
+        if a.shape != b.shape or not np.array_equal(np.isnan(a),
+                                                    np.isnan(b)):
+            return False
+        if not b.size or np.isnan(b).all():
+            return True
+        scale = np.nanmax(np.abs(b))
+        err = np.abs(a - b)
+        worst = max(worst, float(np.nanmax(err) / scale) if scale else 0.0)
+        return bool(np.all(np.isnan(b) | (err <= rtol * scale + np.maximum(
+            printed_unit(a, sig), printed_unit(b, sig)))))
+
+    for k, w in dw.items():
+        g = dg.get(k)
+        if k in ("pix",):
+            ok = ok and len(g) == len(w) and all(
+                close(x, y, 6) for x, y in zip(g, w))
+        elif isinstance(w, list) and w and all(
+                isinstance(v, (int, float)) or v is None for v in w) and \
+                k not in ("shape", "init", "pipeline", "threshold", "aper"):
+            ok = ok and close(g, w, PAGE_SIG.get(k, 6))
+        elif isinstance(w, float):
+            ok = ok and abs(g - w) <= rtol * abs(w)
+        else:
+            ok = ok and g == w
+    log(f"{tag}: {what} against the CPU's float64 page: numbers within "
+        f"{worst:.3g} of their array's largest (bar {rtol:g} + one printed "
+        f"digit), the rest equal: {ok}")
+    if not ok:
+        raise AssertionError(f"{tag}: the pages differ past the bar")
+    return worst
+
+
+def sky_catalog(tpf, n=ARC_SKY_SOURCES, seed=ARC_SEED + 2):
+    """``n`` sources on and around the TPF's stamp, placed through its own
+    WCS, with magnitudes 9-18, Gaia-like ids and proper motions on half."""
+    rng = np.random.default_rng(seed)
+    h, w = tpf.shape[1:]
+    ra, dec = tpf.wcs.pixel_to_world(rng.uniform(-1.2, w + 0.3, n),
+                                     rng.uniform(-1.2, h + 0.3, n))
+    moving = np.arange(n) % 2 == 0
+    return {"ra": np.asarray(ra), "dec": np.asarray(dec),
+            "mag": np.round(rng.uniform(9, 18, n), 2),
+            "id": [f"Gaia DR3 {4_600_000_000 + 7919 * i}" for i in range(n)],
+            "pmra": np.where(moving, rng.normal(0, 30, n), 0.0),
+            "pmdec": np.where(moving, rng.normal(0, 30, n), 0.0)}
+
+
+def archive_pages(tmp, files, stitched, card):
+    """Phase 16 (d), the explorers, each written on the card and held
+    against a float64 run: ``interact_bls(html=...)`` on one stitched
+    curve (20,000 base periods, refined grids at up to 8 peaks; the second
+    call timed) against the card's own float64 page, and a page at
+    :data:`ARC_SMALL_PAGE` in float32 and float64 on the card against the
+    CPU's float64 (:func:`compare_bls_pages`; every precompute must run on
+    the card); ``interact(html=...)`` and ``interact_sky(html=...,
+    catalog=...)`` on one of the archive's pixel files (found by
+    ``search_targetpixelfile``; the catalogue of :func:`sky_catalog`), and
+    ``Seismology.interact_echelle(html=...)`` on one of phase 14's
+    KEPSEISMIC giants, against the same pages written on the CPU in
+    float64 (:func:`compare_pages`); ``demo_sky_catalog()`` opened.  No
+    kernel may launch.  Returns each page's seconds and errors."""
+    import csv
+    import torch
+    from lightkurve_tpu_torch.interact_html import (demo_sky_catalog,
+                                                    export_interact_bls_html)
+    from lightkurve_tpu_torch.io.read import read
+    from lightkurve_tpu_torch.search import search_targetpixelfile
+    pages = os.path.join(tmp, "pages")
+    os.makedirs(pages, exist_ok=True)
+
+    def page(name):
+        return os.path.join(pages, name + ".html")
+
+    out = {}
+    lc = stitched
+    seen = []
+    with bls_devices(seen):
+        lc.interact_bls(html=page("bls_warm"))
+        _, out["bls_s"] = sync_timed(
+            lambda: lc.interact_bls(html=page("bls32")))
+        with port_on("cuda", torch.float64):
+            _, out["bls64_s"] = sync_timed(
+                lambda: lc.interact_bls(html=page("bls64")))
+        export_interact_bls_html(lc, page("small32"), **ARC_SMALL_PAGE)
+        with port_on("cuda", torch.float64):
+            export_interact_bls_html(lc, page("small64"), **ARC_SMALL_PAGE)
+    if set(seen) != {"cuda"} or len(seen) != 10:
+        raise AssertionError(f"archive, explorers: a BLS precompute ran off "
+                             f"the card ({seen})")
+    with port_on("cpu", torch.float64):
+        _, cpu_s = sync_timed(lambda: export_interact_bls_html(
+            lc, page("small_cpu"), **ARC_SMALL_PAGE))
+    n_periods = len(page_parts(page("bls32"))[1]["p"])
+    log(f"archive, BLS explorer: one stitched curve ({len(lc)} cadences), "
+        f"{n_periods} periods: {out['bls_s']:.3f}s on the card in float32 "
+        f"(second call; limit {ARC_PAGE_SECONDS:g}), {out['bls64_s']:.3f}s "
+        f"in float64; the {ARC_SMALL_PAGE} page on the CPU in float64 "
+        f"{cpu_s:.3f}s [{card}]")
+    if out["bls_s"] > ARC_PAGE_SECONDS:
+        raise AssertionError(f"archive: the BLS explorer took "
+                             f"{out['bls_s']}s > {ARC_PAGE_SECONDS}s")
+    out["bls_err"] = compare_bls_pages(
+        "archive, BLS explorer, card float32 vs card float64", page("bls32"),
+        page("bls64"), ARC_PAGE_F32_RTOL, ARC_BLS_RESOLUTION)
+    out["small_err"] = compare_bls_pages(
+        "archive, small BLS explorer, card float32 vs CPU float64",
+        page("small32"), page("small_cpu"), ARC_PAGE_F32_RTOL,
+        ARC_SMALL_PAGE["resolution"])
+    out["small64_err"] = compare_bls_pages(
+        "archive, small BLS explorer, card float64 vs CPU float64",
+        page("small64"), page("small_cpu"), ARC_PAGE_F64_RTOL,
+        ARC_SMALL_PAGE["resolution"])
+
+    tic = int(files["tics"][0])
+    result = search_targetpixelfile(f"TIC {tic}", archive_dir=files["dir"])
+    if [r["path"] for r in result.table] != files["tpf_paths"][:1]:
+        raise AssertionError("archive: search_targetpixelfile did not find "
+                             "the target's pixel file")
+    tpf = result.download()
+    catalog = sky_catalog(tpf)
+    _, out["pixel_s"] = sync_timed(lambda: tpf.interact(html=page("pix")))
+    _, out["sky_s"] = sync_timed(lambda: tpf.interact_sky(
+        html=page("sky"), catalog=catalog))
+    demo = demo_sky_catalog()
+    with open(demo, newline="") as f:
+        n_demo = len(list(csv.DictReader(f)))
+    tpf.interact_sky(html=page("sky_demo"), catalog=demo)
+    giant_path, giant = (v[0] for v in write_seismic_stars(
+        os.path.join(tmp, "arc_seis"), giants=1, dwarfs=0))
+    seis = seismology_chain(read(giant_path), giant["teff"])["seis"]
+    _, out["echelle_s"] = sync_timed(
+        lambda: seis.interact_echelle(html=page("ech")))
+    with port_on("cpu", torch.float64):
+        tpf64 = read(files["tpf_paths"][0])
+        tpf64.interact(html=page("pix64"))
+        tpf64.interact_sky(html=page("sky64"), catalog=catalog)
+        seis64 = seismology_chain(read(giant_path), giant["teff"])["seis"]
+        seis64.interact_echelle(html=page("ech64"))
+    n_src = len(page_parts(page("sky"))[1]["src"])
+    log(f"archive, explorers: pixel page {out['pixel_s']:.3f}s "
+        f"({tpf.shape}), sky page {out['sky_s']:.3f}s ({n_src} of "
+        f"{ARC_SKY_SOURCES} sources drawn; the demo catalogue's {n_demo} "
+        f"read), echelle page {out['echelle_s']:.3f}s (giant, "
+        f"{len(seis.periodogram.frequency)} frequencies) [{card}]")
+    if n_demo != 25 or n_src < 10:
+        raise AssertionError("archive: the sky pages lack their sources")
+    host = "host page of the float32 run"
+    out["pixel_err"] = compare_pages("archive, pixel page", page("pix"),
+                                     page("pix64"), 0.0, host)
+    out["sky_err"] = compare_pages("archive, sky page", page("sky"),
+                                   page("sky64"), 0.0, host)
+    out["echelle_err"] = compare_pages("archive, echelle page", page("ech"),
+                                       page("ech64"), ARC_ECHELLE_RTOL)
+    p64 = page_values(page_parts(page("ech64"))[1]["p"])
+    control = float(np.nanmax(np.abs(p64[1:] - p64[:-1]))
+                    / np.nanmax(np.abs(p64)))
+    log(f"archive, echelle page: control, the float64 spectrum one bin "
+        f"off, reads {control:.3g} of its largest (bar "
+        f"{ARC_ECHELLE_RTOL:g})")
+    if control <= ARC_ECHELLE_RTOL:
+        raise AssertionError("archive: the echelle bar does not tell a "
+                             "one-bin shift from the float64 page")
+    return out
+
+
+def phase_archive(tmp, card, sweep, runs):
+    """Phase 16, each part a path of its own, inside :func:`archive_env`:
+    the archive's files (no kernel may launch), (a) the search -> stack ->
+    BLS path (the launches the route rule gives, through ``sweep``) with
+    K-WF and K-SF against their plain versions on its call 4
+    (:func:`check_weighted_kernels`), (b) the MAST chain, (c) TESScut and
+    (d) the explorers (no kernel may launch in b-d).  Adds the paths'
+    launches to ``runs``; returns the numbers and the kernels' errors."""
+    import torch
+    t0 = time.time()
+    none = tuple(kernel_table())
+    out = {}
+    with archive_env(tmp):
+        files, runs["archive, files (phase 16)"] = drive(
+            "archive, files (phase 16)", archive_files, tmp, card,
+            forbid=none)
+        out["search"] = sweep("archive -> search (phase 16)", archive_search,
+                              files, card)
+        call4 = np.linspace(*TWO_SECTOR_GRID)[3072:]
+        errs = check_weighted_kernels("archive", out["search"].pop("flat"),
+                                      call4[-PIX_KERNEL_PERIODS:])
+        results = out["search"].pop("results")
+        out["mast"], runs["archive, MAST chain (phase 16)"] = drive(
+            "archive, MAST chain (phase 16)", archive_mast, tmp, files,
+            results, card, forbid=none)
+        out["tesscut"], runs["archive, TESScut (phase 16)"] = drive(
+            "archive, TESScut (phase 16)", archive_tesscut, tmp, files, card,
+            forbid=none)
+        out["pages"], runs["archive, explorers (phase 16)"] = drive(
+            "archive, explorers (phase 16)", archive_pages, tmp, files,
+            results[0][1], card, forbid=none)
+    torch.cuda.empty_cache()
+    out["seconds"] = time.time() - t0
+    log(f"phase 16: {out['seconds']:.1f}s")
+    return out, errs
+
+
+# ---------------------------------------------------------------------------
 # --profile: one full-size sweep chunk per regime under torch.profiler
 # ---------------------------------------------------------------------------
 def chunk_bounds(stack, periods, impl, launch_periods=8):
@@ -4556,7 +5266,9 @@ def phase_profile(tmp, B=2048):
     one of its TESS files; phase 14's ``correct_gaussian_prior`` and
     ``correct()`` of one CBV target and one giant's seismology chain;
     phase 15's ``extract_prf_photometry`` of one TESS file (device time
-    by kind of op); and
+    by kind of op); phase 16's search -> ``download_all`` -> ``stitch`` of
+    one target of its archive and ``interact_bls(html=...)`` of that
+    stitched curve (launches and device time by kind of op); and
     the two forced chunks of phases 4 and 6 (the weighted cell's first
     2048 periods on the staged route, the two-sector chunk 4 on the fused
     one) through the entry point (:func:`route_call`).  Prints device
@@ -4603,6 +5315,9 @@ def phase_profile(tmp, B=2048):
     giant_path, giant = (v[0] for v in write_seismic_stars(
         os.path.join(tmp, "seis"), giants=1, dwarfs=0))
     giant_lc = read(giant_path)
+    archive = archive_files(tmp, card_line())
+    archive_lc = archive_target(archive["tics"][0],
+                                archive["dir"]).download_all().stitch()
     t8, y8, dy8 = bench_ls_inputs(1)
     curve = LightCurveStack.from_numpy(
         t8[None], y8.cpu().numpy(), dy8.cpu().numpy(),
@@ -4635,7 +5350,11 @@ def phase_profile(tmp, B=2048):
              ("seismology chain, one KEPSEISMIC giant, phase 14", giant_lc,
               (), "seismology"),
              ("extract_prf_photometry, one TESS file, phase 15", tess_file,
-              (), "prf"))
+              (), "prf"),
+             ("search -> download_all -> stitch, one target, phase 16",
+              archive, (), "archive"),
+             ("interact_bls(html=...), one stitched curve, phase 16",
+              archive_lc, (), "explorer"))
     for i, (name, stack, periods, impl) in enumerate(cells):
         def chunk(tag):
             if impl == "flatten":
@@ -4662,6 +5381,12 @@ def phase_profile(tmp, B=2048):
                 seismology_chain(stack, giant["teff"])
             elif impl == "prf":
                 stack.extract_prf_photometry()
+            elif impl == "archive":
+                archive_target(stack["tics"][0],
+                               stack["dir"]).download_all().stitch()
+            elif impl == "explorer":
+                stack.interact_bls(html=os.path.join(tmp, f"profile_{tag}"
+                                                          ".html"))
             elif impl == "auto":
                 SweepRunner(stack, periods, DURATIONS,
                             os.path.join(tmp, f"profile_{i}_{tag}.npz"),
@@ -4696,12 +5421,15 @@ def phase_profile(tmp, B=2048):
         device = sum(us for us, _ in by_name.values())
         kinds = ("periodogram", "fastchi2", "bls_periodogram", "pld_correct",
                  "pld_corrector", "cbv_gaussian", "cbv_correct",
-                 "seismology", "prf")
+                 "seismology", "prf", "archive", "explorer")
         shape = (f"pixels {tuple(stack.flux.shape)}"
                  if impl in ("pld_correct", "pld_corrector", "prf")
                  else f"one target, {LONG_N} cadences"
                  if impl.startswith("cbv")
-                 else f"{len(stack)} cadences" if impl == "seismology"
+                 else f"{len(stack)} cadences" if impl in ("seismology",
+                                                           "explorer")
+                 else f"one target of {len(stack['tics'])}, 2 files of "
+                      f"{LONG_N} cadences" if impl == "archive"
                  else f"B={len(stack)} N={stack.shape[1]} P={len(periods)}")
         log(f"profile {name}: {shape}: device "
             f"{device / 1e3:.3f} ms, busy {busy / 1e3:.3f} ms of "
@@ -4713,7 +5441,7 @@ def phase_profile(tmp, B=2048):
         if impl in kinds:
             log(f"  {sum(n for _, n in by_name.values())} launches; by op: "
                 + ", ".join(
-                f"{k} {us / 1e3:.3f} ms {us / device:.4f}"
+                f"{k} {us / 1e3:.3f} ms {us / max(device, 1e-9):.4f}"
                 for k, us in op_kinds(by_name).items()))
         elif impl != "flatten":
             log("  bounds over the chunk's launches: " + ", ".join(
@@ -4831,7 +5559,7 @@ def main():
         return 0
     phase_build()
     if args.profile:
-        with tempfile.TemporaryDirectory() as tmp:
+        with tempfile.TemporaryDirectory() as tmp, archive_env(tmp):
             phase_profile(tmp)
         return 0
     phase_kernels()
@@ -4881,6 +5609,7 @@ def main():
         px_errs = px_numbers.pop("errs")
         p14, p14_errs = phase_cbv_seismology(tmp, card, sweep, runs)
         prf, prf_errs = phase_prf(tmp, card, sweep, runs)
+        arc, arc_errs = phase_archive(tmp, card, sweep, runs)
     torch.cuda.empty_cache()
     ls = phase_ls()
     path = "past the one-hot ceiling (phase 9)"
@@ -4895,7 +5624,8 @@ def main():
     for key, (e, t, b, per) in long.items():
         errs[key], times[key], bounds[key], per_launch[key] = e, t, b, per
     errs["K-F"] = max(errs["K-F"], kf_err)
-    for key, e in (*px_errs.items(), *p14_errs.items(), *prf_errs.items()):
+    for key, e in (*px_errs.items(), *p14_errs.items(), *prf_errs.items(),
+                   *arc_errs.items()):
         errs[key] = max(errs[key], e)
     phase_routes()
     log(f"main paths: uniform {uni['rate']:.6g}, weighted "
@@ -4915,7 +5645,14 @@ def main():
         f"{prf['scene']['rate']:.6g} cadence-fits/s, TESS file "
         f"{prf['files']['per_file_ms']:.3f} ms, search after PRF recovered "
         f"{prf['search']['recovered']:.4f}, K2 file "
-        f"{prf['kepler']['per_file_ms']:.3f} ms; LS sector "
+        f"{prf['kepler']['per_file_ms']:.3f} ms; archive: search -> "
+        f"download_all -> stitch {arc['search']['targets_per_s']:.6g} "
+        f"targets/s ({arc['search']['files_per_s']:.6g} files/s), to_stack "
+        f"{arc['search']['stack_s']:.3f}s, search "
+        f"{arc['search']['rate']:.6g} curve-period evals/s, recovered "
+        f"{arc['search']['recovered']:.4f}, BLS explorer "
+        f"{arc['pages']['bls_s']:.3f}s, phase 16 {arc['seconds']:.1f}s; "
+        f"LS sector "
         f"{ls['sector']['rate']:.6g}, "
         f"LS bench shape {ls['bench']['rate']:.6g} curve-frequency "
         f"evals/s; per-curve fast "

@@ -33,7 +33,15 @@ Levenberg-Marquardt; ``TargetPixelFile.extract_prf_photometry``).
 :mod:`.roofline` counts the work of the hot paths against the card's
 published peaks.
 
-Modules mirror ``lightkurve_tpu``'s names.  Importing the package builds
+Archive search (:mod:`.search`, :mod:`.mast`): ``search_lightcurve(...)
+.download_all().stitch()`` over a local archive or a recorded MAST
+transport; :mod:`.interact_html` writes the standalone explorers
+(``interact_bls(html=...)`` precomputes its BLS grid on the card).
+:data:`conf` holds the user settings (:mod:`.config`).
+
+Modules mirror ``lightkurve_tpu``'s names, and every name of its
+``__all__`` resolves here but ``HTTPMASTTransport`` (network) and
+``plot_image`` (plotting).  Importing the package builds
 nothing and needs neither a GPU nor ``nvcc``: kernels compile on first use
 with a CUDA tensor.  Entry points put their tensors on the card unless the
 caller passes ``device="cpu"``; the single-curve classes take the device
@@ -47,6 +55,17 @@ __version__ = "0.1.0"
 from . import diagnostics  # noqa: E402
 
 _LAZY = {
+    "conf": ".config",
+    "Quantity": ".units",
+    "Unit": ".units",
+    "Time": ".time",
+    "TimeDelta": ".time",
+    "LightkurveError": ".utils",
+    "LightkurveWarning": ".utils",
+    "LightkurveDeprecationWarning": ".utils",
+    "KeplerQualityFlags": ".utils",
+    "TessQualityFlags": ".utils",
+    "ops": ".ops",
     "LightCurve": ".lightcurve",
     "FoldedLightCurve": ".lightcurve",
     "KeplerLightCurve": ".lightcurve",
@@ -86,6 +105,37 @@ _LAZY = {
     "estimate_radius": ".seismology.stellar_estimators",
     "estimate_mass": ".seismology.stellar_estimators",
     "estimate_logg": ".seismology.stellar_estimators",
+    "Corrector": ".correctors",
+    "SparseDesignMatrix": ".correctors",
+    "SparseDesignMatrixCollection": ".correctors",
+    "create_spline_matrix": ".correctors",
+    "create_sparse_spline_matrix": ".correctors",
+    "KeplerLightCurveFile": ".lightcurvefile",
+    "TessLightCurveFile": ".lightcurvefile",
+    "search_lightcurve": ".search",
+    "search_targetpixelfile": ".search",
+    "search_tesscut": ".search",
+    "search_lightcurvefile": ".search",
+    "SearchResult": ".search",
+    "MASTTransport": ".mast",
+    "RecordedMASTTransport": ".mast",
+    "validate_method": ".utils",
+    "running_mean": ".utils",
+    "centroid_quadratic": ".utils",
+    "bkjd_to_time": ".utils",
+    "btjd_to_time": ".utils",
+    "bkjd_to_astropy_time": ".utils",
+    "btjd_to_astropy_time": ".utils",
+    "show_citation_instructions": ".utils",
+    "is_notebook": ".utils",
+    "finalize_notebook_url": ".utils",
+    "remote_jupyter_proxy_url": ".utils",
+    "estimate_cdpp": ".convenience",
+    "export_interact_bls_html": ".interact_html",
+    "export_interact_html": ".interact_html",
+    "export_interact_echelle_html": ".interact_html",
+    "export_interact_sky_html": ".interact_html",
+    "demo_sky_catalog": ".interact_html",
     "channel_to_module_output": ".utils",
     "module_output_to_channel": ".utils",
     "LightCurveStack": ".batch",
@@ -101,10 +151,11 @@ _LAZY = {
     "lombscargle_fastchi2": ".ops.lombscargle",
 }
 
-__all__ = list(_LAZY)
+__all__ = ["__version__"] + list(_LAZY)
 
 
 def __getattr__(name):
     if name in _LAZY:
-        return getattr(importlib.import_module(_LAZY[name], __name__), name)
+        module = importlib.import_module(_LAZY[name], __name__)
+        return module if _LAZY[name] == "." + name else getattr(module, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

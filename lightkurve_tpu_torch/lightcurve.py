@@ -1308,6 +1308,27 @@ class LightCurve:
         from .periodogram import LombScarglePeriodogram
         return LombScarglePeriodogram.from_lightcurve(lc=self, **kwargs)
 
+    def search_neighbors(self, limit=10, radius=3600.0, **search_criteria):
+        """Search for light curves around this target (reference
+        ``lightcurve.py:843-848``): :func:`.search.search_lightcurve` of
+        its TARGETID (else LABEL) within ``radius`` arcsec."""
+        from .search import search_lightcurve
+        target = self.meta.get("TARGETID", self.meta.get("LABEL"))
+        return search_lightcurve(f"{target}", radius=radius, limit=limit + 1,
+                                 **search_criteria)
+
+    def interact_bls(self, notebook_url=None, minimum_period=None,
+                     maximum_period=None, resolution=2000, html=None):
+        """The BLS explorer: with ``html="path.html"`` a standalone page
+        whose period grid (at least 20,000 periods) is precomputed on
+        :data:`config.default_device`
+        (:func:`.interact.show_interact_widget_bls`); without it, not
+        ported."""
+        from .interact import show_interact_widget_bls
+        return show_interact_widget_bls(
+            self, notebook_url=notebook_url, minimum_period=minimum_period,
+            maximum_period=maximum_period, resolution=resolution, html=html)
+
     def to_seismology(self, **kwargs):
         """A :class:`~lightkurve_tpu_torch.seismology.Seismology` of this
         curve's flattened periodogram (reference ``:1358``)."""

@@ -2,9 +2,9 @@
 
 Counterpart of ``lightkurve_tpu/seismology/core.py`` (reference
 ``seismology/core.py``): the method dispatch, the result tray and the
-echelle diagram's data (the spectrum folded at Δν, host numpy).  The
-plots (``plot_echelle``, ``diagnose_*``) and ``interact_echelle`` are not
-ported.
+echelle diagram's data (the spectrum folded at Δν, host numpy) and
+``interact_echelle(html=…)``'s standalone page.  The plots
+(``plot_echelle``, ``diagnose_*``) are not ported.
 """
 from __future__ import annotations
 
@@ -222,9 +222,25 @@ class Seismology:
         _not_ported("Seismology.plot_echelle")
 
     def interact_echelle(self, notebook_url=None, n_panels=5, **kwargs):
-        """The echelle explorer (reference ``core.py:502-640``): not
-        ported."""
-        raise NotImplementedError(
-            "Seismology.interact_echelle is not ported to "
-            "lightkurve_tpu_torch (ROADMAP A5: plotting, and A7: "
-            "interact_html's precompute).")
+        """The echelle explorer (reference ``core.py:502-640``): with
+        ``html="path.html"`` a standalone page with a live Δν slider
+        (:func:`..interact_html.export_interact_echelle_html`), defaulting
+        to the estimated Δν, else ``max_frequency/30``, as the reference
+        widget does; without it, not ported."""
+        if kwargs.get("html") is None:
+            raise NotImplementedError(
+                "Seismology.interact_echelle without html= is not ported to "
+                "lightkurve_tpu_torch (ROADMAP A, left out on purpose: "
+                "plotting, no matplotlib or bokeh on the card's machine); "
+                "pass html='page.html' to write the standalone page.")
+        from ..interact_html import export_interact_echelle_html
+        html = kwargs.pop("html")
+        dnu_default = getattr(self, "deltanu",
+                              self.periodogram.frequency.max() / 30)
+        return export_interact_echelle_html(
+            self, html,
+            deltanu=kwargs.pop("deltanu", dnu_default),
+            numax=kwargs.pop("numax", None),
+            minimum_frequency=kwargs.pop("minimum_frequency", None),
+            maximum_frequency=kwargs.pop("maximum_frequency", None),
+            smooth_filter_width=kwargs.pop("smooth_filter_width", 0.1))

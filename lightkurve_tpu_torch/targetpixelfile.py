@@ -637,12 +637,19 @@ class TargetPixelFile:
         _not_ported("animate", "plotting")
 
     def interact(self, *args, **kwargs):
-        """The pixel-selector widget: not ported."""
-        _not_ported("interact", "plotting")
+        """The pixel-selector widget (reference ``interact.py:999-1318``):
+        with ``html="path.html"`` a standalone page
+        (:func:`.interact.show_interact_widget`); without it, not
+        ported."""
+        from .interact import show_interact_widget
+        return show_interact_widget(self, *args, **kwargs)
 
     def interact_sky(self, *args, **kwargs):
-        """The sky-view widget: not ported."""
-        _not_ported("interact_sky", "plotting")
+        """The sky-view widget (reference ``interact.py:1319``): with
+        ``html="path.html"`` and an offline ``catalog`` a standalone page
+        (:func:`.interact.show_skyview_widget`); without it, not ported."""
+        from .interact import show_skyview_widget
+        return show_skyview_widget(self, *args, **kwargs)
 
     # ------------------------------------------------------------------
     # PRF photometry (reference :2347-2403)

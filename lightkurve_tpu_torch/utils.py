@@ -6,8 +6,11 @@ copied (the port never imports the JAX package): the Kepler/TESS QUALITY
 bitmask vocabularies and ``create_quality_mask``, ``validate_method``,
 ``running_mean``, ``bkjd_to_time``/``btjd_to_time``, the automatic
 histogram bin-edge rules (``calculate_bin_edges``) and, for the target
-pixel files, the quadratic centroid (``centroid_quadratic``).  The batched torch
-variants of the numeric helpers live in :mod:`lightkurve_tpu_torch.ops`.
+pixel files, the quadratic centroid (``centroid_quadratic``), and the
+citation and notebook helpers (``show_citation_instructions``,
+``is_notebook``, ``remote_jupyter_proxy_url``, ``finalize_notebook_url``).
+The batched torch variants of the numeric helpers live in
+:mod:`lightkurve_tpu_torch.ops`.
 """
 from __future__ import annotations
 
@@ -36,6 +39,10 @@ __all__ = [
     "centroid_quadratic",
     "channel_to_module_output",
     "module_output_to_channel",
+    "show_citation_instructions",
+    "is_notebook",
+    "remote_jupyter_proxy_url",
+    "finalize_notebook_url",
 ]
 
 
@@ -422,3 +429,58 @@ def module_output_to_channel(module, output):
     if output < 1 or output > 4:
         raise ValueError("Output must be in the range 1-4.")
     return _KEPLER_MODULES.index(module) * 4 + output
+
+
+def show_citation_instructions():
+    print("lightkurve_tpu_torch is a PyTorch and CUDA re-implementation of "
+          "the lightkurve API. Please cite the lightkurve project "
+          "(Lightkurve Collaboration, 2018, ascl:1812.013) and this package.")
+
+
+def _get_notebook_environment():
+    """'jupyter', 'colab', or 'terminal' (reference ``utils.py:822``)."""
+    try:
+        ipy = str(type(get_ipython())).lower()  # noqa: F821
+        if "zmqshell" in ipy:
+            return "jupyter"
+        if "colab" in ipy:
+            return "colab"
+    except NameError:
+        pass  # not running under IPython
+    return "terminal"
+
+
+def is_notebook():
+    """True when running in a Jupyter/Colab notebook."""
+    return _get_notebook_environment() in ("jupyter", "colab")
+
+
+def remote_jupyter_proxy_url(port):
+    """JupyterHub proxy URL for a local widget server port (reference
+    ``utils.py:849-876``); ``port=None`` returns the origin host."""
+    import os
+    import urllib.parse
+    base_url = os.environ["LK_JUPYTERHUB_EXTERNAL_URL"]
+    host = urllib.parse.urlparse(base_url).netloc
+    if port is None:
+        return host
+    service_url_path = os.environ["JUPYTERHUB_SERVICE_PREFIX"]
+    proxy_url_path = "proxy/%d" % port
+    user_url = urllib.parse.urljoin(base_url, service_url_path)
+    return urllib.parse.urljoin(user_url, proxy_url_path)
+
+
+def finalize_notebook_url(notebook_url):
+    """Pass an explicit URL through; with ``LK_JUPYTERHUB_EXTERNAL_URL``
+    set, return the proxy-URL callable; otherwise the local default
+    (reference ``utils.py:878-906``).  An empty URL raises."""
+    import os
+    if notebook_url is not None:
+        if isinstance(notebook_url, str) and not notebook_url.strip():
+            raise ValueError(
+                "Empty host value: pass a notebook_url like "
+                "'localhost:8888'.")
+        return notebook_url
+    if os.environ.get("LK_JUPYTERHUB_EXTERNAL_URL"):
+        return remote_jupyter_proxy_url
+    return "localhost:8888"

@@ -1,9 +1,12 @@
 """lightkurve_tpu_torch imports without jax and without building anything
 (every module, the correctors, the CBV corrector, the seismology package,
 the science-product readers, PRF photometry, models, diagnostics and
-roofline included; a light curve's SFF corrector, a spectrum's numax and
-Delta-nu and a 4-cadence PRF fit run without them), and chip_smoke.py
-refuses to run without a CUDA device."""
+roofline, the settings, the archive search and the HTML explorers
+included; a light curve's SFF corrector, a spectrum's numax and Delta-nu,
+a 4-cadence PRF fit and a BLS explorer page on the CPU run without them),
+its top-level names are lightkurve_tpu's but the network client and the
+plotting helper, and chip_smoke.py refuses to run without a CUDA
+device."""
 import os
 import shutil
 import subprocess
@@ -35,6 +38,17 @@ import numpy as np
 import lightkurve_tpu_torch as pkg
 for name in pkg.__all__:
     getattr(pkg, name)
+import os, tempfile
+rng = np.random.default_rng(1)
+tt = 1500.0 + np.arange(600) * 0.02
+lc = pkg.LightCurve(time=tt, flux=1 - 2e-3 * (np.mod(tt, 1.7) < 0.1)
+                    + 2e-4 * rng.standard_normal(600), flux_err=np.full(600, 2e-4))
+page = os.path.join(tempfile.mkdtemp(), "bls.html")
+from lightkurve_tpu_torch import config
+config.default_device = "cpu"
+assert pkg.export_interact_bls_html(lc, page, resolution=200, refine_peaks=1,
+                                    refine_factor=2) == page
+assert "const D = {best:" in open(page).read()
 t = np.tile(np.arange(64) * 0.02, (2, 1))
 stack = pkg.LightCurveStack.from_numpy(t, np.ones_like(t), np.ones_like(t),
                                        np.ones(t.shape, bool), device="cpu")
@@ -113,13 +127,23 @@ def test_slice_imports_without_jax_or_builds():
                  "seismology.deltanu_estimators",
                  "seismology.stellar_estimators", "io.readers", "prf",
                  "prf.prfmodel", "prf.tpfmodel", "models", "diagnostics",
-                 "roofline"):
+                 "roofline", "config", "convenience", "lightcurvefile",
+                 "mast", "search", "interact", "interact_html"):
         assert "lightkurve_tpu_torch." + name in modules
     out = subprocess.run([sys.executable, "-c", PROBE] + modules, cwd=ROOT,
                          env=_env(), capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "clean"
+
+
+def test_top_level_names_are_the_references():
+    """Every name of ``lightkurve_tpu.__all__`` but the live MAST client
+    (network) and ``plot_image`` (plotting) is exported by the port."""
+    import lightkurve_tpu
+    import lightkurve_tpu_torch
+    assert set(lightkurve_tpu.__all__) - set(lightkurve_tpu_torch.__all__) \
+        == {"HTTPMASTTransport", "plot_image"}
 
 
 @pytest.mark.parametrize("where", ["checkout", "alone"])
