@@ -54,7 +54,10 @@ Phases:
      (4) fastchi2 (3 harmonics, 100,000 frequencies, one curve) against
      the direct chi2 at 2,048 and a batched per-curve-dy call of 256
      curves; (5) direct against fast in float64, 64 curves x 2,048
-     frequencies;
+     frequencies; (6) the row order: the dry run's phase 3 rows (13 x 512,
+     1,024 frequencies), the first 4 called alone and two equal calls of
+     all 13, against one call of 13 (the reference dry run's LS bar:
+     a curve's power may not depend on the other curves of the call);
  12. the LightCurve API: phase 10's sector written as 2048 TESS files
      (SPOC-style: flagged spacecraft events shared by every file, each
      curve's masked cadences as NaN flux), read_lc_collection (timed,
@@ -188,13 +191,34 @@ Phases:
      16.4-16.9 d on one sector, and where a fused block holds one warp):
      one SweepRunner chunk's wall time per route through the entry point
      (the staged route at 8 periods per call), the route "auto" takes,
-     the winners per (period, curve) against each other and C2's bound.
+     the winners per (period, curve) against each other and C2's bound;
+ 17. multi-device: four gloo ranks spawned on the one card
+     (parallel.launch.run_ranks; every rank calls with the whole arrays and
+     gets the whole result back): (a) phase 10's sector through
+     sharded_flatten (window 901) and SweepRunner(method="shared",
+     mesh=2x2) over 1-9 d in four chunks of 1,024, uninterrupted and killed
+     after two chunks then resumed by a fresh runner (bit-equal), against
+     the unsharded flatten (logged) and the unsharded sweep of the same
+     flattened flux in the parent (the same period on >= 99.9% of curves,
+     every power gap within C2's bound), recovery >= 99%, evaluations/s,
+     each rank's chunk seconds, the gathers' seconds and peak memory; (b) a
+     4x1 mesh over 2049 uniform curves of phase 3's sector kind:
+     sharded_bls over 4,096 periods (K-F) and sharded_lombscargle at 16,384
+     frequencies against the unsharded calls (the reference dry run's
+     bars); (c) a 1x4 mesh over the two-sector stack's 256 longest chunk-4
+     periods (K-SF and K-U, 64 a rank) against the unsharded call (C2);
+     (d) sharded_pld_photometry of 128 pixel targets (4 x 32) against
+     pld_correct (one float32 ulp); on rank 0 the first K-WF call of (a),
+     the K-F call of (b) and the K-SF and K-U calls of (c) against their
+     plain versions (K-SF against the float64 fold); (e)
+     dryrun_multichip(4) at the reference's sizes.
 Each path (the sweeps of phases 3, 4, 6, 7, 8, 10, 12, 13, 14, 15 and 16
 on the automatic route, the six forced-route runs of phases 4, 6 and 13,
-and phase 9) runs
+phase 9, and each rank's parts (a)-(d) and dry run in phase 17) runs
 with every launch count set to 0 just before it and read just after; a
 path fails if a plain version ran, and a sweep fails unless its launches
-are what the route rule (ops.bls.fold_route) gives its chunks.  The
+are what the route rule (ops.bls.fold_route) gives its chunks (in phase
+17, the rule for the rank's shard: its curves and periods).  The
 kernels line gives each kernel's launches summed over the paths and,
 under ``launches_by_path``, each path's own.
 
@@ -222,6 +246,17 @@ explorer's launches and device time by kind of op).
 runs only phase 11's float64 card-against-CPU check of the sector, as
 the first Lomb-Scargle work of the process and again after a float32
 call, and logs where the error peaks and the denominators there.
+
+    python3 chip_smoke.py --cells [--port DIR]
+
+builds the kernels and measures, checking only that each sweep ran:
+phase 11's sector and bench-shape rates and the row-order gaps of its
+part 6, then phase 6's two-sector sweep three times, each a fresh
+SweepRunner on a fresh checkpoint, with its wall and process CPU seconds,
+launches and the card's clocks after it; prints one JSON line.  With
+``--port DIR`` it imports lightkurve_tpu_torch from DIR (another checkout,
+for example a parent commit unpacked by ``git archive``), so two versions
+are compared in one call: parent, change, change, parent.
 """
 import argparse
 import contextlib
@@ -1534,28 +1569,44 @@ def expected_launches(stack, periods, chunk_periods, launch_periods=8):
     ``bls_search`` calls with the entry point's default, 16).  Returns the
     launches per kernel."""
     import torch
+    groups = torch.unique(stack.time, dim=0, return_counts=True)[1].tolist()
+    blocks = [np.asarray(periods[lo:lo + chunk_periods])
+              for lo in range(0, len(periods), chunk_periods)]
+    want = dict.fromkeys(kernel_table(), 0)
+    for curves in groups:
+        for k, v in route_launches(blocks, curves, not is_uniform(stack),
+                                   stack.flux.dtype, stack.device,
+                                   launch_periods, chunk_periods).items():
+            want[k] += v
+    return want
+
+
+def route_launches(blocks, curves, weighted, dtype, device, launch_periods,
+                   block_periods=None):
+    """What the route rule gives one shared-grid call of ``curves`` curves
+    at each host period block of ``blocks``: one launch of the fused
+    kernel, or on the staged route one launch of K-SF and of the window
+    scan per ``launch_periods`` of the block's ``block_periods`` periods
+    (default its length; a block padded to that size keeps its longest
+    period).  Returns the launches per kernel."""
     from lightkurve_tpu_torch.config import numpy_dtype
     from lightkurve_tpu_torch.ops.bls import fold_route
     from lightkurve_tpu_torch.ops.bls_fused import max_nbins_bound
     from lightkurve_tpu_torch.parallel.checkpoint import _k_max
-    dtype = stack.flux.dtype
-    weighted = not is_uniform(stack)
     fused, window = ("K-WF", "K-W") if weighted else ("K-F", "K-U")
-    groups = torch.unique(stack.time, dim=0, return_counts=True)[1].tolist()
     d_phase = float(DURATIONS.min()) / OVERSAMPLE
     k_max = _k_max(DURATIONS, d_phase)
     want = dict.fromkeys(kernel_table(), 0)
-    for lo in range(0, len(periods), chunk_periods):
-        chunk = np.asarray(periods[lo:lo + chunk_periods]).astype(
-            numpy_dtype(dtype))
-        max_nbp = max_nbins_bound(chunk, d_phase, dtype)
-        for curves in groups:
-            if fold_route("auto", max_nbp, k_max, dtype, stack.device,
-                          weighted, curves=curves) == "fused":
-                want[fused] += 1
-            else:
-                want["K-SF"] += -(-chunk_periods // launch_periods)
-                want[window] += -(-chunk_periods // launch_periods)
+    for block in blocks:
+        block = np.asarray(block).astype(numpy_dtype(dtype))
+        max_nbp = max_nbins_bound(block, d_phase, dtype)
+        if fold_route("auto", max_nbp, k_max, dtype, device, weighted,
+                      curves=curves) == "fused":
+            want[fused] += 1
+        else:
+            n = -(-(block_periods or len(block)) // launch_periods)
+            want["K-SF"] += n
+            want[window] += n
     return want
 
 
@@ -1573,6 +1624,37 @@ def check_routes(name, want, launches):
     log(f"{name}: launches as the route rule gives them ({want})")
 
 
+def timed_sweep(name, stack, periods, p_inj, path, chunk_periods=1024):
+    """SweepRunner(method="shared") over ``stack`` from a fresh checkpoint
+    at ``path``, timed from the runner's construction to its last winners
+    (wall and process CPU seconds); fails unless it starts at chunk 0 and
+    recovers RECOVERY_SHARE of the injected periods.  Returns the
+    numbers."""
+    from lightkurve_tpu_torch.parallel.checkpoint import SweepRunner
+    B = stack.shape[0]
+    start_sweep()
+    t0, cpu0 = time.time(), time.process_time()
+    runner = SweepRunner(stack, periods, DURATIONS, path,
+                         chunk_periods=chunk_periods, method="shared",
+                         async_save=True)
+    if runner.next_chunk:
+        raise AssertionError(f"{name}: the sweep resumed at chunk "
+                             f"{runner.next_chunk}")
+    state = runner.run()
+    sweep_s = time.time() - t0
+    cpu_s = time.process_time() - cpu0
+    share = recovery(state["period"], p_inj)
+    rate = B * len(periods) / sweep_s
+    log(f"{name}: B={B} N={stack.shape[1]} P={len(periods)} in "
+        f"{runner.n_chunks} chunks: sweep {sweep_s:.3f}s ({rate:.6g} "
+        f"curve-period evals/s; process CPU {cpu_s:.3f}s); recovered "
+        f"{share:.4f}; {peak_memory()}")
+    if share < RECOVERY_SHARE:
+        raise AssertionError(f"{name} recovery {share} < {RECOVERY_SHARE}")
+    return dict(seconds=sweep_s, cpu_seconds=cpu_s, rate=rate,
+                recovered=share)
+
+
 def phase_long_sector(tmp, name, n_sectors, grid, p_max, B=2048,
                       chunk_periods=1024, staged_chunk=None):
     """Phase 6: a long-baseline uniform sweep, 4,096 periods in four
@@ -1583,28 +1665,13 @@ def phase_long_sector(tmp, name, n_sectors, grid, p_max, B=2048,
     ``staged_chunk``, as ``route_check`` the stack and that chunk's
     periods for :func:`compare_routes`."""
     import torch
-    from lightkurve_tpu_torch.parallel.checkpoint import SweepRunner
     stack, p_inj = long_sector_stack(B, dtype=torch.float32,
                                      n_sectors=n_sectors, p_max=p_max)
     periods = np.linspace(*grid)
-    start_sweep()
-    t0 = time.time()
-    runner = SweepRunner(stack, periods, DURATIONS,
-                         os.path.join(tmp, f"long_{n_sectors}.npz"),
-                         chunk_periods=chunk_periods, method="shared",
-                         async_save=True)
-    state = runner.run()
-    sweep_s = time.time() - t0
-    share = recovery(state["period"], p_inj)
-    rate = B * len(periods) / sweep_s
-    log(f"{name}: B={B} N={stack.shape[1]} P={len(periods)} in "
-        f"{runner.n_chunks} chunks: sweep {sweep_s:.3f}s ({rate:.6g} "
-        f"curve-period evals/s); recovered {share:.4f}; "
-        f"{peak_memory()}")
-    if share < RECOVERY_SHARE:
-        raise AssertionError(f"{name} recovery {share} < {RECOVERY_SHARE}")
-    out = dict(seconds=sweep_s, rate=rate, recovered=share,
-               routes=expected_launches(stack, periods, chunk_periods))
+    out = timed_sweep(name, stack, periods, p_inj,
+                      os.path.join(tmp, f"long_{n_sectors}.npz"),
+                      chunk_periods)
+    out["routes"] = expected_launches(stack, periods, chunk_periods)
     if staged_chunk is not None:
         lo = staged_chunk * chunk_periods
         out["route_check"] = (stack, periods[lo:lo + chunk_periods])
@@ -2297,6 +2364,50 @@ def ls_bench_shape(B=2048, device="cuda"):
     return dict(seconds=secs, rate=rate, peak_gib=peak)
 
 
+#: the row-order check (phase 11 part 6): the reference dry run's LS bar
+#: (``__graft_entry__.py:231-234``)
+LS_ROWS_RTOL, LS_ROWS_ATOL = 1e-5, 1e-8
+
+
+def ls_rows(check=True):
+    """Part 6: does a curve's float32 power depend on the other curves of
+    the call?  The dry run's phase 3 rows (13 curves of 512 cadences at
+    0.02 d, 1e-3 noise, a transit at 1.7 d, dy 1e-3; 1,024 frequencies
+    from 0.05 in steps of 0.002): the first 4 called alone, and a second
+    call of all 13, each against one call of 13.  Returns the largest
+    relative gap of each; with ``check``, fails past LS_ROWS_RTOL and
+    LS_ROWS_ATOL."""
+    import torch
+    from lightkurve_tpu_torch.ops.lombscargle import lombscargle_fast
+    rng = np.random.default_rng(7)
+    t = np.arange(512) * 0.02
+    y_np = 1.0 + 1e-3 * rng.standard_normal((13, 512))
+    ph = np.mod(t - 0.5 + 1.7 / 2, 1.7) - 1.7 / 2
+    y_np[:, np.abs(ph) < 0.05] -= 5e-3
+    y = torch.as_tensor(y_np, dtype=torch.float32, device="cuda")
+    dy = torch.full_like(y, 1e-3)
+
+    def ls(rows):
+        return lombscargle_fast(t, y[rows], 0.05, 0.002, 1024, dy=dy[rows],
+                                normalization="psd").double().cpu().numpy()
+
+    whole = ls(slice(None))
+    out = {}
+    for name, got, want in (("rows", ls(slice(0, 4)), whole[:4]),
+                            ("repeat", ls(slice(None)), whole)):
+        out[f"{name}_gap"] = float((np.abs(got - want) / np.abs(want)).max())
+        out[f"{name}_close"] = bool(np.allclose(
+            got, want, rtol=LS_ROWS_RTOL, atol=LS_ROWS_ATOL))
+    log(f"LS rows: 4 curves alone vs in a call of 13: largest relative "
+        f"gap {out['rows_gap']:.3g}; two equal calls of 13: "
+        f"{out['repeat_gap']:.3g} (bar rtol {LS_ROWS_RTOL:g}, atol "
+        f"{LS_ROWS_ATOL:g})")
+    if check and not (out["rows_close"] and out["repeat_close"]):
+        raise AssertionError("LS rows: a curve's power depends on the "
+                             "other curves of the call")
+    return out
+
+
 def ls_mixed(B=2048):
     """Part 3: phase 7's four-grid stack through ``to_periodogram`` (one
     batched call per grid), held against single-grid ``lombscargle_fast``
@@ -2422,14 +2533,14 @@ def ls_direct(B=64, nf=2048, device="cuda"):
 
 
 def phase_ls():
-    """Phase 11: the six-part Lomb-Scargle path (the profile is
+    """Phase 11: the Lomb-Scargle path (the profile is
     ``--profile``'s), each part a path of its own that launches none of
     the BLS kernels.  Returns part 1's numbers and the others' times."""
     import torch
     out = {}
     for name, fn in (("sector", ls_sector), ("bench", ls_bench_shape),
                      ("mixed", ls_mixed), ("fastchi2", ls_fastchi2),
-                     ("direct", ls_direct)):
+                     ("direct", ls_direct), ("rows", ls_rows)):
         out[name], _ = drive(f"Lomb-Scargle {name} (phase 11)", fn,
                              forbid=tuple(kernel_table()))
         torch.cuda.empty_cache()
@@ -5186,6 +5297,457 @@ def phase_archive(tmp, card, sweep, runs):
 
 
 # ---------------------------------------------------------------------------
+# phase 17: the multi-rank slice, four gloo ranks on the one card
+# ---------------------------------------------------------------------------
+MR_RANKS = 4
+MR_PARTS = ("a", "b", "c", "d")
+#: (b)'s batch, which the four ranks do not divide, and its Lomb-Scargle
+#: frequencies (the bench's LS shape)
+MR_RAGGED_B = 2049
+#: the reference dry run's bars for a sharded search and Lomb-Scargle
+#: against the unsharded call (__graft_entry__.py:215-219, :231-234)
+MR_BLS_RTOL = 1e-6
+MR_LS_RTOL, MR_LS_ATOL = 1e-5, 1e-8
+#: (c): the longest periods of the two-sector sweep's chunk 4 (the staged
+#: route at 2048 curves)
+MR_STAGED_PERIODS = 256
+#: (d): targets, and the sharded PLD's largest gap from the unsharded one
+#: in float32 ulps of each corrected value: both solves run in float64 (C4)
+#: on batches of other sizes and differ by their rounding, and the result
+#: is rounded once to float32, so a value may round the other way (the
+#: bar first set, 1e-9 of the median flux, lay below float32's resolution)
+MR_PLD_B = 128
+MR_PLD_ULPS = 1
+#: the staged route's periods per launch in a sharded call (the entry
+#: point's default chunk, which sharded_bls keeps)
+MR_LAUNCH_PERIODS = 16
+
+
+@contextlib.contextmanager
+def first_call(module, name, seen):
+    """Keep, in ``seen[name]``, the arguments of the first call of
+    ``module.name`` inside the block; every call still runs, and counts."""
+    orig = getattr(module, name)
+
+    def keep(*args, **kw):
+        seen.setdefault(name, (args, kw))
+        return orig(*args, **kw)
+
+    setattr(module, name, keep)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, orig)
+
+
+def counted(fn):
+    """``fn()`` on this rank with every launch and plain-call count set to
+    0 just before it and read just after: (result, launches, plain calls,
+    seconds to the end of its device work)."""
+    import torch
+    from lightkurve_tpu_torch.parallel.launch import (kernel_counts,
+                                                       reset_kernel_counts)
+    torch.cuda.synchronize()
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches, calls = kernel_counts()
+    return out, launches, calls, secs
+
+
+def ragged_sector(B=MR_RAGGED_B):
+    """Phase 3's sector kind in memory: B curves of
+    ``tools/make_sector.batch_flux`` on its time grid (8,192 two-minute
+    cadences), one dy per curve; returns the times, the float32 fluxes and
+    dy as host arrays."""
+    from tools import make_sector as ms
+    t = ms.time_grid()
+    flux = np.concatenate([ms.batch_flux(ib, t)[0]
+                           for ib in range(-(-B // ms.BATCH))])[:B]
+    return t, flux.astype(np.float32), np.full(flux.shape, ms.NOISE,
+                                               np.float32)
+
+
+def multirank_a(directory, out, lead):
+    """Part (a) on this rank: phase 10's sector, ``sharded_flatten`` on a
+    2x2 mesh, then ``SweepRunner(mesh=...)`` over :data:`LONG_GRID` in four
+    chunks, uninterrupted and killed after two chunks then resumed
+    (``parallel.dryrun.mesh_sweep``).  Rank 0 saves the trend for the
+    parent and holds its first K-WF call against the plain version."""
+    import torch
+    from lightkurve_tpu_torch.batch import LightCurveStack
+    from lightkurve_tpu_torch.config import numpy_dtype
+    from lightkurve_tpu_torch.ops import bls
+    from lightkurve_tpu_torch.ops import bls_fused_weighted as bfw
+    from lightkurve_tpu_torch.parallel.dryrun import mesh_sweep
+    from lightkurve_tpu_torch.parallel.grid import make_mesh, sharded_flatten
+    mesh = make_mesh(2, 2)
+    arrays, _, _ = flatten_arrays(2048)
+    stack = LightCurveStack.from_numpy(*arrays, device=mesh.device,
+                                       dtype=torch.float32)
+    del arrays
+    periods = np.linspace(*LONG_GRID)
+    chunk = 1024
+
+    def run():
+        t0 = time.perf_counter()
+        with torch_default_tf32():
+            trend, _ = sharded_flatten(stack.time, stack.flux, stack.mask,
+                                       mesh=mesh, **FLATTEN_KW)
+        torch.cuda.synchronize()
+        flatten_s = time.perf_counter() - t0
+        flat = stack._replace(flux=stack.flux / trend,
+                              flux_err=stack.flux_err / trend)
+        sweep = mesh_sweep(flat, periods, DURATIONS, directory, mesh,
+                           tag="flatten_search", chunk_periods=chunk,
+                           method="shared", async_save=True)
+        return trend, flat, sweep, flatten_s
+
+    seen = {}
+    with first_call(bls, "fused_scan_weighted", seen):
+        (trend, flat, sweep, flatten_s), *counts = counted(run)
+    gi = mesh.coordinate[1]
+    half = chunk // mesh.shape["grid"]
+    blocks = [c[gi * half:(gi + 1) * half] for c in (
+        periods[lo:lo + chunk].astype(numpy_dtype(torch.float32))
+        for lo in range(0, len(periods), chunk))]
+    # the uninterrupted sweep's four chunks, then the killed and resumed
+    # runs' two each
+    out["want"]["a"] = route_launches(
+        blocks * 2, -(-len(stack) // mesh.shape["targets"]),
+        not is_uniform(flat), flat.flux.dtype, flat.device,
+        MR_LAUNCH_PERIODS)
+    out["launches"]["a"], out["calls"]["a"], out["seconds"]["a"] = counts
+    out["a"] = dict(uninterrupted=sweep["uninterrupted"],
+                    resumed=sweep["resumed"],
+                    chunk_seconds=sweep["chunk_seconds"],
+                    gather_seconds=sweep["gather_seconds"],
+                    flatten_s=flatten_s)
+    if lead:
+        np.save(os.path.join(directory, "trend.npy"), trend.cpu().numpy())
+        if "fused_scan_weighted" not in seen:
+            raise AssertionError("multi-rank (a): rank 0 never called K-WF")
+        args, kw = seen.pop("fused_scan_weighted")
+        log(f"multi-rank (a) rank 0, first K-WF call: B={args[1].shape[1]} "
+            f"N={args[1].shape[0]} P={args[3].shape[0]}")
+        out["errs"]["K-WF"] = compare(
+            "K-WF multi-rank (a) rank 0", bfw.fused_scan_weighted(
+                *args, **kw), bfw.fused_scan_weighted_plain(*args, **kw),
+            False)[0]
+    del stack, flat, trend, seen
+
+
+def multirank_b(out, lead):
+    """Part (b) on this rank: a 4x1 mesh over :func:`ragged_sector`'s 2049
+    uniform curves, ``sharded_bls`` over 4,096 periods and
+    ``sharded_lombscargle`` at the bench's 16,384 frequencies; rank 0 holds
+    both against the unsharded calls (the reference dry run's bars) and
+    its K-F call against the plain version."""
+    import torch
+    from lightkurve_tpu_torch.ops import bls
+    from lightkurve_tpu_torch.ops import bls_fused as bfu
+    from lightkurve_tpu_torch.ops.lombscargle import lombscargle_fast
+    from lightkurve_tpu_torch.parallel.grid import (make_mesh, sharded_bls,
+                                                    sharded_lombscargle)
+    mesh = make_mesh(MR_RANKS, 1)
+    t, flux_np, dy = ragged_sector()
+    y = torch.as_tensor(flux_np, device=mesh.device)
+    times = torch.as_tensor(np.tile(t, (len(flux_np), 1)),
+                            dtype=torch.float32, device=mesh.device)
+    grid = np.linspace(1.0, (t[-1] - t[0]) / 3, 4096).astype(np.float32)
+    durs = DURATIONS.astype(np.float32)
+    df = 60.0 / LS_BENCH_NF / float(t[-1] - t[0] + 1)
+
+    def run():
+        # dy as a host array: the search reads the uniform regime from it
+        res = sharded_bls(times, y, dy, grid, durs, oversample=OVERSAMPLE,
+                          mesh=mesh)
+        ls = sharded_lombscargle(t, y, dy, 0.05, df, LS_BENCH_NF, mesh=mesh)
+        return res, ls
+
+    seen = {}
+    with first_call(bls, "fused_scan_uniform", seen):
+        (res, ls), *counts = counted(run)
+    out["launches"]["b"], out["calls"]["b"], out["seconds"]["b"] = counts
+    out["want"]["b"] = route_launches(
+        [grid], -(-MR_RAGGED_B // MR_RANKS), False, torch.float32,
+        mesh.device, MR_LAUNCH_PERIODS)
+    if not lead:
+        return
+    ref = bls.bls_power_shared_batch(times[0], y, dy, grid, durs,
+                                     oversample=OVERSAMPLE)
+    got_p, want_p = res["power"].cpu().numpy(), ref["power"].cpu().numpy()
+    same = all(torch.equal(res[k], ref[k]) for k in ref)
+    log(f"multi-rank (b): sharded_bls B={MR_RAGGED_B} over {MR_RANKS} "
+        f"ranks against the unsharded call: max |power gap| "
+        f"{float(np.abs(got_p - want_p).max()):.3g} "
+        f"({'equal bits' if same else 'not bit-equal'}; bar rtol = atol = "
+        f"{MR_BLS_RTOL:g})")
+    np.testing.assert_allclose(got_p, want_p, rtol=MR_BLS_RTOL,
+                               atol=MR_BLS_RTOL,
+                               err_msg="multi-rank (b): sharded BLS")
+    ls_ref = lombscargle_fast(t, y, 0.05, df, LS_BENCH_NF, dy=dy,
+                              normalization="psd")
+    gap = float(((ls - ls_ref).abs() / ls_ref.abs()).max())
+    log(f"multi-rank (b): sharded_lombscargle Nf={LS_BENCH_NF} against "
+        f"the unsharded call: max relative gap {gap:.3g} "
+        f"({'equal bits' if torch.equal(ls, ls_ref) else 'not bit-equal'};"
+        f" bar rtol {MR_LS_RTOL:g}, atol {MR_LS_ATOL:g})")
+    np.testing.assert_allclose(ls.cpu().numpy(), ls_ref.cpu().numpy(),
+                               rtol=MR_LS_RTOL, atol=MR_LS_ATOL,
+                               err_msg="multi-rank (b): sharded LS")
+    args, kw = seen["fused_scan_uniform"]
+    out["errs"]["K-F"] = compare(
+        "K-F multi-rank (b) rank 0", bfu.fused_scan_uniform(*args, **kw),
+        bfu.fused_scan_uniform_plain(*args, **kw), False)[0]
+
+
+def multirank_c(out, lead):
+    """Part (c) on this rank: a 1x4 mesh over the two-sector stack (2048 x
+    38,880), ``sharded_bls`` over the :data:`MR_STAGED_PERIODS` longest
+    periods of its chunk 4 (the staged route: K-SF and K-U); rank 0 holds
+    the winners against the unsharded call (C2), K-SF against the float64
+    fold and K-U against its plain version on its first calls' inputs."""
+    import torch
+    from lightkurve_tpu_torch.ops import bls, bls_window
+    from lightkurve_tpu_torch.parallel.grid import make_mesh, sharded_bls
+    mesh = make_mesh(1, MR_RANKS)
+    stack, _ = long_sector_stack(2048, n_sectors=2, p_max=17.0)
+    periods = np.linspace(*TWO_SECTOR_GRID)[-MR_STAGED_PERIODS:].astype(
+        np.float32)
+    durs = DURATIONS.astype(np.float32)
+
+    def run():
+        return sharded_bls(stack.time, stack.flux, stack.flux_err, periods,
+                           durs, oversample=OVERSAMPLE, mesh=mesh,
+                           uniform_weights=True)
+
+    seen = {}
+    with first_call(bls, "staged_fold", seen), \
+            first_call(bls, "window_scan_uniform", seen):
+        res, *counts = counted(run)
+    out["launches"]["c"], out["calls"]["c"], out["seconds"]["c"] = counts
+    gi, per = mesh.coordinate[1], MR_STAGED_PERIODS // MR_RANKS
+    out["want"]["c"] = route_launches(
+        [periods[gi * per:(gi + 1) * per]], len(stack), False,
+        torch.float32, mesh.device, MR_LAUNCH_PERIODS)
+    if not lead:
+        return
+    ref = bls.bls_power_shared_batch(stack.time[0], stack.flux,
+                                     stack.flux_err, periods, durs,
+                                     oversample=OVERSAMPLE,
+                                     uniform_weights=True)
+    route_gaps("multi-rank (c) sharded vs unsharded",
+               {k: v.cpu().numpy() for k, v in res.items()},
+               {k: v.cpu().numpy() for k, v in ref.items()},
+               stack.shape[1])
+    del ref, res
+    (ts, Yc, pc, d_phase, nbins, max_nbp, k_max, wrap), _ = seen[
+        "staged_fold"]
+    out["errs"]["K-SF"], _ = fold_against_f64(
+        "K-SF multi-rank (c) rank 0", ts, Yc, pc, d_phase, nbins, max_nbp,
+        k_max, wrap, MR_LAUNCH_PERIODS)
+    args, kw = seen["window_scan_uniform"]
+    out["errs"]["K-U"] = compare(
+        "K-U multi-rank (c) rank 0", bls_window.window_scan_uniform(
+            *args, **kw), bls_window.window_scan_uniform_plain(*args, **kw),
+        False)[0]
+
+
+def multirank_d(out, lead):
+    """Part (d) on this rank: a 4x1 mesh over :data:`MR_PLD_B` of phase 13's
+    pixel targets, ``sharded_pld_photometry`` (32 targets a rank); rank 0
+    holds it against the unsharded ``pld_correct``: equal masks, every
+    corrected flux and error within :data:`MR_PLD_ULPS` float32 ulps of
+    the unsharded value."""
+    import torch
+    from lightkurve_tpu_torch.parallel.grid import (make_mesh,
+                                                    sharded_pld_photometry)
+    mesh = make_mesh(MR_RANKS, 1)
+    tpf, _ = pixel_sector(MR_PLD_B, PIX_SEED, mesh.device)
+    (f, e, m), *counts = counted(
+        lambda: sharded_pld_photometry(tpf, mesh=mesh, **PIX_PLD))
+    out["launches"]["d"], out["calls"]["d"], out["seconds"]["d"] = counts
+    out["want"]["d"] = dict.fromkeys(kernel_table(), 0)
+    if not lead:
+        return
+    ref = tpf.pld_correct(**PIX_PLD)
+    scale = float(ref.flux.double().abs().median())
+
+    def ulps(got, want):
+        want = want.cpu().numpy()
+        return float(np.max(np.abs(got.cpu().numpy() - want)
+                            / np.spacing(np.abs(want))))
+
+    gap = float((f.double() - ref.flux.double()).abs().max()) / scale
+    flux_ulps, err_ulps = ulps(f, ref.flux), ulps(e, ref.flux_err)
+    differ = int((f != ref.flux).sum())
+    log(f"multi-rank (d): sharded_pld_photometry of {MR_PLD_B} targets x "
+        f"{f.shape[1]} cadences against pld_correct: {differ} of "
+        f"{f.numel()} corrected values differ, by at most {flux_ulps:g} "
+        f"float32 ulps (bar {MR_PLD_ULPS}; largest gap {gap:.3g} of the "
+        f"median flux), flux_err by {err_ulps:g} ulps, masks "
+        f"{'equal' if torch.equal(m, ref.mask) else 'DIFFERENT'}")
+    if max(flux_ulps, err_ulps) > MR_PLD_ULPS or not torch.equal(
+            m, ref.mask):
+        raise AssertionError("multi-rank (d): sharded PLD differs")
+
+
+def multirank_rank(directory):
+    """One of phase 17's ranks (every rank runs it, ``directory`` shared):
+    parts (a)-(d), each with this rank's launch and plain-call counts set
+    to 0 just before it and read just after (:func:`counted`), and the
+    launches the route rule gives this rank's shard; rank 0 also holds
+    the kernels against their plain versions and the sharded calls
+    against the unsharded ones.  Returns this rank's numbers."""
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats()
+    lead = dist.get_rank() == 0
+    out = {k: {} for k in ("launches", "calls", "want", "seconds", "errs")}
+    multirank_a(directory, out, lead)
+    torch.cuda.empty_cache()
+    multirank_b(out, lead)
+    torch.cuda.empty_cache()
+    multirank_c(out, lead)
+    torch.cuda.empty_cache()
+    multirank_d(out, lead)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def check_multirank_sweep(directory, reports):
+    """Part (a) in the parent: every rank holds the same states, the
+    resumed state equals the uninterrupted one bit for bit, the trend's
+    largest gap from the unsharded flatten of the same arrays is logged,
+    and the unsharded sweep of the same flattened flux gives the same
+    winning period on >= 99.9% of curves with every power gap within C2's
+    bound; recovery >= 99%.  Returns (a)'s numbers."""
+    import torch
+    from lightkurve_tpu_torch.batch import LightCurveStack
+    from lightkurve_tpu_torch.parallel.checkpoint import SweepRunner
+    from lightkurve_tpu_torch.parallel.checkpoint import _FIELDS
+    parts = [r["result"]["a"] for r in reports]
+    a = parts[0]
+    for f in _FIELDS:
+        for p in parts:
+            for run in ("uninterrupted", "resumed"):
+                if not np.array_equal(p[run][f], a[run][f], equal_nan=True):
+                    raise AssertionError(f"multi-rank (a): ranks hold "
+                                         f"different {run} {f}")
+        if not np.array_equal(a["resumed"][f], a["uninterrupted"][f],
+                              equal_nan=True):
+            raise AssertionError(f"multi-rank (a): kill/resume mismatch in "
+                                 f"{f}")
+    arrays, p_inj, _ = flatten_arrays(2048)
+    stack = LightCurveStack.from_numpy(*arrays, device="cuda",
+                                       dtype=torch.float32)
+    del arrays
+    with torch_default_tf32():
+        _, whole = stack.flatten(return_trend=True, **FLATTEN_KW)
+    trend = torch.as_tensor(np.load(os.path.join(directory, "trend.npy")),
+                            device="cuda")
+    gap = float(((trend - whole.flux).abs() / whole.flux.abs()).max())
+    bits = "equal bits" if torch.equal(trend, whole.flux) else "not bit-equal"
+    log(f"multi-rank (a): sharded trend against the unsharded flatten of "
+        f"the same arrays: largest relative gap {gap:.3g} ({bits})")
+    del whole
+    flat = stack._replace(flux=stack.flux / trend,
+                          flux_err=stack.flux_err / trend)
+    periods = np.linspace(*LONG_GRID)
+    ref = SweepRunner(flat, periods, DURATIONS,
+                      os.path.join(directory, "unsharded.npz"),
+                      chunk_periods=1024, method="shared").run()
+    got = a["uninterrupted"]
+    share = float((got["period"] == ref["period"]).mean())
+    log(f"multi-rank (a): winners against the unsharded sweep of the same "
+        f"flattened flux: the same period on {share:.6f} of "
+        f"{len(stack)} curves (bar {F32_WINNER_SHARE})")
+    if share < F32_WINNER_SHARE:
+        raise AssertionError("multi-rank (a): winners differ from the "
+                             "unsharded sweep")
+    route_gaps("multi-rank (a) sharded vs unsharded", got, ref,
+               stack.shape[1], keys=("period", "duration", "transit_time"))
+    rec = recovery(got["period"], p_inj)
+    sweep_s = max(sum(p["chunk_seconds"]) for p in parts)
+    rate = len(stack) * len(periods) / sweep_s
+    log(f"multi-rank (a): flatten {max(p['flatten_s'] for p in parts):.3f}s"
+        f" (slowest rank), sweep {sweep_s:.3f}s on the slowest rank "
+        f"({rate:.6g} curve-period evals/s; phase 10 unsharded: see its "
+        f"line); recovered {rec:.4f}")
+    for r, p in enumerate(parts):
+        log(f"multi-rank (a) rank {r}: chunk seconds "
+            f"{[round(x, 4) for x in p['chunk_seconds']]}, gather seconds "
+            f"{[round(x, 4) for x in p['gather_seconds']]} (share "
+            f"{sum(p['gather_seconds']) / sum(p['chunk_seconds']):.3f})")
+    if rec < RECOVERY_SHARE:
+        raise AssertionError(f"multi-rank (a) recovery {rec} < "
+                             f"{RECOVERY_SHARE}")
+    return dict(rate=rate, recovered=rec, sweep_s=sweep_s,
+                gather_share=max(sum(p["gather_seconds"])
+                                 / sum(p["chunk_seconds"]) for p in parts))
+
+
+def phase_multirank(tmp, runs):
+    """Phase 17: four gloo ranks on the one card
+    (``parallel.launch.run_ranks``; the kernels were built by phase 1, so
+    the ranks only load them): :func:`multirank_rank`'s parts (a)-(d),
+    each rank's part a path of its own whose launches must be what the
+    route rule gives its shard and whose plain versions must not run;
+    (a)'s checks against the unsharded path in the parent
+    (:func:`check_multirank_sweep`); then (e) ``dryrun_multichip(4)`` at
+    the reference's sizes, each rank a path of its own.  Adds the paths'
+    launches to ``runs``; returns the numbers and the kernels' errors."""
+    import torch
+    from lightkurve_tpu_torch.parallel.dryrun import dryrun_multichip
+    from lightkurve_tpu_torch.parallel.launch import run_ranks
+    t_phase = time.time()
+    torch.cuda.empty_cache()
+    directory = os.path.join(tmp, "multirank")
+    os.makedirs(directory)
+    reports = run_ranks(MR_RANKS, multirank_rank, directory, timeout=600)
+    ranks_s = time.time() - t_phase
+    errs = {}
+    for r, rep in enumerate(reports):
+        res = rep["result"]
+        for part in MR_PARTS:
+            path = f"multi-rank (phase 17 {part}) rank {r}"
+            launches, calls = res["launches"][part], res["calls"][part]
+            log(f"{path}: launches {launches}; plain calls {calls}; "
+                f"{res['seconds'][part]:.2f}s")
+            if any(calls.values()):
+                raise AssertionError(f"{path} ran a plain version")
+            check_routes(path, res["want"][part], launches)
+            runs[path] = launches
+        for k, e in res["errs"].items():
+            errs[k] = max(errs.get(k, 0.0), e)
+    log("multi-rank: peak device memory by rank "
+        f"{[round(r['result']['peak_gib'], 3) for r in reports]} GiB")
+    out = {"a": check_multirank_sweep(directory, reports)}
+    t0 = time.time()
+    dry = dryrun_multichip(MR_RANKS)
+    for r, rep in enumerate(dry):
+        path = f"multi-rank dry run (phase 17 e) rank {r}"
+        log(f"{path}: launches {rep['launches']}; plain calls "
+            f"{rep['calls']}")
+        if any(rep["calls"].values()) or not any(rep["launches"].values()):
+            raise AssertionError(f"{path}: a plain version ran, or no "
+                                 "kernel launched")
+        runs[path] = rep["launches"]
+    out["dryrun_s"] = time.time() - t0
+    out["ranks_s"] = ranks_s
+    out["seconds"] = time.time() - t_phase
+    log(f"phase 17: {out['seconds']:.1f}s (ranks (a)-(d) {ranks_s:.1f}s, "
+        f"dry run {out['dryrun_s']:.1f}s)")
+    torch.cuda.empty_cache()
+    return out, errs
+
+
+# ---------------------------------------------------------------------------
 # --profile: one full-size sweep chunk per regime under torch.profiler
 # ---------------------------------------------------------------------------
 def chunk_bounds(stack, periods, impl, launch_periods=8):
@@ -5478,17 +6040,8 @@ def op_kinds(by_name):
 def kernel_table():
     """Each kernel's wrapper (which counts launches) and plain version
     (which counts calls)."""
-    from lightkurve_tpu_torch.ops import (bls_fused, bls_fused_weighted,
-                                          bls_staged_fold, bls_window)
-    return {"K-F": (bls_fused.fused_scan_uniform,
-                    bls_fused.fused_scan_uniform_plain),
-            "K-WF": (bls_fused_weighted.fused_scan_weighted,
-                     bls_fused_weighted.fused_scan_weighted_plain),
-            "K-W": (bls_window.window_scan, bls_window.window_scan_plain),
-            "K-U": (bls_window.window_scan_uniform,
-                    bls_window.window_scan_uniform_plain),
-            "K-SF": (bls_staged_fold.staged_fold,
-                     bls_staged_fold.staged_fold_plain)}
+    from lightkurve_tpu_torch.parallel.launch import kernel_counters
+    return kernel_counters()
 
 
 def drive(name, fn, *args, expect=(), forbid=()):
@@ -5533,6 +6086,64 @@ KERNELS = (
 )
 
 
+def card_clocks():
+    """The card's SM clock, its maximum, power draw and temperature, as
+    ``nvidia-smi`` reads them now."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
+         "temperature.gpu", "--format=csv,noheader"], capture_output=True,
+        text=True, check=True).stdout.strip().splitlines()[0]
+
+
+#: ``--cells``: two-sector sweeps a process (its first pays the process's
+#: first staged work)
+CELLS_SWEEPS = 3
+
+
+def repeat_cells():
+    """``--cells``: phase 11's sector and bench-shape rates and its
+    row-order gaps (unchecked, so a version without the float64 sums
+    reports its own), then phase 6's two-sector sweep CELLS_SWEEPS times,
+    each from a fresh checkpoint, with its launches of the uniform sweep's
+    kernels and the card's clocks after it.  Fails if a sweep resumed or
+    did not launch both staged kernels.  Prints one JSON line."""
+    import torch
+    import lightkurve_tpu_torch
+    # the uniform sweep's kernels by the wrapper names every version of the
+    # port has had (kernel_table needs parallel.launch, which an older
+    # checkout lacks)
+    from lightkurve_tpu_torch.ops import bls_fused, bls_staged_fold, bls_window
+    kernels = {"K-F": bls_fused.fused_scan_uniform,
+               "K-SF": bls_staged_fold.staged_fold,
+               "K-U": bls_window.window_scan_uniform}
+    out = dict(port=os.path.dirname(os.path.dirname(os.path.abspath(
+        lightkurve_tpu_torch.__file__))), card=card_line())
+    out["ls_sector_rate"] = ls_sector()["rate"]
+    out["ls_bench_rate"] = ls_bench_shape()["rate"]
+    out["ls_rows"] = ls_rows(check=False)
+    torch.cuda.empty_cache()
+    stack, p_inj = long_sector_stack(dtype=torch.float32, n_sectors=2,
+                                     p_max=17.0)
+    periods = np.linspace(*TWO_SECTOR_GRID)
+    out["two_sectors"] = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for i in range(CELLS_SWEEPS):
+            for kern in kernels.values():
+                kern.launches = 0
+            run = timed_sweep(f"two sectors, run {i}", stack, periods, p_inj,
+                              os.path.join(tmp, f"two_{i}.npz"))
+            run["launches"] = {k: kern.launches
+                               for k, kern in kernels.items()}
+            run["clocks"] = card_clocks()
+            log(f"two sectors, run {i}: launches {run['launches']}; "
+                f"SM clock, max, power, temperature: {run['clocks']}")
+            if not (run["launches"]["K-SF"] and run["launches"]["K-U"]):
+                raise AssertionError(f"two sectors, run {i}: no staged "
+                                     "launch")
+            out["two_sectors"].append(run)
+    print(json.dumps(out), flush=True)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -5541,7 +6152,15 @@ def main():
     parser.add_argument("--ls-f64", action="store_true",
                         help="only phase 11's float64 card-against-CPU "
                              "check, cold in this process (no kernels)")
+    parser.add_argument("--cells", action="store_true",
+                        help="only phase 11's rates and row order and "
+                             "repeated two-sector sweeps, one JSON line")
+    parser.add_argument("--port", metavar="DIR",
+                        help="with --cells: import lightkurve_tpu_torch "
+                             "from this checkout")
     args = parser.parse_args()
+    if args.port:
+        sys.path.insert(0, os.path.abspath(args.port))
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -5558,6 +6177,9 @@ def main():
         ls_f64_cold()
         return 0
     phase_build()
+    if args.cells:
+        repeat_cells()
+        return 0
     if args.profile:
         with tempfile.TemporaryDirectory() as tmp, archive_env(tmp):
             phase_profile(tmp)
@@ -5628,6 +6250,10 @@ def main():
                    *arc_errs.items()):
         errs[key] = max(errs[key], e)
     phase_routes()
+    with tempfile.TemporaryDirectory() as tmp:
+        mr, mr_errs = phase_multirank(tmp, runs)
+    for key, e in mr_errs.items():
+        errs[key] = max(errs[key], e)
     log(f"main paths: uniform {uni['rate']:.6g}, weighted "
         f"{wei['rate']:.6g}, long sector {lng['rate']:.6g}, two sectors "
         f"{two['rate']:.6g}, mixed grids {mix['rate']:.6g}, flatten -> "
@@ -5657,7 +6283,11 @@ def main():
         f"LS bench shape {ls['bench']['rate']:.6g} curve-frequency "
         f"evals/s; per-curve fast "
         f"{pcv['fast']['seconds']:.3f}s, exact "
-        f"{pcv['exact']['seconds']:.3f}s; "
+        f"{pcv['exact']['seconds']:.3f}s; multi-rank (phase 17, "
+        f"{MR_RANKS} ranks on one card): flatten -> sharded sweep "
+        f"{mr['a']['rate']:.6g} curve-period evals/s, gather share "
+        f"{mr['a']['gather_share']:.3f}, recovered "
+        f"{mr['a']['recovered']:.4f}, phase 17 {mr['seconds']:.1f}s; "
         f"smoke {time.time() - t_start:.1f}s")
     kernels = [
         {"name": name, "route": "cuda", "source": source,

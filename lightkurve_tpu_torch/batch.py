@@ -219,7 +219,8 @@ class LightCurveStack:
         return np.asarray(gid).ravel(), t_host
 
     def to_periodogram(self, minimum_frequency=None, maximum_frequency=None,
-                       oversample_factor=1.0, normalization="psd"):
+                       oversample_factor=1.0, normalization="psd",
+                       sharded=False, mesh=None):
         """Batched fast Lomb-Scargle
         (:func:`~lightkurve_tpu_torch.ops.lombscargle.lombscargle_fast`)
         over one frequency grid for the whole stack.
@@ -231,12 +232,14 @@ class LightCurveStack:
         nothing (``dy = inf``).  A stack of a few distinct time grids runs
         one batched call per grid on that same frequency grid.  ``psd``
         is rescaled to the reference's units, 2 / (valid cadences x
-        ``oversample_factor`` x step).
+        ``oversample_factor`` x step).  ``sharded=True`` runs
+        :func:`~lightkurve_tpu_torch.parallel.grid.sharded_lombscargle` over
+        ``mesh`` (default every rank of the process group on the targets
+        axis; single-grid stacks only).
 
         Returns (frequency, power): a float64 host array (Nf,) and a
         (B, Nf) tensor on the stack's device.
         """
-        from .ops.lombscargle import lombscargle_fast
         t0 = self.time[0].cpu().numpy().astype(np.float64)
         nyquist = 0.5 / np.median(np.diff(t0))
         fs = 1.0 / (t0[-1] - t0[0]) / oversample_factor
@@ -248,19 +251,19 @@ class LightCurveStack:
         dy = torch.where(self.mask, self.flux_err,
                          torch.tensor(torch.inf, dtype=self.flux.dtype,
                                       device=self.device))
-        gid, t_host = self._grid_groups()
-        if gid.max() == 0:
-            power = lombscargle_fast(t0, self.flux, f0, fs, Nf, dy=dy,
-                                     normalization=normalization)
+        if sharded:
+            if not bool(torch.all(self.time == self.time[0:1])):
+                raise ValueError(
+                    "sharded=True requires all curves to share one time "
+                    "grid; group mixed-grid stacks first (the default "
+                    "unsharded path does this automatically)")
+            from .parallel.grid import sharded_lombscargle
+            power = sharded_lombscargle(t0, self.flux, dy, f0, fs, Nf,
+                                        mesh=mesh,
+                                        normalization=normalization)
         else:
-            power = torch.empty((len(self), Nf), dtype=self.flux.dtype,
-                                device=self.device)
-            for g in range(int(gid.max()) + 1):
-                rows = np.nonzero(gid == g)[0]
-                idx = torch.as_tensor(rows, device=self.device)
-                power[idx] = lombscargle_fast(
-                    t_host[rows[0]], self.flux[idx], f0, fs, Nf,
-                    dy=dy[idx], normalization=normalization)
+            power = self._lombscargle_groups(t0, dy, f0, fs, Nf,
+                                             normalization)
         freqs = f0 + fs * np.arange(Nf)
         if normalization == "psd":
             n = self.mask.sum(dim=1, keepdim=True).to(torch.float64)
@@ -268,10 +271,33 @@ class LightCurveStack:
                 power.dtype)
         return freqs, power
 
+    def _lombscargle_groups(self, t0, dy, f0, fs, Nf, normalization):
+        """The unsharded fast Lomb-Scargle of :meth:`to_periodogram`: one
+        batched call, or one per time grid of a mixed-grid stack."""
+        from .ops.lombscargle import lombscargle_fast
+        gid, t_host = self._grid_groups()
+        if gid.max() == 0:
+            return lombscargle_fast(t0, self.flux, f0, fs, Nf, dy=dy,
+                                    normalization=normalization)
+        power = torch.empty((len(self), Nf), dtype=self.flux.dtype,
+                            device=self.device)
+        for g in range(int(gid.max()) + 1):
+            rows = np.nonzero(gid == g)[0]
+            idx = torch.as_tensor(rows, device=self.device)
+            power[idx] = lombscargle_fast(
+                t_host[rows[0]], self.flux[idx], f0, fs, Nf, dy=dy[idx],
+                normalization=normalization)
+        return power
+
     def bls_search(self, periods, durations, oversample=10,
-                   objective="likelihood", shared_time=None, method="fast"):
+                   objective="likelihood", sharded=False, mesh=None,
+                   shared_time=None, method="fast"):
         """Batched BLS over the stack; returns a dict of (B, P) tensors on
-        the stack's device.
+        the stack's device.  ``sharded=True`` runs
+        :func:`~lightkurve_tpu_torch.parallel.grid.sharded_bls` over
+        ``mesh`` (targets x period grid; default every rank of the process
+        group on the grid axis), with ``shared_time`` as given, or False
+        for ``method="exact"``.
 
         When every curve shares one time grid (auto-detected, or forced
         with ``shared_time=True``) the search runs through the shared-grid
@@ -297,6 +323,14 @@ class LightCurveStack:
         dy = torch.where(self.mask, self.flux_err,
                          torch.tensor(torch.inf, dtype=dtype,
                                       device=self.device))
+        if sharded:
+            from .parallel.grid import sharded_bls
+            # an explicit method="exact" takes the per-curve exact search
+            return sharded_bls(self.time, self.flux, dy, periods, durations,
+                               oversample=oversample, objective=objective,
+                               mesh=mesh,
+                               shared_time=(False if method == "exact"
+                                            else shared_time))
         auto = shared_time is None
         if auto and method == "fast":
             shared_time = bool(torch.all(self.time == self.time[0:1]))

@@ -367,7 +367,13 @@ def extirpolate(xi, frac, y, N, M=4):
     (..., N).  Rows of a (B, n) ``y`` share the sample positions, as a
     stack of curves on one time grid does: each of the ``M + 1`` deposits
     is one ``index_add_`` along the last axis of a (B, N + 1) tensor whose
-    last column takes the zero deposits.
+    last column takes the zero deposits.  The deposits are summed in
+    float64 and the sums rounded once to ``y``'s dtype: on the card the
+    atomic adds land in an order that changes from run to run and with the
+    rows of the call, and float32 sums in that order moved a row's power
+    at the lowest frequencies by parts in a thousand (the floating mean's
+    terms cancel there).  Summed in float64, each row's result is the same
+    whatever the run and whichever rows share the call.
     """
     is_int = frac == 0
     frac_f = torch.where(is_int, 0.5, frac)
@@ -375,19 +381,19 @@ def extirpolate(xi, frac, y, N, M=4):
     offs = ((xi - ilo)[..., None] + frac_f[..., None]
             - torch.arange(M, device=frac.device))
     prod = torch.prod(offs, dim=-1)
-    result = y.new_zeros(y.shape[:-1] + (N + 1,))
+    result = y.new_zeros(y.shape[:-1] + (N + 1,), dtype=torch.float64)
     last = y.ndim - 1
     result.index_add_(last, torch.where(is_int, xi, N),
-                      torch.where(is_int, y, 0.0))
+                      torch.where(is_int, y, 0.0).double())
     numerator = torch.where(is_int, 0.0, y) * prod
     denominator = float(factorial(M - 1))
     for j in range(M):
         if j > 0:
             denominator *= j / (j - M)
         ind = ilo + (M - 1 - j)
-        result.index_add_(last, ind,
-                          numerator / (denominator * ((xi - ind) + frac_f)))
-    return result[..., :N]
+        result.index_add_(last, ind, (
+            numerator / (denominator * ((xi - ind) + frac_f))).double())
+    return result[..., :N].to(y.dtype)
 
 
 #: the reference's name for the (B, n) case, which :func:`extirpolate`
@@ -491,6 +497,14 @@ def trig_sum(t, h, df, Nf, f0=0.0, freq_factor=1, oversampling=5, Mfft=4,
     return _trig_sum(pre, h, Nf, Mfft)
 
 
+def _row_sum(x):
+    """Each row's sum (keeping the last axis), summed in float64 and
+    rounded once to ``x``'s dtype: the card's reduction order depends on
+    the number of rows, and float32 sums in either order differ."""
+    return torch.sum(x, dim=-1, keepdim=True, dtype=torch.float64).to(
+        x.dtype)
+
+
 def lombscargle_fast(t, y, f0, df, Nf, dy=None, normalization="standard",
                      fit_mean=True, center_data=True, oversampling=5, Mfft=4,
                      device=None):
@@ -503,7 +517,9 @@ def lombscargle_fast(t, y, f0, df, Nf, dy=None, normalization="standard",
     masks a sample).  Accuracy against :func:`lombscargle_direct` is set
     by ``oversampling`` and ``Mfft``, as in astropy's 'fast' method.
     ``device`` as in :func:`lombscargle_direct`.  Returns powers shaped
-    like ``y`` with ``Nf`` frequencies.
+    like ``y`` with ``Nf`` frequencies.  The sums over each curve are
+    made in float64 (:func:`extirpolate`, :func:`_row_sum`), so a curve's
+    power does not depend on the other curves of the call.
     """
     t = _host(t)
     y = on_device(y, device)
@@ -516,9 +532,9 @@ def lombscargle_fast(t, y, f0, df, Nf, dy=None, normalization="standard",
     pre2 = _fast_precompute_device(t, 2 * f0, 2 * df, Nf, oversampling,
                                    Mfft, y.dtype, y.device)
 
-    ws = torch.sum(w, dim=-1, keepdim=True)
+    ws = _row_sum(w)
     if center_data or fit_mean:
-        y = y - torch.sum(w * y, dim=-1, keepdim=True) / ws
+        y = y - _row_sum(w * y) / ws
     Sh, Ch = _trig_sum(pre1, w * y, Nf, Mfft)
     S2, C2 = _trig_sum(pre2, w, Nf, Mfft)
     if fit_mean:
@@ -531,7 +547,7 @@ def lombscargle_fast(t, y, f0, df, Nf, dy=None, normalization="standard",
     S2w = tan_2omega_tau / norm
     Cw = np.sqrt(0.5) * torch.sqrt(1 + C2w)
     Sw = np.sqrt(0.5) * torch.sign(S2w) * torch.sqrt(1 - C2w)
-    YY = torch.sum(w * y * y, dim=-1, keepdim=True)
+    YY = _row_sum(w * y * y)
     YC = Ch * Cw + Sh * Sw
     YS = Sh * Cw - Ch * Sw
     CC = 0.5 * (ws + C2 * C2w + S2 * S2w)

@@ -1,6 +1,6 @@
 """Checkpointed period-grid sweeps.
 
-Counterpart of ``lightkurve_tpu/parallel/checkpoint.py`` on one device.
+Counterpart of ``lightkurve_tpu/parallel/checkpoint.py``.
 :class:`SweepRunner` walks a large period grid in chunks, reduces each
 chunk's (B, P_chunk) BLS grids to per-curve winners on the device, keeps
 the best-so-far winners on the host, and persists them (npz, the same
@@ -9,7 +9,10 @@ resumes from the last finished chunk -- including a sweep that
 ``lightkurve_tpu`` started.  Methods: ``"shared"`` (the shared-time-grid
 kernels; a stack of several grids runs one shared-grid search per grid),
 ``"fast"`` (binned per-curve search) and ``"exact"`` (sorted-phase
-per-curve search).
+per-curve search).  Given a mesh (:func:`.grid.make_mesh`), every rank of
+the mesh runs the sweep with the whole stack and each chunk goes through
+:func:`.grid.sharded_bls`; every rank holds the whole state, the mesh's
+first rank writes the checkpoint, and every rank reads it on resume.
 """
 from __future__ import annotations
 
@@ -111,15 +114,21 @@ class SweepRunner:
         shared-grid search per grid).
     async_save : write the npz on a background thread (one write in
         flight), so checkpoint IO overlaps device compute.
+    mesh : a (targets, grid) mesh of ranks (:func:`.grid.make_mesh`):
+        every rank of it builds its runner on the same stack and
+        checkpoint path and runs it; each chunk, whatever the method, is
+        one :func:`.grid.sharded_bls` call (the shared-grid search for a
+        stack on one time grid, else the per-curve exact search).
     """
 
     def __init__(self, stack, periods, durations, checkpoint_path,
                  chunk_periods=4096, oversample=10, objective="likelihood",
-                 method="fast", save_every=1, async_save=False):
+                 method="fast", save_every=1, mesh=None, async_save=False):
         if method not in METHODS:
             raise ValueError(f"method must be one of {METHODS} "
                              f"(got {method!r})")
         self.stack = stack
+        self.mesh = mesh
         self.periods = np.asarray(periods, dtype=np.float64)
         self.durations = np.asarray(durations, dtype=np.float64)
         self.checkpoint_path = checkpoint_path
@@ -148,9 +157,10 @@ class SweepRunner:
 
     def prewarm(self, wait=False):
         """Start building this sweep's kernels on a background thread
-        (shared method on the card; see :func:`prewarm_shared_sweep`).
-        Returns the futures, ``[]`` where nothing is built."""
-        if self.method != "shared":
+        (shared method on the card, no mesh; see
+        :func:`prewarm_shared_sweep`).  Returns the futures, ``[]`` where
+        nothing is built."""
+        if self.method != "shared" or self.mesh is not None:
             return []
         return prewarm_shared_sweep(self.stack.device, wait=wait)
 
@@ -182,6 +192,8 @@ class SweepRunner:
         os.replace(tmp, self.checkpoint_path)
 
     def _save(self):
+        if self.mesh is not None and not self.mesh.is_lead:
+            return                      # one rank writes the mesh's file
         # _merge REPLACES the state arrays, so this snapshot by reference
         # stays consistent while a background write reads it
         payload = dict(periods=self.periods, next_chunk=self.next_chunk,
@@ -220,6 +232,8 @@ class SweepRunner:
         dy = torch.where(stack.mask, stack.flux_err,
                          torch.tensor(torch.inf, dtype=dtype,
                                       device=stack.device))
+        if self.mesh is not None:
+            return self._make_mesh_step(dy)
         if self.method != "shared":
             return self._make_percurve_step(d_phase, durs, dy)
         # per-curve-constant weights (all cadences valid, row-constant
@@ -244,6 +258,32 @@ class SweepRunner:
         t_row = time[0].to(dtype)
         return lambda pvals, n_valid: search(t_row, stack.flux, dy, pvals,
                                              n_valid)
+
+    def _make_mesh_step(self, dy):
+        """The step on a mesh: every method through
+        :func:`.grid.sharded_bls`, whose fold size is the chunk's own
+        ``ceil(max(chunk) / d_phase)``, and the winner reduction on the
+        gathered (B, P_chunk) result, on every rank."""
+        from .grid import sharded_bls
+        stack = self.stack
+        err = stack.flux_err
+        uniform = bool(torch.all(stack.mask)) and bool(
+            torch.all(err == err[:, :1]))
+        shared = bool(torch.all(stack.time == stack.time[0:1]))
+        # the durations stay a host float64 array: sharded_bls derives the
+        # grid geometry (d_phase, nbins) from them, and a float32 round
+        # trip would put the bin edges elsewhere than the unsharded
+        # runner's float64 geometry does
+        kw = dict(oversample=self.oversample, objective=self.objective,
+                  mesh=self.mesh, uniform_weights=uniform,
+                  shared_time=shared)
+
+        def step(pvals, n_valid):
+            out = sharded_bls(stack.time, stack.flux, dy, pvals,
+                              self.durations, **kw)
+            return _reduce_winner(out, n_valid)
+
+        return step
 
     def _make_bucketed_step(self, search, dy):
         """The shared step for a stack whose rows lie on several time grids
@@ -336,8 +376,10 @@ class SweepRunner:
         """Process up to ``max_chunks`` chunks (all remaining by default),
         checkpointing every ``save_every`` merged chunks.  Pipelined two
         deep: chunk i+1 is dispatched before chunk i's winners are waited
-        for, so the host merge and checkpoint IO overlap the device.
-        Returns the best-so-far dict."""
+        for, so the host merge and checkpoint IO overlap the device.  On a
+        mesh the run ends with a barrier once the checkpoint is written, so
+        a runner made next on any rank reads it whole.  Returns the
+        best-so-far dict."""
         step = self._make_step()
         np_dtype = numpy_dtype(self.stack.flux.dtype)
         n_do = self.n_chunks - self.next_chunk
@@ -361,6 +403,8 @@ class SweepRunner:
                 self._merge(self._wait(pending))
         finally:
             self.flush_saves()
+        if self.mesh is not None:
+            self.mesh.barrier()
         return dict(self.state)
 
     @staticmethod

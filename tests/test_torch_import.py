@@ -146,6 +146,47 @@ def test_top_level_names_are_the_references():
         == {"HTTPMASTTransport", "plot_image"}
 
 
+@pytest.mark.parametrize("sub", ["io", "ops", "parallel"])
+def test_subpackage_names_are_the_references(sub):
+    """Each subpackage exports the reference's ``__all__`` (``ops``: but
+    the TPU workaround's FFT pairs, listed in ``ops.NOT_PORTED``), each
+    name bound in the subpackage."""
+    import importlib
+    want = set(importlib.import_module(f"lightkurve_tpu.{sub}").__all__)
+    got = importlib.import_module(f"lightkurve_tpu_torch.{sub}")
+    left_out = set(getattr(got, "NOT_PORTED", ()))
+    assert want - set(got.__all__) == left_out
+    for name in want - left_out:
+        assert getattr(got, name) is not None, name
+    if sub == "ops":
+        assert left_out == {"fft_pair", "ifft_pair", "rfft_pair"}
+    if sub == "parallel":
+        from lightkurve_tpu.parallel import grid
+        assert set(grid.__all__) <= set(got.__all__)
+
+
+def test_parallel_imports_without_jax_or_a_process_group():
+    """``lightkurve_tpu_torch.parallel`` (its grid, launcher and dry run)
+    imports no jax, starts no process and initialises no group."""
+    probe = (
+        "import subprocess, sys\n"
+        "def refuse(*a, **k):\n"
+        "    raise AssertionError('a process was started at import')\n"
+        "subprocess.run = subprocess.Popen = refuse\n"
+        "import lightkurve_tpu_torch.parallel as par\n"
+        "from lightkurve_tpu_torch.parallel import dryrun, launch, grid\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized()\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith(('jax.', 'lightkurve_tpu.')))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
+
+
 @pytest.mark.parametrize("where", ["checkout", "alone"])
 def test_chip_smoke_fails_without_card_or_repo(tmp_path, where):
     """No CUDA device (as here), or no package beside the script: a

@@ -27,11 +27,11 @@ from lightkurve_tpu_torch import units as tunits
 from lightkurve_tpu_torch import utils as tutils
 from lightkurve_tpu_torch.io import detect as tdetect
 from lightkurve_tpu_torch.io import fits as tfits
-from lightkurve_tpu_torch.io import read as tread
 from test_torch_lightcurve import assert_lc_equal, curve_columns
 
-# the module (``lightkurve_tpu.io`` exports a function of the same name)
+# the modules (each package's ``io`` exports a function of the same name)
 jread = importlib.import_module("lightkurve_tpu.io.read")
+tread = importlib.import_module("lightkurve_tpu_torch.io.read")
 
 
 @pytest.fixture(autouse=True)

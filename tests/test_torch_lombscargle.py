@@ -143,6 +143,52 @@ def test_extirpolate_matches_jax(rng, batched):
     np.testing.assert_allclose(np_(got), want, rtol=EXTIRP_RTOL, atol=0)
 
 
+def test_float32_extirpolation_sums_in_float64(rng):
+    """A float32 extirpolation's deposits (each made in float32) are summed
+    in float64 and rounded once: equal, bit for bit, to numpy's float64
+    sum of the same deposits rounded to float32, so a row's grid does not
+    depend on the order the card's atomic adds land in.  Its rows, and the
+    fast periodogram's, are the same whichever rows share the call."""
+    from math import factorial
+    N, M, n = 256, 4, 500
+    xi = rng.integers(0, N, n)
+    frac = rng.random(n).astype(np.float32)
+    frac[rng.random(n) < 0.1] = 0.0
+    y = (1.0 + 1e-3 * rng.normal(size=(3, n))).astype(np.float32)
+    got = tls.extirpolate(t_(xi), t_(frac), t_(y), N, M)
+    assert got.dtype == torch.float32
+    # the deposits in float32, as the function makes them
+    xi_t, fr, yt = t_(xi), t_(frac), t_(y)
+    is_int = fr == 0
+    frac_f = torch.where(is_int, 0.5, fr)
+    ilo = torch.clamp(xi_t - M // 2, 0, N - M)
+    prod = torch.prod((xi_t - ilo)[:, None] + frac_f[:, None]
+                      - torch.arange(M), dim=-1)
+    want = np.zeros((3, N + 1))
+    cols = [(np.where(is_int, xi, N), torch.where(is_int, yt, 0.0))]
+    num = torch.where(is_int, 0.0, yt) * prod
+    den = float(factorial(M - 1))
+    for j in range(M):
+        if j > 0:
+            den *= j / (j - M)
+        ind = ilo + (M - 1 - j)
+        cols.append((ind.numpy(), num / (den * ((xi_t - ind) + frac_f))))
+    for idx, dep in cols:
+        for r in range(3):
+            np.add.at(want[r], idx, dep[r].numpy().astype(np.float64))
+    np.testing.assert_array_equal(got.numpy(), want[:, :N].astype(np.float32))
+    for rows in (slice(0, 1), slice(1, 3)):
+        np.testing.assert_array_equal(
+            tls.extirpolate(t_(xi), t_(frac), t_(y[rows]), N, M).numpy(),
+            got.numpy()[rows])
+    t = np.sort(rng.uniform(0, 10, n))
+    whole = tls.lombscargle_fast(t, t_(y), 0.05, 0.01, 300)
+    for rows in (slice(0, 1), slice(1, 3)):
+        np.testing.assert_array_equal(
+            tls.lombscargle_fast(t, t_(y[rows]), 0.05, 0.01, 300).numpy(),
+            whole.numpy()[rows])
+
+
 def test_precompute_cache_keys_on_dtype(rng):
     t = curves(rng)[0]
     a = tls._fast_precompute_device(t, F0, DF, NF, 5, 4, torch.float64,
