@@ -172,6 +172,26 @@ Phases:
      within 5e-4 of the float64 page's peak, a one-bin shift of that
      spectrum reading above it; search -> stitch at least 25 targets/s
      and the explorer under 2 s; no kernel may launch in (b)-(d);
+ 18. the archive over HTTP (after phase 16, HOME and the rest as there): a
+     Mashup server of the standard library on 127.0.0.1 (a free port, in
+     a thread of this process) serving phase 16's 1,024 files and phase
+     14's 256 CBV target files as MAST's tables and Download route: (a)
+     every target through search_lightcurve(..., transport=
+     HTTPMASTTransport(...)) -> download_all(download_dir=<fresh>) ->
+     stitch() twice, the first pass with three requests answered 503 and
+     retried, the second timed (targets/s beside phase 16's), rows and
+     curves equal to phase 16's; to_stack() -> flatten -> bls_search over
+     1-18 d in four calls (K-WF x4 by the route rule), the winners
+     bit-equal to phase 16 (a)'s; call 4 through both routes (K-WF; K-SF
+     and K-W), and K-WF, K-SF and K-W against their plain versions there;
+     (b) 4 CBV targets through correct() with the neighbours' flux given
+     (made from the local files of the cone search's rows over HTTP) and
+     with none, the under-fitting metric fetching them over HTTP: the same
+     alpha and scores, the files served the cone's; (c) the plots and the
+     exports: without matplotlib or pandas (this card's machine) a plot,
+     to_pandas() and the SkyBot query raise ImportError naming the
+     package; with them, card-made PRF and BLS periodogram plots and an
+     export against the CPU's; no kernel may launch in (b) or (c);
   9. one call past the one-hot fold's old memory ceiling: a year of
      two-minute cadences (262,800) x 2048 curves in float32, 4 periods
      near 300 d (~60,000 rows), through bls_power_shared_batch on the
@@ -212,8 +232,9 @@ Phases:
      the K-F call of (b) and the K-SF and K-U calls of (c) against their
      plain versions (K-SF against the float64 fold); (e)
      dryrun_multichip(4) at the reference's sizes.
-Each path (the sweeps of phases 3, 4, 6, 7, 8, 10, 12, 13, 14, 15 and 16
-on the automatic route, the six forced-route runs of phases 4, 6 and 13,
+Each path (the sweeps of phases 3, 4, 6, 7, 8, 10, 12, 13, 14, 15, 16 and
+18 on the automatic route, the eight forced-route runs of phases 4, 6, 13
+and 18,
 phase 9, and each rank's parts (a)-(d) and dry run in phase 17) runs
 with every launch count set to 0 just before it and read just after; a
 path fails if a plain version ran, and a sweep fails unless its launches
@@ -3149,9 +3170,10 @@ def phase_pixels(tmp, card, sweep, runs):
     return numbers, files
 
 
-def pixel_routes(flat, pvals):
+def pixel_routes(flat, pvals, label="pixels", phase=13):
     """Call 4 of phase 13 (a)'s search (``pvals``) on the corrected,
-    flattened stack through the entry point on both routes
+    flattened stack (or, with ``label`` and ``phase``, another weighted
+    search's) through the entry point on both routes
     (:func:`route_call`), each a path of its own: ``fold_impl="fused"``
     launches K-WF and no other kernel, ``"staged"`` K-SF and K-W and no
     other (the route rule gives this call the fused kernel at 512
@@ -3159,12 +3181,12 @@ def pixel_routes(flat, pvals):
     (:func:`route_gaps`).  Returns each path's launches."""
     runs, win = {}, {}
     for impl, kerns in (("fused", ("K-WF",)), ("staged", ("K-SF", "K-W"))):
-        path = f"pixels, call 4, {impl} route (phase 13)"
+        path = f"{label}, call 4, {impl} route (phase {phase})"
         win[impl], runs[path] = drive(
             path, lambda: route_call(flat, pvals, impl)[1], expect=kerns,
             forbid=tuple(k for k in kernel_table() if k not in kerns))
-    route_gaps("pixels, call 4", win["fused"], win["staged"], flat.shape[1],
-               keys=("period", "duration", "transit_time"))
+    route_gaps(f"{label}, call 4", win["fused"], win["staged"],
+               flat.shape[1], keys=("period", "duration", "transit_time"))
     return runs
 
 
@@ -3234,32 +3256,32 @@ def fold_against_f64(name, ts, WWY, pc, d_phase, nbins, max_nbp, k_max,
     return err, launches
 
 
-def check_pixel_kernels(flat, pvals):
+def check_pixel_kernels(flat, pvals, label="pixels"):
     """The kernels of phase 13 (a)'s call 4 against their plain versions
     on the inputs the entry point gives them there (:func:`entry_scan_args`
     of the flattened corrected stack at ``pvals``, its longest
     :data:`PIX_KERNEL_PERIODS` periods), at the float32 bars: K-WF in one
     launch (:func:`compare`); K-SF against the float64 fold
     (:func:`fold_against_f64`) and K-W on the K-SF rows (:func:`compare`)
-    8 periods a launch, as the staged route launches them.  Returns each
-    kernel's max |error|."""
+    8 periods a launch, as the staged route launches them (``label`` names
+    the search in the log).  Returns each kernel's max |error|."""
     import torch
     from lightkurve_tpu_torch.ops import bls_fused_weighted as bfw
     from lightkurve_tpu_torch.ops import bls_window
     args, kw = entry_scan_args(flat, pvals)
     ts, W, WY, pc, k_durs, dvals, d_phase, nbins, max_nbp, lik = args
-    log(f"pixels, call 4 kernels: B={W.shape[1]} N={W.shape[0]} "
+    log(f"{label}, call 4 kernels: B={W.shape[1]} N={W.shape[0]} "
         f"P={pc.shape[0]} (periods {float(pc[0]):.4f}-{float(pc[-1]):.4f} "
         f"d, {max_nbp} bins, fold sized for {nbins}) {W.dtype}")
     errs = {}
     got, want = bfw.fused_scan_weighted(*args, **kw), \
         bfw.fused_scan_weighted_plain(*args, **kw)
-    errs["K-WF"] = compare("K-WF pixels call 4", got, want, False)[0]
+    errs["K-WF"] = compare(f"K-WF {label} call 4", got, want, False)[0]
     del got, want
     WWY = torch.cat([W, WY], dim=1)
     total = WWY.sum(0)
     errs["K-SF"], folds = fold_against_f64(
-        "K-SF pixels call 4", ts, WWY, pc, d_phase, nbins, max_nbp,
+        f"K-SF {label} call 4", ts, WWY, pc, d_phase, nbins, max_nbp,
         max(k_durs), kw["wrap"], kw["chunk"])
     scans, plains = [], []
     for fold, (csum, _, nbp) in folds:
@@ -3267,7 +3289,7 @@ def check_pixel_kernels(flat, pvals):
         scans.append(bls_window.window_scan(*scan))
         plains.append(bls_window.window_scan_plain(*scan))
     del folds
-    errs["K-W"] = compare("K-W pixels call 4", *(
+    errs["K-W"] = compare(f"K-W {label} call 4", *(
         {f: torch.cat([p[f] for p in parts]) for f in parts[0]}
         for parts in (scans, plains)), False)[0]
     torch.cuda.empty_cache()
@@ -3747,6 +3769,11 @@ def cbv_targets(vectors, B=CBV_B, seed=CBV_SEED + 1):
             dict(p_inj=p_inj, snr=snr))
 
 
+def cbv_target_name(i):
+    """The SPOC-style file name of CBV target ``i`` (TIC ``i``)."""
+    return f"tess2020-s{CBV_SECTOR:04d}-{i:016d}-0195-s_lc.fits"
+
+
 def write_cbv_targets(directory, arrays):
     """The targets as SPOC-style TESS light-curve files (TIME, CADENCENO,
     SAP_FLUX, PDCSAP_FLUX and their errors in e-/s, QUALITY; SECTOR,
@@ -3761,8 +3788,7 @@ def write_cbv_targets(directory, arrays):
     N = arrays["time"].size
     paths = []
     for i in range(len(arrays["sap"])):
-        path = os.path.join(directory, f"tess2020-s{CBV_SECTOR:04d}-"
-                                       f"{i:016d}-0195-s_lc.fits")
+        path = os.path.join(directory, cbv_target_name(i))
         ph = Header({"TELESCOP": "TESS", "MISSION": "TESS",
                      "ORIGIN": "NASA/Ames",
                      "CREATOR": "LightCurveExporterPipelineModule",
@@ -4808,7 +4834,8 @@ def archive_search(files, card, chunk_periods=1024):
     stitched per target; ``flatten`` (:data:`FLATTEN_KW`) and
     ``bls_search`` over :data:`TWO_SECTOR_GRID` in four calls; recovery of
     :data:`RECOVERY_SHARE`.  Returns the numbers, the routes the rule
-    gives, the flattened stack and the second pass's results."""
+    gives, the flattened stack, the second pass's results and the
+    winners."""
     import torch
     from lightkurve_tpu_torch.collections import LightCurveCollection
     from lightkurve_tpu_torch.io.read import read_lc_collection
@@ -4883,7 +4910,8 @@ def archive_search(files, card, chunk_periods=1024):
     return dict(cold_s=cold_s, seconds=warm_s, targets_per_s=B / warm_s,
                 files_per_s=2 * B / warm_s, stack_s=stack_s,
                 flatten_s=flatten_s, search_s=search_s, rate=rate,
-                recovered=share, routes=routes, flat=flat, results=second)
+                recovered=share, routes=routes, flat=flat, results=second,
+                best=best)
 
 
 def archive_mast(tmp, files, results, card):
@@ -5266,7 +5294,9 @@ def phase_archive(tmp, card, sweep, runs):
     K-WF and K-SF against their plain versions on its call 4
     (:func:`check_weighted_kernels`), (b) the MAST chain, (c) TESScut and
     (d) the explorers (no kernel may launch in b-d).  Adds the paths'
-    launches to ``runs``; returns the numbers and the kernels' errors."""
+    launches to ``runs``; returns the numbers (and, under ``"phase18"``,
+    the files, each target's search and stitched curve, and the winners,
+    which phase 18 compares with) and the kernels' errors."""
     import torch
     t0 = time.time()
     none = tuple(kernel_table())
@@ -5281,6 +5311,9 @@ def phase_archive(tmp, card, sweep, runs):
         errs = check_weighted_kernels("archive", out["search"].pop("flat"),
                                       call4[-PIX_KERNEL_PERIODS:])
         results = out["search"].pop("results")
+        out["phase18"] = dict(files=files, results=results,
+                              best=out["search"].pop("best"),
+                              targets_per_s=out["search"]["targets_per_s"])
         out["mast"], runs["archive, MAST chain (phase 16)"] = drive(
             "archive, MAST chain (phase 16)", archive_mast, tmp, files,
             results, card, forbid=none)
@@ -5293,6 +5326,551 @@ def phase_archive(tmp, card, sweep, runs):
     torch.cuda.empty_cache()
     out["seconds"] = time.time() - t0
     log(f"phase 16: {out['seconds']:.1f}s")
+    return out, errs
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the archive over HTTP, then the search; the under-fitting
+# metric's neighbours from the archive; the plots and exports
+# ---------------------------------------------------------------------------
+#: requests to the local Mashup server (counted from its start, 1-based)
+#: answered with HTTP 503, all in (a)'s first pass over
+#: :data:`HTTP_RETRY_TARGETS` targets (four requests a target: the
+#: observation query, the product list, two downloads): a download of
+#: target 0, target 2's product list, a download of target 9; each retried
+#: by the transport after its backoff
+HTTP_FAIL = (3, 10, 40)
+HTTP_RETRY_TARGETS = 16
+#: phase 14's targets whose correct() fetches its neighbours over HTTP
+HTTP_CBV_TARGETS = (1, 2, 3, 4)
+#: the under-fitting metric's cone (arcsec) for a TESS target, and the
+#: neighbours it keeps (reference defaults, CBVCorrector.under_fitting_metric)
+HTTP_CBV_RADIUS = 5000.0
+HTTP_CBV_NEIGHBOURS = 50
+#: the override of np.random.default_rng(None) in both correct() calls (the
+#: over-fitting metric's noise)
+HTTP_CBV_SEED = 2038
+
+
+class MashupArchive:
+    """A local stand-in for MAST over HTTP, for phase 18: a stdlib
+    ``ThreadingHTTPServer`` on 127.0.0.1 (a free port) that speaks the
+    Mashup protocol (``POST`` of ``request=<json>``: ``Mast.Name.Lookup``,
+    ``Mast.Caom.Filtered``, ``Mast.Caom.Filtered.Position``,
+    ``Mast.Caom.Products``) over observation and product tables and serves
+    ``GET ...?uri=<dataURI>`` from the files on disk, as MAST's
+    ``Download/file`` route does.  Requests whose ordinal is in ``fail``
+    get a 503.  ``downloads`` lists every file served.  A context manager:
+    the server thread stops on exit."""
+
+    def __init__(self, observations, products, resolver, files, fail=()):
+        import threading
+        self.observations = observations
+        self.by_target = {}
+        for r in observations:
+            self.by_target.setdefault(str(r["target_name"]), []).append(r)
+        self.products = {}
+        for p in products:
+            self.products.setdefault(str(p["parent_obsid"]), []).append(p)
+        self.resolver = {k.lower(): v for k, v in resolver.items()}
+        self.files = files
+        self.fail = set(fail)
+        self.count = 0
+        self.failed = 0
+        self.downloads = []
+        self.lock = threading.Lock()
+
+    def _serve(self, request):
+        service, params = request["service"], request.get("params", {})
+        if service == "Mast.Name.Lookup":
+            key = str(params["input"]).lower().strip()
+            if key not in self.resolver:
+                return {"status": "COMPLETE", "resolvedCoordinate": []}
+            ra, dec = self.resolver[key]
+            return {"status": "COMPLETE",
+                    "resolvedCoordinate": [{"ra": ra, "decl": dec}]}
+        if service == "Mast.Caom.Products":
+            rows = []
+            for oid in str(params["obsid"]).split(","):
+                rows += [dict(p) for p in self.products.get(oid.strip(), [])]
+            return {"status": "COMPLETE", "data": rows}
+        if service not in ("Mast.Caom.Filtered",
+                           "Mast.Caom.Filtered.Position"):
+            return {"status": "ERROR", "msg": f"unknown service {service}"}
+        filters = params.get("filters", [])
+        named = [f["values"] for f in filters
+                 if f["paramName"] == "target_name"]
+        rows = (self.by_target.get(str(named[0][0]), []) if named
+                else self.observations)
+        if service.endswith("Position"):
+            ra0, dec0, radius = (float(x) for x in
+                                 params["position"].split(","))
+            cosd = np.cos(np.deg2rad(dec0))
+            rows = [r for r in rows if np.hypot(
+                (r["s_ra"] - ra0) * cosd, r["s_dec"] - dec0) <= radius]
+        for f in filters:
+            name, values = f["paramName"], f["values"]
+            if values and isinstance(values[0], dict):
+                lo, hi = values[0]["min"], values[0]["max"]
+                rows = [r for r in rows if lo <= float(r[name]) <= hi]
+            else:
+                opts = {str(v).lower() for v in values}
+                rows = [r for r in rows if str(r.get(name, "")).lower()
+                        in opts]
+        return {"status": "COMPLETE", "data": [dict(r) for r in rows]}
+
+    def __enter__(self):
+        import http.server
+        import threading
+        import urllib.parse
+        archive = self
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def _next(self):
+                with archive.lock:
+                    archive.count += 1
+                    if archive.count in archive.fail:
+                        archive.failed += 1
+                        return False
+                return True
+
+            def _send(self, payload, kind):
+                self.send_response(200)
+                self.send_header("Content-Type", kind)
+                self.send_header("Content-Length", str(len(payload)))
+                self.end_headers()
+                self.wfile.write(payload)
+
+            def do_POST(self):
+                body = self.rfile.read(int(self.headers["Content-Length"]))
+                if not self._next():
+                    self.send_error(503, "busy")
+                    return
+                text = urllib.parse.unquote(body.decode())
+                request = json.loads(text[len("request="):])
+                self._send(json.dumps(archive._serve(request)).encode(),
+                           "application/json")
+
+            def do_GET(self):
+                if not self._next():
+                    self.send_error(503, "busy")
+                    return
+                uri = urllib.parse.parse_qs(
+                    urllib.parse.urlparse(self.path).query)["uri"][0]
+                name = uri.rsplit("/", 1)[-1]
+                with open(archive.files[name], "rb") as f:
+                    payload = f.read()
+                with archive.lock:
+                    archive.downloads.append(name)
+                self._send(payload, "application/octet-stream")
+
+            def log_message(self, *args):
+                pass
+
+        self.server = http.server.ThreadingHTTPServer(("127.0.0.1", 0),
+                                                      Handler)
+        self.thread = threading.Thread(target=self.server.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+        base = f"http://127.0.0.1:{self.server.server_port}"
+        self.mashup_url = base + "/api/v0/invoke"
+        self.download_url = base + "/api/v0.1/Download/file"
+        return self
+
+    def __exit__(self, *exc):
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join()
+
+    def transport(self):
+        """The port's HTTP transport pointed at this server."""
+        from lightkurve_tpu_torch.mast_http import HTTPMASTTransport
+        return HTTPMASTTransport(mashup_url=self.mashup_url,
+                                 download_url=self.download_url)
+
+
+def http_tables(files, cbv_paths):
+    """Phase 18's archive tables: phase 16's 512 targets x 2 sectors (the
+    search's) near RA 200, Dec +30, and phase 14's 256 CBV targets
+    scattered within 0.5 degrees of RA 80, Dec -70 (the under-fitting
+    metric's cone), each observation a numeric CAOM ``obsid``, each
+    product's ``dataURI`` its file name; the resolver knows each CBV
+    target by its TIC id alone and as ``TIC <id>``.  Returns
+    (observations, products, resolver, file paths by name)."""
+    observations, products, resolver, paths = [], [], {}, {}
+
+    def add(tic, sector, path, ra, dec):
+        oid = 10_000 + len(observations)
+        name = os.path.basename(path)
+        observations.append({
+            "obsid": oid, "obs_id": f"tess_s{sector:04d}_{tic}",
+            "target_name": str(tic), "s_ra": ra, "s_dec": dec,
+            "project": "TESS", "provenance_name": "SPOC", "t_exptime": 120,
+            "sequence_number": sector, "dataproduct_type": "timeseries",
+            "description": f"TESS Sector {sector}", "obs_collection": "TESS"})
+        products.append({"parent_obsid": oid, "productFilename": name,
+                         "description": "Light curves",
+                         "dataURI": f"mast:TESS/product/{name}"})
+        paths[name] = path
+
+    for i, (tic, pair) in enumerate(zip(files["tics"], files["paths"])):
+        for (sector, _, _), path in zip(ARC_SECTORS, pair):
+            add(tic, sector, path, 200.0 + 0.01 * i, 30.0)
+    rng = np.random.default_rng(ARC_SEED + 18)
+    for i, path in enumerate(cbv_paths):
+        ra = 80.0 + rng.uniform(-0.5, 0.5) / np.cos(np.deg2rad(70.0))
+        dec = -70.0 + rng.uniform(-0.5, 0.5)
+        add(i, CBV_SECTOR, path, ra, dec)
+        resolver[str(i)] = resolver[f"tic {i}"] = (ra, dec)
+    return observations, products, resolver, paths
+
+
+def http_pass(transport, tics, download_dir):
+    """Each target of ``tics`` through ``search_lightcurve(..., author=
+    "SPOC", exptime=120, transport=...)`` -> ``download_all(download_dir=
+    ...)`` -> ``stitch()``; returns (result, stitched curve) per target
+    and the seconds."""
+    from lightkurve_tpu_torch.search import search_lightcurve
+    out = []
+    t0 = time.perf_counter()
+    for tic in tics:
+        result = search_lightcurve(f"TIC {tic}", author="SPOC", exptime=120,
+                                   transport=transport)
+        lcs = result.download_all(download_dir=download_dir)
+        if lcs is None or len(lcs) != len(ARC_SECTORS):
+            raise AssertionError(f"http: TIC {tic}: not every file "
+                                 "downloaded")
+        out.append((result, lcs.stitch()))
+    return out, time.perf_counter() - t0
+
+
+def http_search(tmp, archive, arc, card, chunk_periods=1024):
+    """Phase 18 (a): phase 16's targets searched, downloaded and stitched
+    over HTTP (:func:`http_pass`), each pass into a fresh download
+    directory: first :data:`HTTP_RETRY_TARGETS` of them with
+    :data:`HTTP_FAIL`'s 503s, which the transport retries, then all 512,
+    timed (targets/s, beside phase 16's).  Each search's rows and each
+    stitched curve equal phase 16's; ``to_stack()`` -> flatten ->
+    ``bls_search`` over 1-18 d in four calls (K-WF x4 by the route rule),
+    the winners bit-equal to phase 16 (a)'s.  Returns the numbers, the
+    routes and the flattened stack."""
+    from lightkurve_tpu_torch.collections import LightCurveCollection
+    files = arc["files"]
+    transport = archive.transport()
+    first, first_s = http_pass(transport, files["tics"][:HTTP_RETRY_TARGETS],
+                               os.path.join(tmp, "http_download_1"))
+    if archive.failed != len(HTTP_FAIL):
+        raise AssertionError(f"http: the server failed {archive.failed} "
+                             f"requests, not {len(HTTP_FAIL)}")
+    n_requests = archive.count
+    second, warm_s = http_pass(transport, files["tics"],
+                               os.path.join(tmp, "http_download_2"))
+    keys = ("productFilename", "target_name", "mission", "author",
+            "sequence_number")
+    for k, (want, want_lc) in enumerate(arc["results"]):
+        for result, lc in [second[k]] + first[k:k + 1]:
+            if [tuple(r[key] for key in keys) for r in result.table] != \
+                    [tuple(r[key] for key in keys) for r in want.table]:
+                raise AssertionError("http: a search's rows differ from the "
+                                     "archive scan's")
+            for c in ("time", "flux", "flux_err"):
+                if not np.array_equal(getattr(lc, c).value,
+                                      getattr(want_lc, c).value,
+                                      equal_nan=True):
+                    raise AssertionError(f"http: a stitched curve's {c} "
+                                         "differs from phase 16's")
+    B = len(files["tics"])
+    rate = B / warm_s
+    log(f"http: search -> download_all -> stitch of {B} targets ({2 * B} "
+        f"files) over HTTP from 127.0.0.1, into a fresh directory: "
+        f"{warm_s:.3f}s, {rate:.6g} targets/s (logged against "
+        f"{ARC_TARGETS_PER_S:g}, not enforced: the server shares this "
+        f"process; {2 * B / warm_s:.6g} files/s; phase "
+        f"16's archive scan {arc['targets_per_s']:.6g} targets/s); the "
+        f"first {HTTP_RETRY_TARGETS} before it {first_s:.3f}s with "
+        f"{archive.failed} requests of {n_requests} answered 503 and "
+        f"retried; rows and stitched curves equal to phase 16's [{card}]")
+    start_sweep()
+    stack, stack_s = sync_timed(
+        lambda: LightCurveCollection([lc for _, lc in second]).to_stack())
+    flat, flatten_s = sync_timed(lambda: stack.flatten(**FLATTEN_KW))
+    periods = np.linspace(*TWO_SECTOR_GRID)
+    routes = expected_launches(flat, periods, chunk_periods,
+                               launch_periods=16)
+    start_sweep()
+    t0 = time.perf_counter()
+    best = lc_search(flat, periods, chunk_periods)
+    search_s = time.perf_counter() - t0
+    same = {f: bool(np.array_equal(best[f], arc["best"][f], equal_nan=True))
+            for f in best}
+    log(f"http: to_stack() {stack_s:.3f}s, flatten {flatten_s:.3f}s, "
+        f"bls_search B={B} P={len(periods)} in "
+        f"{len(periods) // chunk_periods} calls {search_s:.3f}s; winners "
+        f"against phase 16's: bit-equal {same}; {peak_memory()} [{card}]")
+    if not all(same.values()):
+        raise AssertionError("http: the winners differ from phase 16's")
+    return dict(first_s=first_s, seconds=warm_s, targets_per_s=rate,
+                files_per_s=2 * B / warm_s, requests=n_requests,
+                failed=archive.failed, stack_s=stack_s, flatten_s=flatten_s,
+                search_s=search_s, routes=routes, flat=flat)
+
+
+@contextlib.contextmanager
+def ambient_transport(transport):
+    """``mast.default_transport()`` gives ``transport`` inside the block,
+    as ``$LIGHTKURVE_TPU_MAST_HTTP=1`` gives the live client: the route by
+    which ``CBVCorrector.correct()`` reaches the archive."""
+    from lightkurve_tpu_torch import mast
+    real = mast.default_transport
+    mast.default_transport = lambda: transport
+    try:
+        yield
+    finally:
+        mast.default_transport = real
+
+
+@contextlib.contextmanager
+def seeded_default_rng(seed):
+    """``np.random.default_rng(None)`` (the over-fitting metric's noise)
+    seeded with ``seed`` inside the block."""
+    real = np.random.default_rng
+    np.random.default_rng = lambda s=None: real(seed if s is None else s)
+    try:
+        yield
+    finally:
+        np.random.default_rng = real
+
+
+def cone_neighbour_flux(corrector, rows, tic, local):
+    """The under-fitting metric's ``neighbor_flux`` made by hand from the
+    cone search's rows: each neighbour's local file read as the metric
+    reads it (SAP flux, the default quality mask), NaNs removed,
+    normalised less one, on the corrected curve's cadence numbers (NaN
+    where it has none), in the search's order."""
+    from lightkurve_tpu_torch.io.read import read
+    cad = np.asarray(corrector.corrected_lc.remove_nans()["cadenceno"])
+    out = []
+    for r in rows:
+        if str(r["target_name"]) == str(tic):
+            continue
+        lc = read(local[r["productFilename"]], flux_column="sap_flux",
+                  quality_bitmask="default").remove_nans().normalize() - 1.0
+        row = np.full(cad.size, np.nan)
+        _, ia, ib = np.intersect1d(cad, np.asarray(lc["cadenceno"]),
+                                   return_indices=True)
+        row[ia] = lc.flux.value[ib]
+        out.append(row)
+    return out
+
+
+def http_cbv(tmp, archive, local, card):
+    """Phase 18 (b): :data:`HTTP_CBV_TARGETS` of phase 14's CBV targets
+    through ``correct()`` (its alpha search) twice, under one seed of the
+    over-fitting metric's noise: with ``neighbor_flux`` made by hand from
+    the local files of the neighbours the cone search over HTTP returns,
+    and with no ``neighbor_flux``, the metric fetching them through the
+    HTTP transport (the ambient one) into a fresh cache directory.  The
+    under-fitting and over-fitting scores and alpha equal, and the files
+    the server served in the second call those of the cone's rows.  No
+    kernel may launch.  Returns the seconds."""
+    import torch
+    from lightkurve_tpu_torch.search import search_lightcurve
+    cbv_dir = os.path.join(tmp, "cbv")
+    transport = archive.transport()
+    kw = dict(cbv_type=CBV_CORRECT["cbv_type"],
+              cbv_indices=CBV_CORRECT["cbv_indices"], verbose=False)
+    out = []
+    for tic in HTTP_CBV_TARGETS:
+        path = local[cbv_target_name(tic)]
+        rows = search_lightcurve(str(tic), radius=HTTP_CBV_RADIUS,
+                                 mission="TESS",
+                                 limit=HTTP_CBV_NEIGHBOURS + 1,
+                                 author=("Kepler", "K2", "SPOC"),
+                                 transport=transport).table
+        _, given, _ = cbv_correct(path, cbv_dir)
+        nb = cone_neighbour_flux(given, rows, tic, local)
+        t0 = time.perf_counter()
+        with seeded_default_rng(HTTP_CBV_SEED):
+            given.correct(neighbor_flux=nb, **kw)
+        given_s = time.perf_counter() - t0
+        _, fetched, _ = cbv_correct(path, cbv_dir)
+        os.environ["LIGHTKURVE_CACHE_DIR"] = os.path.join(
+            tmp, f"http_cache_{tic}")
+        served = len(archive.downloads)
+        t0 = time.perf_counter()
+        with seeded_default_rng(HTTP_CBV_SEED), ambient_transport(transport):
+            fetched.correct(**kw)
+        torch.cuda.synchronize()
+        fetched_s = time.perf_counter() - t0
+        names = sorted(archive.downloads[served:])
+        scores = [tuple(float(x) for x in (c.alpha, c.under_fitting_score,
+                                           c.over_fitting_score))
+                  for c in (given, fetched)]
+        log(f"http, cbv: TIC {tic}: correct() with the {len(nb)} cone "
+            f"neighbours' flux given {given_s:.3f}s, fetched over HTTP "
+            f"{fetched_s:.3f}s ({len(names)} files served); alpha, under- "
+            f"and over-fitting scores {scores[0]} and {scores[1]} [{card}]")
+        if scores[0] != scores[1]:
+            raise AssertionError(f"http, cbv: TIC {tic}: the fetched "
+                                 "neighbours give another correction")
+        if names != sorted(r["productFilename"] for r in rows) or \
+                len(nb) != HTTP_CBV_NEIGHBOURS:
+            raise AssertionError(f"http, cbv: TIC {tic}: the files fetched "
+                                 "are not the cone search's")
+        out.append((given_s, fetched_s))
+    return out
+
+
+def http_plots(tmp, card):
+    """Phase 18 (c): the plots (matplotlib) and the exports and the SkyBot
+    query (pandas) on this machine, each package on its own.  Where one is
+    missing, its calls must raise ``ImportError`` naming it, as the JAX
+    package's lazy imports do.  Where matplotlib is installed: a PRF
+    photometry of the bench's scene, its model's image and a one-curve BLS
+    periodogram made on the card in float64, plotted under Agg and held
+    against the same made on the CPU (each array within 1e-6 of its
+    largest).  Where pandas is installed: the SkyBot query of a curve
+    with one 50-sigma outlier (its mask by ``remove_outliers(sigma=10)``
+    on the card, a recorded response) and ``to_pandas()`` of the curve
+    flattened on the card, against the same on the CPU, float64 both
+    (frames equal; the flux within 1e-9).  Returns what was missing."""
+    import importlib.util
+    import torch
+    from lightkurve_tpu_torch import LightCurve
+    missing = [m for m in ("matplotlib", "pandas")
+               if importlib.util.find_spec(m) is None]
+    rng = np.random.default_rng(ARC_SEED + 19)
+    t = 2459000.0 + np.arange(2000) * (2.0 / 60 / 24)
+    flux = 1 + 1e-3 * rng.standard_normal(t.size)
+    flux[np.mod(t, 3.3) < 0.1] -= 4e-3
+    flux[777] += 0.05
+    lc = LightCurve(time=t, flux=flux, flux_err=np.full(t.size, 1e-3))
+    lc.meta.update(RA=84.2, DEC=-72.2, MISSION="TESS")
+    skybot = ("# Flag: 1\n# Count: 1\n# Num | Name | RA(h) | DE(deg) | "
+              "Class | Mv | Err(arcsec) | d(arcsec)\n 138846 | 2000 VJ61 | "
+              "5.61 | -72.23 | MB>Outer | 16.6 | 0.1 | 21.0\n")
+
+    def sso():
+        return lc.query_solar_system_objects(
+            sigma=10, return_mask=True, fetch=lambda url: skybot)
+
+    calls = {"matplotlib": [("LightCurve.plot", lc.plot)],
+             "pandas": [("LightCurve.to_pandas", lc.to_pandas),
+                        ("LightCurve.query_solar_system_objects", sso)]}
+    for pkg in missing:
+        log(f"http, plots: {pkg} is not installed on this machine, so its "
+            f"calls are not run here: they must raise ImportError naming "
+            f"it (the CPU tests hold them against lightkurve_tpu's)")
+        for name, call in calls[pkg]:
+            try:
+                call()
+            except ImportError as exc:
+                if pkg not in str(exc):
+                    raise AssertionError(f"{name}: ImportError without "
+                                         f"{pkg}: {exc}")
+                log(f"http, plots: {name} raises ImportError without {pkg} "
+                    f"({exc})")
+            else:
+                raise AssertionError(f"{name} ran without {pkg}")
+    if "pandas" not in missing:
+        got = {}
+        for device in ("cuda", "cpu"):
+            with port_on(device, torch.float64):
+                got[device] = (sso(), lc.flatten(
+                    window_length=101).to_pandas())
+        (a, mask_a), frame_a = got["cuda"]
+        (b, mask_b), frame_b = got["cpu"]
+        if not (a.equals(b) and np.array_equal(mask_a, mask_b)
+                and mask_a.sum() == 1 and mask_a[777]):
+            raise AssertionError("http, exports: the card's SkyBot query "
+                                 "differs from the CPU's")
+        if list(frame_a.columns) != list(frame_b.columns) or \
+                not np.array_equal(frame_a.index, frame_b.index) or \
+                np.nanmax(np.abs(frame_a["flux"].to_numpy(float)
+                                 - frame_b["flux"].to_numpy(float))) > 1e-9:
+            raise AssertionError("http, exports: the card's to_pandas() "
+                                 "differs from the CPU's")
+        log(f"http, exports: the SkyBot query (outlier mask on the card) and "
+            f"to_pandas() of the card's flatten equal the CPU's (float64 "
+            f"both) [{card}]")
+    if "matplotlib" not in missing:
+        import matplotlib
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+        from lightkurve_tpu_torch.prf import GaussianPRF, PRFPhotometry
+
+        def data(ax):
+            out = [line.get_xydata() for line in ax.get_lines()]
+            out += [np.ma.filled(np.ma.asarray(im.get_array(), float),
+                                 np.nan) for im in ax.get_images()]
+            return out
+
+        img = prf_scene_model().predict_from_array(
+            torch.as_tensor(PRF_TRUTH)).numpy()
+        cube = img[None] + PRF_NOISE * rng.standard_normal((16,) + img.shape)
+        made = {}
+        for device in ("cuda", "cpu"):
+            with port_on(device, torch.float64):
+                model = prf_scene_model()
+                phot = PRFPhotometry(model)
+                phot.run(cube, n_iter=5)
+                pg = lc.to_periodogram("bls", period=np.linspace(1, 5, 500),
+                                       duration=[0.05, 0.1])
+                made[device] = dict(
+                    prf=GaussianPRF(shape=(9, 9)).plot(), model=model.plot(),
+                    results=phot.plot_results()[0], pg=pg.plot())
+        for key in made["cpu"]:
+            for x, y in zip(data(made["cuda"][key]), data(made["cpu"][key])):
+                if x.shape != y.shape or np.nanmax(np.abs(x - y)) > \
+                        1e-6 * np.nanmax(np.abs(y)):
+                    raise AssertionError(f"http, plots: the card's {key} "
+                                         "plot differs from the CPU's")
+        plt.close("all")
+        log(f"http, plots: the card's PRF, scene model, fit results and BLS "
+            f"periodogram plots equal the CPU's [{card}]")
+    return dict(missing=missing)
+
+
+def phase_http(tmp, card, sweep, runs, arc):
+    """Phase 18, inside :func:`archive_env`, each part a path of its own,
+    with a :class:`MashupArchive` serving phase 16's files and phase 14's
+    CBV targets: (a) the search -> download -> stitch -> stack -> BLS
+    path over HTTP (the launches the route rule gives, through
+    ``sweep``), then its call 4 on both routes (:func:`pixel_routes`) and
+    K-WF, K-SF and K-W against their plain versions there
+    (:func:`check_pixel_kernels`); (b) ``correct()`` with the neighbours
+    fetched over HTTP; (c) the plots and exports (no kernel may launch in
+    b or c).  Adds the paths' launches to ``runs``; returns the numbers
+    and the kernels' errors."""
+    import torch
+    t0 = time.time()
+    none = tuple(kernel_table())
+    cbv_paths = [os.path.join(tmp, "cbv_lc", cbv_target_name(i))
+                 for i in range(CBV_B)]
+    observations, products, resolver, local = http_tables(arc["files"],
+                                                          cbv_paths)
+    out = {}
+    with archive_env(tmp), MashupArchive(observations, products, resolver,
+                                         local, fail=HTTP_FAIL) as archive:
+        log(f"http: a Mashup server on {archive.mashup_url} with "
+            f"{len(observations)} observations, {len(products)} products")
+        out["search"] = sweep("archive over HTTP -> search (phase 18)",
+                              http_search, tmp, archive, arc, card)
+        flat = out["search"].pop("flat")
+        call4 = np.linspace(*TWO_SECTOR_GRID)[3072:]
+        runs.update(pixel_routes(flat, call4, "archive over HTTP", 18))
+        errs = check_pixel_kernels(flat, call4[-PIX_KERNEL_PERIODS:],
+                                   "archive over HTTP")
+        del flat
+        torch.cuda.empty_cache()
+        out["cbv"], runs["CBV neighbours over HTTP (phase 18)"] = drive(
+            "CBV neighbours over HTTP (phase 18)", http_cbv, tmp, archive,
+            local, card, forbid=none)
+    out["plots"], runs["plots and exports (phase 18)"] = drive(
+        "plots and exports (phase 18)", http_plots, tmp, card, forbid=none)
+    torch.cuda.empty_cache()
+    out["seconds"] = time.time() - t0
+    log(f"phase 18: {out['seconds']:.1f}s")
     return out, errs
 
 
@@ -6232,6 +6810,8 @@ def main():
         p14, p14_errs = phase_cbv_seismology(tmp, card, sweep, runs)
         prf, prf_errs = phase_prf(tmp, card, sweep, runs)
         arc, arc_errs = phase_archive(tmp, card, sweep, runs)
+        h18, h18_errs = phase_http(tmp, card, sweep, runs,
+                                   arc.pop("phase18"))
     torch.cuda.empty_cache()
     ls = phase_ls()
     path = "past the one-hot ceiling (phase 9)"
@@ -6247,7 +6827,7 @@ def main():
         errs[key], times[key], bounds[key], per_launch[key] = e, t, b, per
     errs["K-F"] = max(errs["K-F"], kf_err)
     for key, e in (*px_errs.items(), *p14_errs.items(), *prf_errs.items(),
-                   *arc_errs.items()):
+                   *arc_errs.items(), *h18_errs.items()):
         errs[key] = max(errs[key], e)
     phase_routes()
     with tempfile.TemporaryDirectory() as tmp:
@@ -6278,6 +6858,11 @@ def main():
         f"{arc['search']['rate']:.6g} curve-period evals/s, recovered "
         f"{arc['search']['recovered']:.4f}, BLS explorer "
         f"{arc['pages']['bls_s']:.3f}s, phase 16 {arc['seconds']:.1f}s; "
+        f"archive over HTTP: search -> download_all -> stitch "
+        f"{h18['search']['targets_per_s']:.6g} targets/s, CBV correct() "
+        f"with fetched neighbours "
+        f"{max(f for _, f in h18['cbv']):.3f}s at most, phase 18 "
+        f"{h18['seconds']:.1f}s; "
         f"LS sector "
         f"{ls['sector']['rate']:.6g}, "
         f"LS bench shape {ls['bench']['rate']:.6g} curve-frequency "

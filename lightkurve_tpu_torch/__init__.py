@@ -34,14 +34,16 @@ Levenberg-Marquardt; ``TargetPixelFile.extract_prf_photometry``).
 published peaks.
 
 Archive search (:mod:`.search`, :mod:`.mast`): ``search_lightcurve(...)
-.download_all().stitch()`` over a local archive or a recorded MAST
-transport; :mod:`.interact_html` writes the standalone explorers
-(``interact_bls(html=...)`` precomputes its BLS grid on the card).
-:data:`conf` holds the user settings (:mod:`.config`).
+.download_all().stitch()`` over a local archive, a recorded MAST
+transport or the live archive over HTTP (:mod:`.mast_http`,
+``HTTPMASTTransport``); :mod:`.interact_html` writes the standalone
+explorers (``interact_bls(html=...)`` precomputes its BLS grid on the
+card).  The plots import matplotlib and the tabular exports pandas inside
+the call, so the package imports without either.  :data:`conf` holds the
+user settings (:mod:`.config`).
 
 Modules mirror ``lightkurve_tpu``'s names, and every name of its
-``__all__`` resolves here but ``HTTPMASTTransport`` (network) and
-``plot_image`` (plotting).  Importing the package builds
+``__all__`` resolves here.  Importing the package builds
 nothing and needs neither a GPU nor ``nvcc``: kernels compile on first use
 with a CUDA tensor.  Entry points put their tensors on the card unless the
 caller passes ``device="cpu"``; the single-curve classes take the device
@@ -119,6 +121,7 @@ _LAZY = {
     "SearchResult": ".search",
     "MASTTransport": ".mast",
     "RecordedMASTTransport": ".mast",
+    "HTTPMASTTransport": ".mast_http",
     "validate_method": ".utils",
     "running_mean": ".utils",
     "centroid_quadratic": ".utils",
@@ -138,6 +141,7 @@ _LAZY = {
     "demo_sky_catalog": ".interact_html",
     "channel_to_module_output": ".utils",
     "module_output_to_channel": ".utils",
+    "plot_image": ".utils",
     "LightCurveStack": ".batch",
     "SweepRunner": ".parallel.checkpoint",
     "StreamingStackLoader": ".io.pipeline",

@@ -7,7 +7,7 @@ per-curve corrector function (default: normalize), as reference
 :class:`lightkurve_tpu_torch.batch.LightCurveStack` for the batched torch
 functions and kernels; ``TargetPixelFileCollection.to_stack`` packs target
 pixel files into a :class:`lightkurve_tpu_torch.batch.TPFStack`.  ``plot``
-is not ported (no matplotlib on the card's machine).
+draws every member with matplotlib, imported inside the call.
 """
 from __future__ import annotations
 
@@ -205,9 +205,33 @@ class LightCurveCollection(Collection):
         from .batch import LightCurveStack
         return LightCurveStack.from_collection(self, **kwargs)
 
+    def plot(self, ax=None, offset=0.0, **kwargs):
+        """Plot all curves with vertical offsets
+        (reference ``collections.py:230-277``)."""
+        import matplotlib.pyplot as plt
+        if ax is None:
+            _, ax = plt.subplots()
+        for i, lc in enumerate(self.data):
+            lc.plot(ax=ax, offset=i * offset,
+                    label=lc.meta.get("LABEL"), **kwargs)
+        return ax
+
 
 class TargetPixelFileCollection(Collection):
     """A list of TargetPixelFiles (reference ``collections.py:279-313``)."""
+
+    def plot(self, ax=None):
+        """One image per member (reference ``collections.py:300-313``)."""
+        import matplotlib.pyplot as plt
+        if ax is None:
+            _, ax = plt.subplots(len(self.data), 1,
+                                 figsize=(7, 7 * len(self.data)))
+        if len(self.data) == 1:
+            self.data[0].plot(ax=ax)
+        else:
+            for a, tpf in zip(np.atleast_1d(ax), self.data):
+                tpf.plot(ax=a)
+        return ax
 
     def to_stack(self, **kwargs):
         """Pack the TPF cubes into a

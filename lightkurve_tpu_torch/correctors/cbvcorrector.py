@@ -12,9 +12,12 @@ mission loaders of local CBV files (read by the port's FITS reader), and
 ``correct_elasticnet`` (:func:`~lightkurve_tpu_torch.ops.solve.
 elasticnet_fista` in float64) and ``correct`` (scipy's bounded scalar
 search for α over the over- and under-fitting metrics on the host, as
-the reference).  Fetching CBV files from the archive needs the network
-and is not ported: the loaders read ``cbv_dir``.  The plots raise
-``NotImplementedError`` (no matplotlib on the card's machine).
+the reference).  The loaders read local CBV files from ``cbv_dir``
+(fetching them from the archive raises, as in ``lightkurve_tpu``).
+Without ``neighbor_flux`` the under-fitting metric fetches its
+neighbours' light curves through the ambient transport
+(:func:`.metrics.underfit_metric_neighbors`).  The plots draw with
+matplotlib, imported inside the call.
 """
 from __future__ import annotations
 
@@ -34,12 +37,6 @@ from .metrics import (MinTargetsError, overfit_metric_lombscargle,
                       underfit_metric_neighbors)
 
 log = logging.getLogger(__name__)
-
-
-def _not_ported(what):
-    raise NotImplementedError(
-        f"{what} is not ported to lightkurve_tpu_torch (ROADMAP A5: "
-        "plotting, no matplotlib on the card's machine).")
 
 __all__ = ["CBVCorrector", "CotrendingBasisVectors",
            "KeplerCotrendingBasisVectors", "TessCotrendingBasisVectors",
@@ -202,8 +199,32 @@ class CotrendingBasisVectors:
         return out
 
     def plot(self, cbv_indices="all", ax=None, **kwargs):
-        """Plot of the vectors: not ported."""
-        _not_ported("CotrendingBasisVectors.plot")
+        """The vectors, each offset by 0.1 (reference
+        ``cbvcorrector.py:1275-1335``)."""
+        import matplotlib.pyplot as plt
+        if ax is None:
+            _, ax = plt.subplots(1)
+        if isinstance(cbv_indices, str):
+            if cbv_indices.lower() != "all":
+                raise ValueError(
+                    'cbv_indices must either be list of ints or "all"')
+            cbv_indices = self.cbv_indices
+        elif 0 in list(cbv_indices):
+            raise ValueError("CBVs use 1-based indexing. Do not request "
+                             "CBV index '0'")
+        good = ~np.asarray(self.gap_indicators, dtype=bool)
+        tv = np.asarray(self.time.value)
+        for i, idx in enumerate(cbv_indices):
+            if idx not in self.cbv_indices:
+                continue  # the reference silently ignores unknown indices
+            ax.plot(tv[good],
+                    np.asarray(self.columns[f"VECTOR_{idx}"])[good] + 0.1 * i,
+                    label=f"{idx}", **kwargs)
+        ax.set_xlabel("Time")
+        ax.set_ylabel("CBV (offset)")
+        ax.legend(fontsize="small", ncol=2)
+        ax.set_title(f"{self.cbv_type} CBVs")
+        return ax
 
     def __repr__(self):
         return (f"{type(self).__name__} (type={self.cbv_type} "
@@ -689,14 +710,36 @@ class CBVCorrector(RegressionCorrector):
         return -(over + under)
 
     def diagnose(self):
-        """Diagnostic plot (reference ``cbvcorrector.py:856-941``): not
-        ported."""
-        _not_ported("CBVCorrector.diagnose")
+        """Diagnostic plot (reference ``cbvcorrector.py:856-941``)."""
+        return super().diagnose()
 
     def goodness_metric_scan_plot(self, cbv_type=("SingleScale",),
                                   cbv_indices=("ALL",), alpha_range=None,
                                   ext_dm=None, cadence_mask=None,
                                   neighbor_flux=None):
-        """Plot of the goodness metrics over α (reference
-        ``cbvcorrector.py:943-980``): not ported."""
-        _not_ported("CBVCorrector.goodness_metric_scan_plot")
+        """Plot over/under metrics over a grid of α values
+        (reference ``cbvcorrector.py:943-980``)."""
+        import matplotlib.pyplot as plt
+        if alpha_range is None:
+            alpha_range = np.logspace(-4, 4, 9)
+        self._correct_initialization(cbv_type=cbv_type,
+                                     cbv_indices=cbv_indices, ext_dm=ext_dm)
+        overs, unders = [], []
+        for a in alpha_range:
+            sigma = np.median(self.lc.flux_err.value) / np.sqrt(abs(a))
+            self._set_prior_width(sigma)
+            self.correct_regressioncorrector(self.design_matrix_collection,
+                                             cadence_mask=cadence_mask)
+            overs.append(self.over_fitting_metric(n_samples=1))
+            try:
+                unders.append(self.under_fitting_metric(
+                    neighbor_flux=neighbor_flux))
+            except Exception:
+                unders.append(np.nan)
+        _, ax = plt.subplots()
+        ax.semilogx(alpha_range, overs, label="Over-fitting metric")
+        ax.semilogx(alpha_range, unders, label="Under-fitting metric")
+        ax.set_xlabel("alpha")
+        ax.set_ylabel("metric")
+        ax.legend()
+        return ax

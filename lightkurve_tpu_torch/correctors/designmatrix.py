@@ -8,7 +8,7 @@ B-spline bases come from a Cox-de Boor recursion on the host.  ``pca``
 runs :func:`~lightkurve_tpu_torch.ops.solve.randomized_pca` in
 :data:`config.default_dtype` on :func:`config.resolve_device` (the card
 unless the configuration says ``"cpu"``).  ``plot`` and ``plot_priors``
-are not ported (no matplotlib on the card's machine).
+draw with matplotlib, imported inside the call.
 """
 from __future__ import annotations
 
@@ -23,12 +23,6 @@ from ..utils import LightkurveWarning
 __all__ = ["DesignMatrix", "DesignMatrixCollection", "SparseDesignMatrix",
            "SparseDesignMatrixCollection", "create_spline_matrix",
            "create_sparse_spline_matrix"]
-
-
-def _not_ported(what):
-    raise NotImplementedError(
-        f"DesignMatrix.{what} is not ported to lightkurve_tpu_torch (ROADMAP "
-        "A6's remainder: plotting, no matplotlib on the card's machine).")
 
 
 def _strip(values):
@@ -230,13 +224,34 @@ class DesignMatrix:
     def collect(self, matrix):
         return DesignMatrixCollection([self, matrix])
 
-    def plot(self, *args, **kwargs):
-        """An image of the matrix: not ported."""
-        _not_ported("plot")
+    def plot(self, ax=None, **kwargs):
+        """An image of the matrix (reference ``designmatrix.py:138-166``)."""
+        import matplotlib.pyplot as plt
+        if ax is None:
+            _, ax = plt.subplots()
+        im = ax.imshow(self.values_, aspect="auto", interpolation="nearest",
+                       **kwargs)
+        plt.colorbar(im, ax=ax, label="Component Value")
+        ax.set_xlabel("Component")
+        ax.set_ylabel("X")
+        ax.set_title(self.name)
+        return ax
 
-    def plot_priors(self, *args, **kwargs):
-        """The priors' densities: not ported."""
-        _not_ported("plot_priors")
+    def plot_priors(self, ax=None):
+        """Each column's prior density (reference
+        ``designmatrix.py:168-195``)."""
+        import matplotlib.pyplot as plt
+        if ax is None:
+            _, ax = plt.subplots()
+        for m, s in zip(self.prior_mu, self.prior_sigma):
+            if not np.isfinite(s):
+                ax.axhline(1, color="k")
+            else:
+                x = np.linspace(m - 5 * s, m + 5 * s, 1000)
+                ax.plot(x, np.exp(-((x - m) ** 2) / (2 * s ** 2)), c="k")
+        ax.set_xlabel("Value")
+        ax.set_title(f"{self.name} Priors")
+        return ax
 
 
 class SparseDesignMatrix(DesignMatrix):
@@ -335,9 +350,9 @@ class DesignMatrixCollection:
         return "DesignMatrixCollection:\n" + "\n".join(
             f"\t{m!r}" for m in self.matrices)
 
-    def plot(self, *args, **kwargs):
-        """An image of the matrices: not ported."""
-        _not_ported("plot")
+    def plot(self, ax=None, **kwargs):
+        """An image of the combined matrix."""
+        return self.to_designmatrix().plot(ax=ax, **kwargs)
 
     @property
     def columns(self):
@@ -356,9 +371,12 @@ class DesignMatrixCollection:
         ``designmatrix.py:511-521``)."""
         return self.__class__([m.standardize() for m in self.matrices])
 
-    def plot_priors(self, *args, **kwargs):
-        """The priors' densities: not ported."""
-        _not_ported("plot_priors")
+    def plot_priors(self, ax=None):
+        """Overlay every matrix's prior plot (reference
+        ``designmatrix.py:470-485``)."""
+        for m in self.matrices:
+            ax = m.plot_priors(ax=ax)
+        return ax
 
 
 class SparseDesignMatrixCollection(DesignMatrixCollection):

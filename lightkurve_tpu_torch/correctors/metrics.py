@@ -10,10 +10,14 @@ Counterpart of ``lightkurve_tpu/correctors/metrics.py``:
   mean |correlation|³ between the corrected target and its neighbours'
   fluxes, calibrated against white-noise correlations (reference
   ``metrics.py:126-255``), given the neighbours' fluxes
-  (``neighbor_flux``).  The correlation matrix is one float64 product on
+  (``neighbor_flux``) or, without them, fetching the neighbours' SAP
+  light curves through the archive search (a given or the ambient
+  transport, e.g. :class:`~lightkurve_tpu_torch.mast_http.HTTPMASTTransport`,
+  else the local archive scan) and aligning them by cadence number
+  (:func:`_download_and_preprocess_neighbors`, host code).  The
+  correlation matrix is one float64 product on
   :func:`config.resolve_device`: neighbour correlations of 1e-2 set the
-  metric, which TF32 would move.  Fetching the neighbours from the
-  archive is a network client and is not ported.
+  metric, which TF32 would move.
 """
 from __future__ import annotations
 
@@ -132,22 +136,26 @@ def _align_to_lc(lc, ref_lc):
 def underfit_metric_neighbors(corrected_lc, radius=6000, min_targets=30,
                               max_targets=50, interpolate=False,
                               extrapolate=False, quality_bitmask="default",
-                              neighbor_flux=None):
+                              neighbor_flux=None, transport=None):
     """Under-fitting metric in [0, 1] (reference ``metrics.py:126-255``).
 
-    ``neighbor_flux``: a list of the neighbours' flux arrays, aligned to
-    the corrected light curve's cadences.  Without it the reference
-    searches the archive for neighbours, which needs the network: the
-    port raises ``NotImplementedError``."""
+    ``neighbor_flux`` : optional list of flux arrays (already aligned to the
+    corrected light curve's cadences).  When omitted, neighbors come from
+    the archive search (:func:`_download_and_preprocess_neighbors`) —
+    through ``transport`` (a
+    :class:`~lightkurve_tpu_torch.mast.MASTTransport`) when given, else
+    the ambient one (:func:`..mast.default_transport`), else the local
+    archive scan.
+    """
     corrected_lc = corrected_lc.copy().remove_nans().normalize() - 1.0
     flux = corrected_lc.flux.value
 
     if neighbor_flux is None:
-        raise NotImplementedError(
-            "underfit_metric_neighbors without `neighbor_flux` searches "
-            "the archive for neighbouring targets, which needs the "
-            "network; lightkurve_tpu_torch does not use it (ROADMAP A: "
-            "the network clients). Pass `neighbor_flux`.")
+        neighbor_flux = _download_and_preprocess_neighbors(
+            corrected_lc, radius=radius, min_targets=min_targets,
+            max_targets=max_targets, interpolate=interpolate,
+            extrapolate=extrapolate, quality_bitmask=quality_bitmask,
+            transport=transport)
     if len(neighbor_flux) < 1:
         raise MinTargetsError("No neighboring targets available")
     if not np.all([len(neighbor_flux[0]) == len(f) for f in neighbor_flux]):
@@ -173,3 +181,54 @@ def underfit_metric_neighbors(corrected_lc, radius=6000, min_targets=30,
     corr = np.tril(corr, k=-1) + np.triu(corr, k=+1)
     correlation = correlation_scale * np.nanmean(np.abs(corr) ** 3, axis=0)
     return _sigmoid_inv(correlation[-1])
+
+
+def _download_and_preprocess_neighbors(corrected_lc, radius=6000,
+                                       min_targets=30, max_targets=50,
+                                       interpolate=False, extrapolate=False,
+                                       flux_column="sap_flux",
+                                       quality_bitmask="default",
+                                       transport=None):
+    """Download neighboring SAP light curves and align them to
+    ``corrected_lc`` (reference ``metrics.py:280-450``): the cone search
+    around the target (nearest first, at most ``max_targets`` besides the
+    target), each neighbour normalised less one and placed on the
+    target's cadences by cadence number (NaN where it has none), or
+    linearly interpolated in time with ``interpolate=True``."""
+    from ..search import search_lightcurve
+    target = corrected_lc.meta.get("TARGETID") or corrected_lc.meta.get(
+        "LABEL")
+    if target is None:
+        raise MinTargetsError(
+            "corrected_lc has no TARGETID; pass `neighbor_flux` explicitly")
+    search = search_lightcurve(
+        str(target), radius=radius,
+        mission=corrected_lc.meta.get("MISSION"), limit=max_targets + 1,
+        author=("Kepler", "K2", "SPOC"), transport=transport)
+    if len(search) - 1 < min_targets:
+        raise MinTargetsError(
+            f"Only {max(len(search) - 1, 0)} neighbors found; "
+            f"{min_targets} required")
+    lcs = search.download_all(flux_column=flux_column,
+                              quality_bitmask=quality_bitmask)
+    out = []
+    cadenceno = np.asarray(corrected_lc._cols.get(
+        "cadenceno", np.arange(len(corrected_lc))))
+    for lc in lcs:
+        if str(lc.meta.get("TARGETID")) == str(target):
+            continue
+        lc = lc.remove_nans().normalize() - 1.0
+        if interpolate:
+            f = np.interp(corrected_lc.time.value, lc.time.value,
+                          lc.flux.value,
+                          left=np.nan if not extrapolate else None,
+                          right=np.nan if not extrapolate else None)
+        else:
+            their = np.asarray(lc._cols.get("cadenceno",
+                                            np.arange(len(lc))))
+            f = np.full(len(cadenceno), np.nan)
+            common, ia, ib = np.intersect1d(cadenceno, their,
+                                            return_indices=True)
+            f[ia] = lc.flux.value[ib]
+        out.append(f)
+    return out

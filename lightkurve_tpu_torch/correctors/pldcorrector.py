@@ -6,7 +6,8 @@ A copy of ``lightkurve_tpu/correctors/pldcorrector.py`` (the reference's
 multichoose products to ``pld_order``, PCA-reduced), PCA'd background
 pixels, time spline + constant], solved by :class:`RegressionCorrector`.
 The PCA (``ops.solve.randomized_pca``) and the solves run on the
-configured device.  ``diagnose`` and ``diagnose_masks`` are not ported.
+configured device.  ``diagnose`` and ``diagnose_masks`` draw with
+matplotlib, imported inside the call.
 """
 from __future__ import annotations
 
@@ -15,11 +16,10 @@ from itertools import combinations_with_replacement
 
 import numpy as np
 
-from ..utils import LightkurveWarning
 from .designmatrix import (DesignMatrix, DesignMatrixCollection,
                            SparseDesignMatrixCollection, create_spline_matrix,
                            create_sparse_spline_matrix)
-from .regressioncorrector import RegressionCorrector, _not_ported
+from .regressioncorrector import RegressionCorrector
 
 log = logging.getLogger(__name__)
 
@@ -165,12 +165,26 @@ class PLDCorrector(RegressionCorrector):
         return clc
 
     def diagnose(self):
-        """Diagnostic plot (reference ``pldcorrector.py:429-470``): not
-        ported."""
+        """Diagnostic plot (reference ``pldcorrector.py:429-470``)."""
         if self.corrected_lc is None:
             raise ValueError("You need to call the `correct()` method first.")
         return super().diagnose()
 
     def diagnose_masks(self):
-        """Plots of the three masks: not ported."""
-        _not_ported("diagnose_masks")
+        """Plot the pld/background aperture masks
+        (reference ``pldcorrector.py:472-509``)."""
+        import matplotlib.pyplot as plt
+        from ..utils import _strip_quantity
+        if getattr(self, "pld_aperture_mask", None) is None:
+            raise ValueError("You need to call the `correct()` method first.")
+        _, axs = plt.subplots(1, 3, figsize=(12, 3))
+        img = np.nanmedian(_strip_quantity(self.tpf.flux), axis=0)
+        for ax, mask, title in zip(
+                axs, [self.aperture_mask, self.pld_aperture_mask,
+                      self.background_aperture_mask],
+                ["aperture", "pld_aperture", "background_aperture"]):
+            ax.imshow(img, origin="lower")
+            ax.imshow(np.ma.masked_where(~mask, mask), origin="lower",
+                      alpha=0.5, cmap="Reds")
+            ax.set_title(title)
+        return axs

@@ -9,8 +9,8 @@ iterations, masks in place of row deletion, on :func:`config.resolve_device`
 (the card unless the configuration says ``"cpu"``).  The solves run in
 float64 whatever :data:`config.default_dtype` says (ROADMAP C4: in float32
 the normal equations of a sector's design matrix move the corrected flux
-by a fair part of a 400-ppm transit).  The diagnostic plots are not ported
-(no matplotlib on the card's machine).
+by a fair part of a 400-ppm transit).  The diagnostic plots draw with
+matplotlib, imported inside the call.
 """
 from __future__ import annotations
 
@@ -22,7 +22,6 @@ import torch
 
 from ..lightcurve import LightCurve, _tensor
 from ..units import Quantity
-from ..utils import LightkurveWarning
 from .corrector import Corrector
 from .designmatrix import (DesignMatrix, DesignMatrixCollection,
                            SparseDesignMatrix, SparseDesignMatrixCollection)
@@ -41,12 +40,6 @@ def _f64(x):
 def _host(x):
     """A tensor back as a float64 host array."""
     return x.cpu().numpy().astype(np.float64)
-
-
-def _not_ported(what):
-    raise NotImplementedError(
-        f"{what} is not ported to lightkurve_tpu_torch (ROADMAP A6's "
-        "remainder: plotting, no matplotlib on the card's machine).")
 
 
 class RegressionCorrector(Corrector):
@@ -211,9 +204,42 @@ class RegressionCorrector(Corrector):
         return lcs
 
     def diagnose_priors(self):
-        """Plots of the priors and the fitted coefficients: not ported."""
-        _not_ported("diagnose_priors")
+        """Plot each design matrix's coefficient priors with the fitted
+        coefficients overlaid (reference ``regressioncorrector.py:393-427``).
+        Requires a prior call to :meth:`correct`."""
+        import matplotlib.pyplot as plt
+        if self.coefficients is None:
+            raise ValueError("Please call the `correct()` method before "
+                             "trying to diagnose.")
+        matrices = list(self.dmc.matrices)
+        _, axs = plt.subplots(1, len(matrices),
+                              figsize=(len(matrices) * 4, 4), sharey=True)
+        if not hasattr(axs, "__iter__"):
+            axs = [axs]
+        first = 0
+        for ax, X in zip(axs, matrices):
+            X.plot_priors(ax=ax)
+            for c in self.coefficients[first:first + X.shape[1]]:
+                ax.axvline(c, color="red", zorder=-1)
+            first += X.shape[1]
+        return axs
 
     def diagnose(self):
-        """Diagnostic plots of the fit: not ported."""
-        _not_ported("diagnose")
+        """Diagnostic plot of the fit (reference ``:344-425``)."""
+        import matplotlib.pyplot as plt
+        if self.coefficients is None:
+            raise ValueError("You need to call the `correct()` method first.")
+        _, axs = plt.subplots(2, figsize=(10, 6), sharex=True)
+        ax = axs[0]
+        self.lc.plot(ax=ax, normalize=False, label="original", alpha=0.4)
+        med = Quantity(np.median(self.lc.flux.value), self.lc.flux.unit)
+        for key, lc in self.diagnostic_lightcurves.items():
+            (lc + med).plot(ax=ax)
+        ax = axs[1]
+        self.corrected_lc.plot(ax=ax, normalize=False, label="corrected",
+                               alpha=0.4)
+        self.corrected_lc[self.outlier_mask].scatter(
+            ax=ax, label="outlier_mask", marker="x", s=10, c="r")
+        self.corrected_lc[~self.cadence_mask].scatter(
+            ax=ax, label="~cadence_mask", marker="x", s=10, c="grey")
+        return axs

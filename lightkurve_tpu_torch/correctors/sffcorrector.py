@@ -7,7 +7,8 @@ of the arclength's acceleration (:func:`~lightkurve_tpu_torch.ops.peaks.
 fit_gaussian_lm` on the configured device, in float64 as every solve of
 the correctors), windows split at the firings,
 and per-window arclength splines plus a long-term time spline solved by
-:class:`RegressionCorrector`.  The diagnostic plots are not ported.
+:class:`RegressionCorrector`.  The diagnostic plots draw with matplotlib,
+imported inside the call.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ from ..utils import LightkurveWarning
 from .designmatrix import (DesignMatrix, DesignMatrixCollection,
                            SparseDesignMatrixCollection, create_spline_matrix,
                            create_sparse_spline_matrix)
-from .regressioncorrector import RegressionCorrector, _not_ported
+from .regressioncorrector import RegressionCorrector
 
 log = logging.getLogger(__name__)
 
@@ -138,13 +139,25 @@ class SFFCorrector(RegressionCorrector):
         return clc
 
     def diagnose(self):
-        """Diagnostic plots (reference ``sffcorrector.py:229-298``): not
-        ported."""
-        _not_ported("diagnose")
+        """Diagnostic plots (reference ``sffcorrector.py:229-298``): the
+        regression's, with the windows' edges marked."""
+        axs = super().diagnose()
+        windows = np.append(np.append(0, self.window_points), len(self.lc))
+        tv = self.lc.time.value
+        for ax in axs:
+            for w in windows:
+                ax.axvline(tv[min(int(w), len(self.lc) - 1)],
+                           color="grey", ls="--", alpha=0.3)
+        return axs
 
     def diagnose_arclength(self):
-        """Flux against arclength: not ported."""
-        _not_ported("diagnose_arclength")
+        """Flux against arclength (reference ``sffcorrector.py:300-348``)."""
+        import matplotlib.pyplot as plt
+        _, ax = plt.subplots()
+        ax.scatter(self.arclength, self.lc.flux.value, s=1)
+        ax.set_xlabel("Arclength")
+        ax.set_ylabel("Flux")
+        return ax
 
 
 def _estimate_arclength(centroid_col, centroid_row):

@@ -3,11 +3,13 @@
 Counterpart of ``lightkurve_tpu/io/native.py``.  The repository's
 ``csrc/fits_reader.cpp`` is compiled with ``g++`` into the port's build
 directory on first use (:mod:`lightkurve_tpu_torch.ops._build`).  There is
-no pure-Python fallback: a failed build raises.
+no pure-Python fallback: a failed build raises (``available()`` says
+whether it builds and loads).
 """
 from __future__ import annotations
 
 import ctypes
+import logging
 import os
 import threading
 
@@ -15,7 +17,10 @@ import numpy as np
 
 from ..ops._build import build_library
 
-__all__ = ["library", "read_column", "read_batch", "table_rows"]
+log = logging.getLogger(__name__)
+
+__all__ = ["library", "available", "read_column", "read_batch",
+           "table_rows"]
 
 _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc", "fits_reader.cpp")
@@ -55,6 +60,17 @@ def library():
         lib.lk_table_rows.argtypes = [ctypes.c_char_p, ctypes.c_char_p]
         _LIB.append(lib)
         return lib
+
+
+def available():
+    """True when the reader library builds and loads here (it is built on
+    first call); False when it does not, with the reason logged."""
+    try:
+        library()
+    except (OSError, RuntimeError) as exc:
+        log.warning("the C++ FITS reader is unavailable: %s", exc)
+        return False
+    return True
 
 
 def table_rows(path, extname=""):

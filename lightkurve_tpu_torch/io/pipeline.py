@@ -234,6 +234,12 @@ class StreamingStackLoader:
             stop.set()                    # unblock a mid-put worker
             th.join(timeout=10)
 
+    def map(self, fn):
+        """Run ``fn(stack)`` over every batch with loading overlapped;
+        returns the list of results, each tensor in them copied to host
+        numpy (``.cpu().numpy()``) through dicts, lists and tuples."""
+        return [_tree_to_host(fn(stack)) for stack in self]
+
     def _stack(self, cls, chunk, n_valid, dev, done):
         if done is not None:
             torch.cuda.current_stream(self.device).wait_event(done)
@@ -241,3 +247,15 @@ class StreamingStackLoader:
         return cls(time=t, flux=f, flux_err=fe, mask=m,
                    meta=[{"FILENAME": p} for p in chunk]
                    + [{"PADDING": True}] * (self.batch_size - n_valid))
+
+
+def _tree_to_host(tree):
+    """``tree`` with every tensor as a host numpy array (dicts, lists and
+    tuples walked; other leaves kept)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    if isinstance(tree, dict):
+        return {k: _tree_to_host(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_to_host(v) for v in tree)
+    return tree

@@ -15,8 +15,12 @@ host numpy, as in ``lightkurve_tpu``.
 
 ``to_corrector`` gives the SFF or CBV corrector (:mod:`.correctors`) and
 ``to_seismology`` the asteroseismology dispatcher (:mod:`.seismology`).
-Plotting, the pandas and stingray exports, ASCII tables and the
-solar-system query are not ported yet (ROADMAP A).  The batched counterpart is
+The plots (``plot``, ``scatter``, ``errorbar``, ``plot_river``) import
+matplotlib and the exports (``to_pandas``, ``to_csv``, ``to_excel``,
+ASCII tables through ``read``/``write``) pandas inside the call, as
+``lightkurve_tpu`` does: without them they raise ``ImportError``.
+``query_solar_system_objects`` runs the SkyBot query through a pluggable
+``fetch``.  The batched counterpart is
 :class:`lightkurve_tpu_torch.batch.LightCurveStack`.
 """
 from __future__ import annotations
@@ -35,6 +39,7 @@ from .utils import (
     LightkurveWarning,
     LightkurveDeprecationWarning,
     running_mean,
+    _strip_quantity,
     validate_method,
 )
 
@@ -90,6 +95,15 @@ def _make_reduceat(fn):
 
 rmse.reduceat = _make_reduceat(rmse)
 nanstd.reduceat = _make_reduceat(nanstd)
+
+
+#: ASCII unified-I/O formats supported by LightCurve.read/write
+_ASCII_FORMAT_SEPARATORS = {
+    "ascii.csv": ",",
+    "csv": ",",
+    "ascii.tab": "\t",
+    "ascii.basic": " ",
+}
 
 
 def _format_to_filetype(format):
@@ -1147,10 +1161,53 @@ class LightCurve:
     @classmethod
     def read(cls, path, format=None, **kwargs):
         """Read a light-curve file, auto-detecting the product type
-        (reference astropy unified-I/O ``LightCurve.read``)."""
+        (reference astropy unified-I/O ``LightCurve.read``).  ASCII
+        table formats (``ascii.csv``, ``ascii.tab``, ``ascii.basic``,
+        ``csv``) are read with pandas, as astropy Table's unified I/O
+        reads them (reference io test_basic_ascii_io)."""
+        sep = _ASCII_FORMAT_SEPARATORS.get(format)
+        if sep is not None:
+            import pandas as pd
+            df = pd.read_csv(path, sep=sep)
+            cols = {c: df[c].to_numpy() for c in df.columns}
+            time = cols.pop("time", None)
+            flux = cols.pop("flux", None)
+            flux_err = cols.pop("flux_err", None)
+            lc = cls(time=time, flux=flux, flux_err=flux_err)
+            for name, values in cols.items():
+                lc[name] = values
+            return lc
         from .io.read import read as _read
         return _read(path, filetype=_format_to_filetype(format),
                      **kwargs)
+
+    def write(self, path, format="ascii.csv", overwrite=False, **kwargs):
+        """Write to an ASCII table (pandas) or a FITS file (subset of
+        astropy Table's unified-I/O formats used by the reference
+        tests)."""
+        import os as _os
+        if _os.path.exists(_os.fspath(path)) and not overwrite:
+            raise OSError(
+                f"File {path} already exists. "
+                "If you mean to replace it then use the argument "
+                "\"overwrite=True\".")
+        if format == "fits":
+            return self.to_fits(path=path, overwrite=True, **kwargs)
+        sep = _ASCII_FORMAT_SEPARATORS.get(format)
+        if sep is None:
+            raise ValueError(
+                f"Unsupported write format {format!r}; supported: "
+                f"{sorted(_ASCII_FORMAT_SEPARATORS)} and 'fits'.")
+        import pandas as pd
+        data = {}
+        for name, col in self._cols.items():
+            if isinstance(col, Time):
+                data[name] = _strip_quantity(col.value)
+            elif isinstance(col, TimeDelta):
+                data[name] = _strip_quantity(col.to_value("d"))
+            else:
+                data[name] = _strip_quantity(col)
+        pd.DataFrame(data).to_csv(path, sep=sep, index=False)
 
     def fill_gaps(self, method="gaussian_noise", seed=None):
         """Fill gaps in time with Gaussian noise (reference ``:1329-1427``).
@@ -1351,11 +1408,46 @@ class LightCurve:
     # ------------------------------------------------------------------
     # exports
     # ------------------------------------------------------------------
+    def to_pandas(self):
+        """The columns as a `pandas.DataFrame` indexed by time."""
+        import pandas as pd
+        data = {}
+        for k, v in self._cols.items():
+            data[k] = _strip_quantity(v.value if isinstance(v, Time) else v)
+        df = pd.DataFrame(data)
+        df.index = df["time"]
+        df.index.name = "time"
+        return df.drop(columns=["time"])
+
+    def to_csv(self, path_or_buf=None, **kwargs):
+        """:meth:`to_pandas` written by ``DataFrame.to_csv``."""
+        # pandas 2.x renamed ``line_terminator`` to ``lineterminator``;
+        # accept the old spelling used by the reference's test suite.
+        if "line_terminator" in kwargs:
+            kwargs["lineterminator"] = kwargs.pop("line_terminator")
+        df = self.to_pandas()
+        return df.to_csv(path_or_buf=path_or_buf, **kwargs)
+
+    def to_excel(self, path_or_buf, **kwargs):
+        """:meth:`to_pandas` written by ``DataFrame.to_excel``."""
+        self.to_pandas().to_excel(path_or_buf, **kwargs)
+
     def to_table(self):
         return dict(self._cols)
 
     def to_timeseries(self):
         return self
+
+    def to_stingray(self):
+        """The `stingray` package is not a dependency: raises."""
+        raise ImportError("the `stingray` package is not available in this "
+                          "environment")
+
+    @staticmethod
+    def from_stingray(lc):
+        """The `stingray` package is not a dependency: raises."""
+        raise ImportError("the `stingray` package is not available in this "
+                          "environment")
 
     def to_fits(self, path=None, overwrite=False, flux_column_name="FLUX",
                 **extra_data):
@@ -1364,6 +1456,215 @@ class LightCurve:
         return lightcurve_to_fits(self, path=path, overwrite=overwrite,
                                   flux_column_name=flux_column_name,
                                   **extra_data)
+
+    # ------------------------------------------------------------------
+    # plotting
+    # ------------------------------------------------------------------
+    def _create_plot(self, method="plot", column="flux", ax=None,
+                     normalize=False, xlabel=None, ylabel=None, title="",
+                     style="lightkurve", show_colorbar=True,
+                     colorbar_label="", offset=None, clip_outliers=False,
+                     **kwargs):
+        import matplotlib.pyplot as plt
+        flux = self._cols[column]
+        if not isinstance(flux, Quantity):
+            flux = Quantity(_strip_quantity(flux).astype(float),
+                            dimensionless)
+        lc = self
+        if normalize:
+            lc = self.normalize()
+            flux = lc.flux if column == "flux" else lc._cols[column]
+        if ax is None:
+            _, ax = plt.subplots(1)
+        if ylabel is None:
+            ylabel = "Normalized Flux" if (normalize or self.meta.get(
+                "NORMALIZED")) else "Flux"
+            if str(flux.unit):
+                ylabel += f" [{flux.unit}]"
+        if xlabel is None:
+            if isinstance(self, FoldedLightCurve):
+                xlabel = "Phase [JD]" if not self.meta.get(
+                    "NORMALIZE_PHASE") else "Phase"
+            else:
+                xlabel = f"Time [{self.time.format.upper()}]"
+        x = _strip_quantity(self.time.value)
+        y = _strip_quantity(flux).astype(float)
+        if offset is not None:
+            y = y + offset
+        label = kwargs.pop("label", self.meta.get("LABEL"))
+        if method == "plot":
+            ax.plot(x, y, label=label, **kwargs)
+        elif method == "scatter":
+            sc = ax.scatter(x, y, label=label, **kwargs)
+            if show_colorbar and "c" in kwargs and not isinstance(
+                    kwargs["c"], str):
+                cbar = plt.colorbar(sc, ax=ax)
+                cbar.set_label(colorbar_label)
+        else:
+            yerr = _strip_quantity(kwargs.pop("yerr", self.flux_err))
+            ax.errorbar(x, y, yerr=yerr, label=label, **kwargs)
+        ax.set_xlabel(xlabel)
+        ax.set_ylabel(ylabel)
+        ax.set_title(title)
+        if label is not None:
+            ax.legend(loc="best")
+        return ax
+
+    def plot(self, **kwargs):
+        """Line plot of the flux (reference ``:2336-2394``)."""
+        return self._create_plot(method="plot", **kwargs)
+
+    def scatter(self, colorbar_label="", show_colorbar=True, **kwargs):
+        """Scatter plot of the flux (reference ``:2396-2448``)."""
+        return self._create_plot(method="scatter",
+                                 colorbar_label=colorbar_label,
+                                 show_colorbar=show_colorbar, **kwargs)
+
+    def errorbar(self, linestyle="", **kwargs):
+        """Error-bar plot of the flux (reference ``:2450-2488``)."""
+        if "ls" not in kwargs:
+            kwargs["linestyle"] = linestyle
+        kwargs["fmt"] = kwargs.get("fmt", ".")
+        return self._create_plot(method="errorbar", **kwargs)
+
+    def plot_river(self, period, epoch_time=None, ax=None, bin_points=1,
+                   minimum_phase=-0.5, maximum_phase=0.5, method="mean",
+                   **kwargs):
+        """Phase × cycle river diagram (reference ``:2769-2965``)."""
+        import matplotlib.pyplot as plt
+        method = validate_method(method, ["mean", "median", "sigma"])
+        period = _as_days(period)
+        t = _strip_quantity(self.time.value).astype(np.float64)
+        if epoch_time is None:
+            t0 = t[0]
+        elif isinstance(epoch_time, Time):
+            t0 = epoch_time.to_value(self.time.format)
+        else:
+            t0 = float(epoch_time)
+        f = _strip_quantity(self.flux)
+        # cycle index and phase
+        rel = (t - t0) / period + 0.5
+        cycle = np.floor(rel).astype(int)
+        phase = rel - np.floor(rel) - 0.5
+        cycle -= cycle.min()
+        n_cycles = cycle.max() + 1
+        dt_med = np.median(np.diff(t))
+        if not np.isfinite(dt_med) or dt_med <= 0:
+            nb = 100
+        else:
+            nb = int((maximum_phase - minimum_phase)
+                     / (bin_points * dt_med / period))
+            if nb <= 1:
+                # bin_points exceeds the points available per phase bin
+                # (reference lightcurve.py:2867-2877)
+                pts_per_period = max(int(period / dt_med), 1)
+                bin_points = int(maximum_phase - minimum_phase) / (
+                    2 / pts_per_period)
+                warnings.warn(
+                    "`bin_points` is too high to plot a phase curve, "
+                    f"resetting to {bin_points}", LightkurveWarning)
+                nb = 2
+            nb = max(nb, 2)
+        pb = np.floor((phase - minimum_phase) /
+                      (maximum_phase - minimum_phase) * nb).astype(int)
+        ok = (pb >= 0) & (pb < nb) & np.isfinite(f)
+        img = np.full((n_cycles, nb), np.nan)
+        cnt = np.zeros((n_cycles, nb))
+        np.add.at(cnt, (cycle[ok], pb[ok]), 1)
+        nz = cnt > 0
+        if method == "mean":
+            tot = np.zeros((n_cycles, nb))
+            np.add.at(tot, (cycle[ok], pb[ok]), f[ok])
+            img[nz] = tot[nz] / cnt[nz]
+        else:
+            # 'median' and 'sigma' need per-cell collections
+            from collections import defaultdict
+            cells = defaultdict(list)
+            for cy, pbin, val in zip(cycle[ok], pb[ok], f[ok]):
+                cells[(cy, pbin)].append(val)
+            med_all = np.nanmedian(f[ok]) if ok.any() else np.nan
+            std_all = np.nanstd(f[ok]) if ok.any() else np.nan
+            for (cy, pbin), vals in cells.items():
+                med = np.median(vals)
+                if method == "median":
+                    img[cy, pbin] = med
+                else:  # 'sigma': deviation from the global median in σ
+                    img[cy, pbin] = ((med - med_all)
+                                     / (std_all / np.sqrt(len(vals))))
+        if ax is None:
+            _, ax = plt.subplots(1)
+        pc = ax.pcolormesh(
+            np.linspace(minimum_phase, maximum_phase, nb) * period,
+            np.arange(n_cycles), img, **kwargs)
+        plt.colorbar(pc, ax=ax, label="Flux")
+        ax.set_xlabel("Phase [days]")
+        ax.set_ylabel("Cycle")
+        return ax
+
+    def query_solar_system_objects(self, cadence_mask="outliers",
+                                   radius=None, sigma=3, location=None,
+                                   cache=True, return_mask=False,
+                                   show_progress=True, fetch=None):
+        """Query SkyBot for solar-system objects crossing the aperture
+        (reference ``lightcurve.py:1860-1976``).
+
+        Argument validation (RA/Dec presence, the ``cadence_mask``
+        forms, location resolution from the mission, per-mission default
+        cone radii) follows the reference; the HTTP call is a pluggable
+        ``fetch(url) -> text`` hook (see
+        :func:`lightkurve_tpu_torch.utils._query_solar_system_objects`).
+        ``cadence_mask="outliers"`` runs :meth:`remove_outliers` on the
+        configured device."""
+        import collections.abc
+        from .utils import _query_solar_system_objects
+        for attr in ("ra", "dec"):
+            if getattr(self, attr, None) is None:
+                raise ValueError(
+                    f"Input does not have a `{attr}` attribute.")
+        if isinstance(cadence_mask, str):
+            if cadence_mask == "outliers":
+                cadence_mask = self.remove_outliers(
+                    sigma=sigma, return_mask=True)[1]
+            elif cadence_mask == "all":
+                cadence_mask = np.ones(len(self.time), dtype=bool)
+            else:
+                raise ValueError("invalid `cadence_mask` string argument")
+        elif isinstance(cadence_mask, collections.abc.Sequence):
+            cadence_mask = np.array(cadence_mask)
+        elif isinstance(cadence_mask, (bool, np.bool_)):
+            cadence_mask = np.array([cadence_mask])
+        elif not isinstance(cadence_mask, np.ndarray):
+            raise ValueError(
+                "the `cadence_mask` argument is missing or invalid")
+        # avoid searching times with NaN flux (remove_outliers includes
+        # NaNs in its mask — reference lightcurve.py:1936-1943)
+        cadence_mask = cadence_mask & ~np.isnan(
+            _strip_quantity(self.flux).astype(float))
+        if location is None:
+            mission = self.meta.get("MISSION")
+            if not mission:
+                raise ValueError("you must pass a value for `location`.")
+            location = str(mission).lower()
+        location = str(location).lower()
+        if radius is None:
+            # 15-pixel default cone (comet tails trip up narrower ones,
+            # reference lightcurve.py:1952-1960)
+            if location in ("kepler", "k2"):
+                radius = 4 * 15 / 3600.0
+            elif location == "tess":
+                radius = 21 * 15 / 3600.0
+            else:
+                radius = 15 / 3600.0
+        times_jd = _strip_quantity(self.time.jd)
+        res = _query_solar_system_objects(
+            ra=self.ra, dec=self.dec, times=times_jd[cadence_mask],
+            location=location, radius=radius, cache=cache,
+            show_progress=show_progress, fetch=fetch)
+        if return_mask:
+            epochs = [] if res is None else np.asarray(res.epoch)
+            return res, np.isin(times_jd, epochs)
+        return res
+
 
 def _copy_col(v):
     if isinstance(v, (Time, TimeDelta)):
@@ -1468,6 +1769,32 @@ class FoldedLightCurve(LightCurve):
         from .io.writers import lightcurve_to_fits
         return lightcurve_to_fits(lc, path=path, overwrite=overwrite,
                                   **extra_data)
+
+    def plot_river(self, period=None, epoch_time=None, **kwargs):
+        """River diagram defaulting to the fold ephemeris
+        (reference ``lightcurve.py:3404-3457``)."""
+        lc = LightCurve(time=self._cols["time_original"].copy(),
+                        flux=self.flux, flux_err=self.flux_err,
+                        meta=deepcopy(self.meta)) \
+            if "time_original" in self._cols else self
+        if period is None:
+            period = self.meta.get("PERIOD")
+        if epoch_time is None:
+            epoch_time = self.meta.get("EPOCH_TIME")
+        if period is None:
+            raise ValueError("`period` must be provided")
+        return LightCurve.plot_river(lc, period=period,
+                                     epoch_time=epoch_time, **kwargs)
+
+    def plot(self, **kwargs):
+        return super().plot(**kwargs)
+
+    def scatter(self, **kwargs):
+        return super().scatter(**kwargs)
+
+    def errorbar(self, **kwargs):
+        return super().errorbar(**kwargs)
+
 
 class KeplerLightCurve(LightCurve):
     """LightCurve with Kepler defaults: BKJD times

@@ -10,8 +10,9 @@ pluggable :class:`MASTTransport`:
 - :class:`RecordedMASTTransport` replays canned JSON responses (the same
   tables astroquery would return), so the full query→join→filter chain
   runs offline.
-- A live transport can be slotted in on a networked deployment (the
-  criteria dict uses astroquery's field names); the port ships none.
+- :class:`~lightkurve_tpu_torch.mast_http.HTTPMASTTransport` queries the
+  live archive over MAST's Mashup API (the criteria dict uses
+  astroquery's field names).
 
 The query semantics are Lightkurve's: exact-target-name resolution for
 KIC/EPIC/TIC ids (reference ``search.py:1177-1193``), cone-search fallback
@@ -257,19 +258,16 @@ class RecordedMASTTransport(MASTTransport):
 def default_transport():
     """Resolve the ambient transport: ``$LIGHTKURVE_TPU_MAST_FIXTURES``
     (a fixture JSON path) gives the recorded transport;
-    ``$LIGHTKURVE_TPU_MAST_HTTP=1`` asks for the live HTTP client, which
-    the port does not have (it raises); otherwise ``None`` (callers scan
-    the local archive)."""
+    ``$LIGHTKURVE_TPU_MAST_HTTP=1`` gives the live HTTP client
+    (:class:`~lightkurve_tpu_torch.mast_http.HTTPMASTTransport`);
+    otherwise ``None`` (callers scan the local archive)."""
     env = os.environ.get("LIGHTKURVE_TPU_MAST_FIXTURES")
     if env:
         return RecordedMASTTransport(env)
     if os.environ.get("LIGHTKURVE_TPU_MAST_HTTP", "").strip() in (
             "1", "true", "yes"):
-        raise LightkurveError(
-            "LIGHTKURVE_TPU_MAST_HTTP asks for the live MAST client, which "
-            "lightkurve_tpu_torch does not port (ROADMAP A, left out on "
-            "purpose: network clients). Unset it to scan the local archive, "
-            "or set LIGHTKURVE_TPU_MAST_FIXTURES to a recorded fixture.")
+        from .mast_http import HTTPMASTTransport
+        return HTTPMASTTransport()
     return None
 
 

@@ -10,8 +10,8 @@ or :func:`~lightkurve_tpu_torch.ops.bls.bls_power`, and the transit model
 from :func:`~lightkurve_tpu_torch.ops.bls.bls_objective_single` -- in
 :data:`config.default_dtype` on :func:`config.resolve_device` (the card
 unless the configuration says ``"cpu"``).  ``to_seismology`` gives the
-asteroseismology dispatcher (:mod:`.seismology`); ``plot`` is not ported
-yet (ROADMAP A).
+asteroseismology dispatcher (:mod:`.seismology`); ``plot`` draws with
+matplotlib, imported inside the call.
 """
 from __future__ import annotations
 
@@ -27,7 +27,7 @@ from . import config
 from .lightcurve import LightCurve
 from .time import Time
 from .units import Quantity, Unit, day, dimensionless, one_per_day, uHz
-from .utils import LightkurveWarning, validate_method
+from .utils import LightkurveWarning, _strip_quantity, validate_method
 
 log = logging.getLogger(__name__)
 
@@ -262,6 +262,38 @@ class Periodogram:
             if callable(res):
                 continue
             print(f"{attr:>25}: {res}")
+
+
+    def plot(self, scale="linear", ax=None, xlabel=None, ylabel=None,
+             title="", style=None, view=None, unit=None, **kwargs):
+        """Power against frequency or period (reference
+        ``periodogram.py:484-583``)."""
+        import matplotlib.pyplot as plt
+        view = self._validate_view(view)
+        if ax is None:
+            _, ax = plt.subplots()
+        if ylabel is None:
+            ylabel = "Power"
+            if str(self.power.unit):
+                ylabel += f" [{self.power.unit}]"
+        kwargs.setdefault("label", self.label)
+        if view == "frequency":
+            x = _strip_quantity(self.frequency)
+            if xlabel is None:
+                xlabel = f"Frequency [{self.frequency.unit}]"
+        else:
+            x = _strip_quantity(self.period)
+            if xlabel is None:
+                xlabel = f"Period [{self.period.unit}]"
+        ax.plot(x, _strip_quantity(self.power), **kwargs)
+        ax.set_xlabel(xlabel)
+        ax.set_ylabel(ylabel)
+        ax.set_yscale(scale)
+        ax.set_xscale(scale)
+        ax.set_title(title)
+        if kwargs.get("label"):  # empty labels draw no legend entry
+            ax.legend(loc="best")
+        return ax
 
 
 class SNRPeriodogram(Periodogram):
@@ -788,6 +820,12 @@ class BoxLeastSquaresPeriodogram(Periodogram):
     @property
     def depth_at_max_power(self):
         return self.depth[np.nanargmax(self.power.value)]
+
+    def plot(self, **kwargs):
+        ax = super().plot(**kwargs)
+        if "ylabel" not in kwargs:
+            ax.set_ylabel("BLS Power")
+        return ax
 
     def flatten(self, **kwargs):
         raise NotImplementedError(

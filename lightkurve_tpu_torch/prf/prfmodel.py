@@ -12,6 +12,8 @@ Levenberg-Marquardt fits of :mod:`.tpfmodel`.
 
 ``KeplerPRF`` reads the per-channel calibration files (Bryson 2010) from a
 local directory only; ``SimpleKeplerPRF`` and ``GaussianPRF`` are analytic.
+``plot`` draws the model's image with matplotlib, imported inside the
+call, after one explicit copy of the image to the host.
 """
 from __future__ import annotations
 
@@ -28,13 +30,6 @@ from ..utils import LightkurveError
 log = logging.getLogger(__name__)
 
 __all__ = ["KeplerPRF", "SimpleKeplerPRF", "GaussianPRF"]
-
-
-def _not_ported(what):
-    from ..targetpixelfile import NOT_PORTED
-    raise NotImplementedError(
-        f"{what} is not ported to lightkurve_tpu_torch (ROADMAP "
-        f"{NOT_PORTED['plotting']}).")
 
 
 def _placement(*values):
@@ -181,8 +176,18 @@ class _InterpolatedPRF:
                                 separable=False)
         return [d.cpu().numpy() for d in jac]
 
-    def plot(self, *args, **kwargs):
-        _not_ported(f"{type(self).__name__}.plot")
+    def plot(self, ax=None, **kwargs):
+        """The PRF centred on the grid (reference ``prfmodel.py:215-240``)."""
+        import matplotlib.pyplot as plt
+        from ..utils import _strip_quantity
+        if ax is None:
+            _, ax = plt.subplots()
+        img = _strip_quantity(self.evaluate(
+            self.column + self.shape[1] / 2,
+            self.row + self.shape[0] / 2))
+        im = ax.imshow(img, origin="lower", **kwargs)
+        plt.colorbar(im, ax=ax)
+        return ax
 
 
 class GaussianPRF(_InterpolatedPRF):

@@ -19,7 +19,9 @@ Priors follow the reference's vocabulary and calling convention
 penalty that is 0 at a Gaussian prior's mean; results come back in the
 reference's containers, whose ``to_array``/``from_array`` use its
 free-parameter order: [col, row, flux] per star, then background, focus,
-motion.
+motion.  The plots (``TPFModel.plot``, ``plot_diagnostics``,
+``PRFPhotometry.plot_results``) draw with matplotlib, imported inside the
+call, from host copies of the images and fits.
 """
 from __future__ import annotations
 
@@ -33,7 +35,7 @@ import torch
 from .. import config
 from ..lightcurve import LightCurve
 from ..units import Quantity, electron_per_second
-from .prfmodel import _not_ported
+from ..utils import _strip_quantity
 
 log = logging.getLogger(__name__)
 
@@ -556,11 +558,41 @@ class TPFModel:
         jac = jac.cpu().numpy()
         return [jac[..., i] for i in range(jac.shape[-1])]
 
-    def plot(self, *params, **kwargs):
-        _not_ported("TPFModel.plot")
+    def _extent(self):
+        return (self.prfmodel.column,
+                self.prfmodel.column + self.prfmodel.shape[1],
+                self.prfmodel.row,
+                self.prfmodel.row + self.prfmodel.shape[0])
 
-    def plot_diagnostics(self, *args, **kwargs):
-        _not_ported("TPFModel.plot_diagnostics")
+    def plot(self, *params, **kwargs):
+        """Image of the model at a point in parameter space (reference
+        ``tpfmodel.py:672-686``)."""
+        from ..utils import plot_image
+        img = self.predict(*params) if params else self.predict()
+        return plot_image(img, title="TPF Model", extent=self._extent(),
+                          **kwargs)
+
+    def plot_diagnostics(self, data, figsize=(12, 4), *params, **kwargs):
+        """Observed / fitted / residual image triptych (reference
+        ``tpfmodel.py:687-718``).  Returns the fitted parameters."""
+        import matplotlib.pyplot as plt
+        from ..utils import plot_image
+        fig, ax = plt.subplots(nrows=1, ncols=3, figsize=figsize)
+        data = _strip_quantity(data)
+        fit = self.fit(data)
+        predicted = self.predict(fit)
+        chan = getattr(self.prfmodel, "channel", None)
+        extent = self._extent()
+        plot_image(data, ax=ax[0],
+                   title=f"Observed Data, Channel: {chan}", extent=extent,
+                   **kwargs)
+        plot_image(predicted, ax=ax[1],
+                   title=f"Predicted Image, Channel: {chan}",
+                   extent=extent, **kwargs)
+        plot_image(data - predicted, ax=ax[2],
+                   title=f"Residual Image, Channel: {chan}", extent=extent,
+                   **kwargs)
+        return fit
 
     def __repr__(self):
         out = [f"<TPFModel: {self.n_stars} star(s), "
@@ -670,7 +702,30 @@ class PRFPhotometry:
 
     def get_residual_image(self, flux_cube, cadence=0):
         model = self.model.predict(self.opt_params[cadence])
-        return np.asarray(flux_cube)[cadence] - model
+        return _strip_quantity(flux_cube)[cadence] - model
 
-    def plot_results(self, *args, **kwargs):
-        _not_ported("PRFPhotometry.plot_results")
+    def plot_results(self, star_idx=0):
+        """Plot every fitted model parameter over time (reference
+        ``tpfmodel.py:814-840``): per-cadence star flux/col/row, motion,
+        background, focus, and the final loss."""
+        import matplotlib.pyplot as plt
+        if self.results is None:
+            raise ValueError("call run() first")
+        fig, ax = plt.subplots(10, sharex=True, figsize=(6, 12))
+        x = range(len(self.results))
+        rows = [
+            ("Flux", [r.stars[star_idx].flux for r in self.results]),
+            ("Col", [r.stars[star_idx].col for r in self.results]),
+            ("Row", [r.stars[star_idx].row for r in self.results]),
+            ("Shift col", [r.motion.shift_col for r in self.results]),
+            ("Shift row", [r.motion.shift_row for r in self.results]),
+            ("Background", [r.background.flux for r in self.results]),
+            ("Focus col", [r.focus.scale_col for r in self.results]),
+            ("Focus row", [r.focus.scale_row for r in self.results]),
+            ("Focus angle", [r.focus.rotation_angle for r in self.results]),
+            ("Loss", list(self.losses)),
+        ]
+        for a, (label, series) in zip(ax, rows):
+            a.plot(x, series)
+            a.set_ylabel(label)
+        return ax

@@ -8,10 +8,11 @@ The search is offline-first:
   column accessors, ``download``/``download_all``).
 - :func:`search_lightcurve` / :func:`search_targetpixelfile`: the MAST
   query → join → filter chain of :mod:`.mast` when a transport is given
-  or configured (``$LIGHTKURVE_TPU_MAST_FIXTURES``), else a scan of local
-  archive directories (``archive_dir=``, ``$LIGHTKURVE_TPU_ARCHIVE``, the
-  cache directory) by file name.  Without either, a search that finds
-  nothing raises :class:`SearchError` saying MAST needs the network.
+  or configured (``$LIGHTKURVE_TPU_MAST_FIXTURES`` for a recorded one,
+  ``$LIGHTKURVE_TPU_MAST_HTTP=1`` for the live archive over HTTP,
+  :mod:`.mast_http`), else a scan of local archive directories
+  (``archive_dir=``, ``$LIGHTKURVE_TPU_ARCHIVE``, the cache directory) by
+  file name.  A scan that finds nothing raises :class:`SearchError`.
 - :func:`search_tesscut`: cutouts of FFI stacks a transport registers,
   cut on the host by ``TargetPixelFileFactory.from_fits_images``.
 
@@ -465,8 +466,9 @@ def _search_products(target, filetype="Lightcurve", radius=None,
     if not rows:
         raise SearchError(
             f"No local data products found for target {target!r}. "
-            "MAST queries require network access, which this package does "
-            "not use; place mission FITS files in "
+            "Querying MAST needs network access: pass "
+            "`transport=HTTPMASTTransport()` or set "
+            "LIGHTKURVE_TPU_MAST_HTTP=1; or place mission FITS files in "
             "$LIGHTKURVE_TPU_ARCHIVE or pass `archive_dir=`. "
             f"(searched: {_archive_dirs(archive_dir)})")
     return SearchResult(rows)
@@ -513,7 +515,7 @@ def search_tesscut(target, sector=None, transport=None):
     if transport is None:
         raise SearchError(
             "search_tesscut requires the MAST TESScut web service, which "
-            "needs network access this package does not use. "
+            "needs network access and no transport of this package serves. "
             "Register local FFI stacks with a RecordedMASTTransport "
             "(ffi_sectors) or use "
             "`TargetPixelFileFactory.from_fits_images` directly.")

@@ -2,9 +2,10 @@
 
 Counterpart of ``lightkurve_tpu/seismology/core.py`` (reference
 ``seismology/core.py``): the method dispatch, the result tray and the
-echelle diagram's data (the spectrum folded at Δν, host numpy) and
-``interact_echelle(html=…)``'s standalone page.  The plots
-(``plot_echelle``, ``diagnose_*``) are not ported.
+echelle diagram's data (the spectrum folded at Δν, host numpy), its
+plots (``plot_echelle``, ``diagnose_*``, ``interact_echelle``'s static
+panels; matplotlib imported inside the call) and
+``interact_echelle(html=…)``'s standalone page.
 """
 from __future__ import annotations
 
@@ -16,18 +17,12 @@ import numpy as np
 from ..periodogram import SNRPeriodogram
 from ..units import Quantity
 from ..utils import LightkurveWarning, validate_method
-from .utils import get_fwhm
+from .utils import SeismologyQuantity, get_fwhm
 from .numax_estimators import estimate_numax_acf2d
 from .deltanu_estimators import estimate_deltanu_acf2d
 from .stellar_estimators import estimate_radius, estimate_mass, estimate_logg
 
 log = logging.getLogger(__name__)
-
-
-def _not_ported(what):
-    raise NotImplementedError(
-        f"{what} is not ported to lightkurve_tpu_torch (ROADMAP A5: "
-        "plotting, no matplotlib on the card's machine).")
 
 __all__ = ["Seismology"]
 
@@ -97,14 +92,18 @@ class Seismology:
         return self.deltanu
 
     def diagnose_numax(self, numax=None):
-        """Diagnostic plot of the numax estimate (reference ``:652-674``):
-        not ported."""
-        _not_ported("Seismology.diagnose_numax")
+        """Diagnostic plot of the numax estimate (reference ``:652-674``).
+        Requires ``estimate_numax()`` to have been called first (or an
+        explicit ``numax`` estimate to be passed in)."""
+        numax = self._validate_numax(numax)
+        return numax.diagnostics_plot_method(numax, self.periodogram)
 
     def diagnose_deltanu(self, deltanu=None):
-        """Diagnostic plot of the deltanu estimate (reference
-        ``:738-758``): not ported."""
-        _not_ported("Seismology.diagnose_deltanu")
+        """Diagnostic plot of the deltanu estimate (reference ``:738-758``).
+        Requires ``estimate_deltanu()`` to have been called first (or an
+        explicit ``deltanu`` estimate to be passed in)."""
+        deltanu = self._validate_deltanu(deltanu)
+        return deltanu.diagnostics_plot_method(deltanu, self.periodogram)
 
     def estimate_radius(self, teff=None, numax=None, deltanu=None,
                         teff_err=None, numax_err=None, deltanu_err=None):
@@ -217,30 +216,93 @@ class Seismology:
     def plot_echelle(self, deltanu=None, numax=None, minimum_frequency=None,
                      maximum_frequency=None, smooth_filter_width=0.1,
                      scale="linear", ax=None, cmap="Blues", **kwargs):
-        """Plot the echelle diagram (reference ``core.py:322-501``): not
-        ported."""
-        _not_ported("Seismology.plot_echelle")
+        """Plot the echelle diagram (reference ``core.py:322-501``)."""
+        import matplotlib.pyplot as plt
+        ep, x_f, y_f = self._clean_echelle(
+            deltanu=deltanu, numax=numax,
+            minimum_frequency=minimum_frequency,
+            maximum_frequency=maximum_frequency,
+            smooth_filter_width=smooth_filter_width, scale=scale)
+        if ax is None:
+            _, ax = plt.subplots()
+        deltanu_v = float(Quantity(self._validate_deltanu(deltanu),
+                                   self.periodogram.frequency.unit).value)
+        im = ax.imshow(ep, aspect="auto", origin="lower", cmap=cmap,
+                       extent=[0, deltanu_v, y_f[0], y_f[-1] + deltanu_v],
+                       **kwargs)
+        plt.colorbar(im, ax=ax, label="Power")
+        ax.set_xlabel(f"Frequency mod. {deltanu_v:.2f} "
+                      f"[{self.periodogram.frequency.unit}]")
+        ax.set_ylabel(f"Frequency [{self.periodogram.frequency.unit}]")
+        return ax
 
     def interact_echelle(self, notebook_url=None, n_panels=5, **kwargs):
-        """The echelle explorer (reference ``core.py:502-640``): with
-        ``html="path.html"`` a standalone page with a live Δν slider
-        (:func:`..interact_html.export_interact_echelle_html`), defaulting
-        to the estimated Δν, else ``max_frequency/30``, as the reference
-        widget does; without it, not ported."""
-        if kwargs.get("html") is None:
-            raise NotImplementedError(
-                "Seismology.interact_echelle without html= is not ported to "
-                "lightkurve_tpu_torch (ROADMAP A, left out on purpose: "
-                "plotting, no matplotlib or bokeh on the card's machine); "
-                "pass html='page.html' to write the standalone page.")
-        from ..interact_html import export_interact_echelle_html
-        html = kwargs.pop("html")
-        dnu_default = getattr(self, "deltanu",
-                              self.periodogram.frequency.max() / 30)
-        return export_interact_echelle_html(
-            self, html,
-            deltanu=kwargs.pop("deltanu", dnu_default),
-            numax=kwargs.pop("numax", None),
-            minimum_frequency=kwargs.pop("minimum_frequency", None),
-            maximum_frequency=kwargs.pop("maximum_frequency", None),
-            smooth_filter_width=kwargs.pop("smooth_filter_width", 0.1))
+        """The echelle explorer (reference ``core.py:502-640``).
+
+        With ``html="path.html"``, a standalone page with a live Δν
+        slider (:func:`..interact_html.export_interact_echelle_html`),
+        defaulting to the estimated Δν, else ``max_frequency/30``, as the
+        reference widget does.  Without it, the slider's state space as a
+        static figure: the echelle at the default Δν over the whole
+        frequency range, and ``n_panels`` small echelles across ±25% of
+        that Δν (clipped to the reference's slider range, 0.01 to
+        ``max_frequency/5``).  Returns the figure.
+        """
+        if kwargs.get("html") is not None:
+            from ..interact_html import export_interact_echelle_html
+            html = kwargs.pop("html")
+            dnu_default = getattr(self, "deltanu",
+                                  self.periodogram.frequency.max() / 30)
+            return export_interact_echelle_html(
+                self, html,
+                deltanu=kwargs.pop("deltanu", dnu_default),
+                numax=kwargs.pop("numax", None),
+                minimum_frequency=kwargs.pop("minimum_frequency", None),
+                maximum_frequency=kwargs.pop("maximum_frequency", None),
+                smooth_filter_width=kwargs.pop("smooth_filter_width", 0.1))
+        kwargs.pop("html", None)
+        import matplotlib.pyplot as plt
+        max_f = float(self.periodogram.frequency.max().value)
+        min_f_kw = kwargs.pop("minimum_frequency",
+                              float(self.periodogram.frequency.min().value))
+        max_f_kw = kwargs.pop("maximum_frequency", max_f)
+        if hasattr(self, "deltanu"):
+            dnu = self.deltanu
+        else:
+            dnu = SeismologyQuantity(
+                quantity=self.periodogram.frequency.max() / 30,
+                name="deltanu", method="echelle")
+        dnu_v = float(Quantity(dnu,
+                               self.periodogram.frequency.unit).value)
+        maxdnu = max_f / 5
+        fig = plt.figure(figsize=(8, 7))
+        gs = fig.add_gridspec(2, max(n_panels, 1), height_ratios=[3, 1])
+        ax_main = fig.add_subplot(gs[0, :])
+        self.plot_echelle(deltanu=dnu, ax=ax_main,
+                          minimum_frequency=min_f_kw,
+                          maximum_frequency=max_f_kw, **kwargs)
+        ax_main.set_title(
+            f"Echelle at Δν = {dnu_v:.3f} "
+            f"{self.periodogram.frequency.unit} "
+            f"(slider range 0.01–{maxdnu:.2f})")
+        span = np.clip(np.linspace(0.75, 1.25, max(n_panels, 1)) * dnu_v,
+                       0.01, maxdnu)
+        # only the data preparation's keywords go to _clean_echelle (style
+        # keywords such as cmap belong to imshow)
+        clean_kwargs = {k: v for k, v in kwargs.items()
+                        if k in ("smooth_filter_width", "scale")}
+        for i, d in enumerate(span):
+            ax = fig.add_subplot(gs[1, i])
+            try:
+                ep, _, _ = self._clean_echelle(
+                    deltanu=d, minimum_frequency=min_f_kw,
+                    maximum_frequency=max_f_kw, **clean_kwargs)
+                ax.imshow(ep, aspect="auto", origin="lower",
+                          cmap=kwargs.get("cmap", "Blues"))
+            except ValueError:
+                pass
+            ax.set_xticks([])
+            ax.set_yticks([])
+            ax.set_xlabel(f"{d:.3f}", fontsize=8)
+        fig.tight_layout()
+        return fig

@@ -7,7 +7,7 @@ is rescaled on the host, and of its peaks
 (:func:`~lightkurve_tpu_torch.ops.peaks.find_peaks_mask` on
 :func:`config.resolve_device`) the one nearest the empirical Stello et
 al. (2009) relation Δν = 0.294·numax^0.772 is selected.  The diagnostic
-plot is not ported.
+plot draws with matplotlib, imported inside the call.
 """
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ import torch
 from .. import config
 from ..ops.peaks import find_peaks_mask
 from ..units import Quantity, uHz
+from ..utils import _strip_quantity
 from .utils import SeismologyQuantity, autocorrelate, get_fwhm
 
 __all__ = ["estimate_deltanu_acf2d", "diagnose_deltanu_acf2d"]
@@ -73,8 +74,16 @@ def estimate_deltanu_acf2d(periodogram, numax):
 
 
 def diagnose_deltanu_acf2d(deltanu, periodogram=None, ax=None):
-    """Diagnostic plot (reference ``deltanu_estimators.py:147-312``): not
-    ported."""
-    raise NotImplementedError(
-        "diagnose_deltanu_acf2d is not ported to lightkurve_tpu_torch "
-        "(ROADMAP A5: plotting, no matplotlib on the card's machine).")
+    """Diagnostic plot (reference ``deltanu_estimators.py:147-312``)."""
+    import matplotlib.pyplot as plt
+    d = deltanu.diagnostics
+    if ax is None:
+        _, ax = plt.subplots()
+    ax.plot(_strip_quantity(d["lags"]), _strip_quantity(d["acf"]))
+    ax.axvline(d["deltanu_emp"], c="grey", ls=":", label="empirical")
+    ax.axvline(float(deltanu.value), c="r", ls="--",
+               label=f"deltanu={float(deltanu.value):.2f}")
+    ax.set_xlabel("Frequency lag")
+    ax.set_ylabel("Scaled ACF")
+    ax.legend()
+    return ax

@@ -8,13 +8,15 @@ window's zero-mean ACF is collapsed into the Mean Collapsed Correlation
 metric (Σ|ACF|−1)/nlags, smoothed with a Gaussian kernel of σ=√N, and the
 argmax gives numax.  The windows' ACFs are one batched FFT on the device
 (:func:`.utils.autocorrelate_all`); the metric, its smoothing and the
-argmax are host numpy.  The diagnostic plot is not ported.
+argmax are host numpy.  The diagnostic plot draws with matplotlib,
+imported inside the call.
 """
 from __future__ import annotations
 
 import numpy as np
 
 from ..units import Quantity, uHz
+from ..utils import _strip_quantity
 from .utils import SeismologyQuantity, autocorrelate_all
 
 __all__ = ["estimate_numax_acf2d", "diagnose_numax_acf2d"]
@@ -98,8 +100,21 @@ def estimate_numax_acf2d(periodogram, numaxs=None, window_width=None,
 
 
 def diagnose_numax_acf2d(numax, periodogram=None, ax=None):
-    """Diagnostic plot of the numax estimate (reference ``:216-324``): not
-    ported."""
-    raise NotImplementedError(
-        "diagnose_numax_acf2d is not ported to lightkurve_tpu_torch "
-        "(ROADMAP A5: plotting, no matplotlib on the card's machine).")
+    """Diagnostic plot of the numax estimate (reference ``:216-324``)."""
+    import matplotlib.pyplot as plt
+    d = numax.diagnostics
+    fig, axs = plt.subplots(3, sharex=True, figsize=(8.485, 10))
+    if periodogram is not None:
+        periodogram.plot(ax=axs[0], label="")
+    numaxs = _strip_quantity(d["numaxs"])
+    axs[1].imshow(_strip_quantity(d["acf2d"]), aspect="auto", origin="lower",
+                  extent=[numaxs[0], numaxs[-1], 0, d["window_width"]])
+    axs[1].set_ylabel("Frequency lag")
+    axs[2].plot(numaxs, _strip_quantity(d["metric"]), label="MCC metric")
+    axs[2].plot(numaxs, _strip_quantity(d["metric_smooth"]),
+                label="smoothed")
+    axs[2].axvline(float(numax.value), c="r", ls="--",
+                   label=f"numax={float(numax.value):.1f}")
+    axs[2].set_xlabel("Frequency")
+    axs[2].legend()
+    return axs

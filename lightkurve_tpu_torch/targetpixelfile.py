@@ -11,9 +11,11 @@ centroids, the background estimate) run as torch functions
 A stack of targets is :class:`lightkurve_tpu_torch.batch.TPFStack`.
 
 PRF photometry runs through :mod:`.prf` (one batched fit of every
-cadence on the device).  Plotting and the interactive widgets (no
-matplotlib or bokeh on the card's machine) and the solar-system query
-(network) are not ported: they raise and name their ROADMAP item.
+cadence on the device).  ``plot``, ``plot_pixels`` and ``animate`` draw
+with matplotlib, imported inside the call; ``interact`` and
+``interact_sky`` write standalone pages with ``html=``, and ``interact``
+without it draws its static matplotlib panel.  The solar-system query of
+a TPF raises, as ``lightkurve_tpu``'s does (a light curve's runs).
 """
 from __future__ import annotations
 
@@ -27,10 +29,10 @@ import torch
 
 from .lightcurve import KeplerLightCurve, LightCurve, TessLightCurve, _tensor
 from .time import Time
-from .units import Quantity, dimensionless, electron_per_second, pixel
+from .units import Quantity, electron_per_second, pixel
 from .utils import (KeplerQualityFlags, LightkurveDeprecationWarning,
                     LightkurveError, LightkurveWarning, TessQualityFlags,
-                    centroid_quadratic, validate_method)
+                    _strip_quantity, centroid_quadratic, validate_method)
 from .wcs import TanWCS
 
 log = logging.getLogger(__name__)
@@ -38,23 +40,10 @@ log = logging.getLogger(__name__)
 __all__ = ["TargetPixelFile", "KeplerTargetPixelFile",
            "TessTargetPixelFile", "TargetPixelFileFactory"]
 
-#: the ROADMAP items of the methods not ported yet
-NOT_PORTED = {
-    "plotting": "A6's remainder (plotting and the interactive widgets: "
-                "no matplotlib or bokeh on the card's machine)",
-    "network": "none: it needs the network, which the port does not use",
-}
-
 
 def _host(x):
     """A tensor back as a float64 host array."""
     return x.cpu().numpy().astype(float)
-
-
-def _not_ported(what, item):
-    raise NotImplementedError(
-        f"TargetPixelFile.{what} is not ported to lightkurve_tpu_torch "
-        f"(ROADMAP {NOT_PORTED[item]}).")
 
 
 class TargetPixelFile:
@@ -579,8 +568,11 @@ class TargetPixelFile:
         return ra, dec
 
     def query_solar_system_objects(self, *args, **kwargs):
-        """Needs the SkyBot service over the network: not ported."""
-        _not_ported("query_solar_system_objects", "network")
+        """Not available on a TPF, as in ``lightkurve_tpu``: query its
+        light curve (``to_lightcurve().query_solar_system_objects``)."""
+        raise NotImplementedError(
+            "Solar-system object queries require network access to the "
+            "SkyBot service, which is unavailable in this environment.")
 
     # ------------------------------------------------------------------
     # cutout (reference :1467-1616)
@@ -623,33 +615,129 @@ class TargetPixelFile:
     # ------------------------------------------------------------------
     # plotting (reference :1062-2068)
     # ------------------------------------------------------------------
-    def plot(self, *args, **kwargs):
-        """One cadence's image (reference ``:1062-1259``): not ported."""
-        _not_ported("plot", "plotting")
+    def plot(self, ax=None, frame=0, cadenceno=None, bkg=False, column=None,
+             aperture_mask=None, show_colorbar=True, mask_color="pink",
+             title=None, style=None, **kwargs):
+        """Plot one cadence image with optional aperture overlay
+        (reference ``:1062-1259``)."""
+        import matplotlib.pyplot as plt
+        cadencenos = _strip_quantity(self.cadenceno)
+        if cadenceno is not None:
+            frame = int(np.argwhere(cadencenos == cadenceno)[0, 0])
+        img = _strip_quantity(self.flux)[frame]
+        if bkg and "FLUX_BKG" in self._columns:
+            img = img + np.nan_to_num(_strip_quantity(self.flux_bkg)[frame])
+        if column is not None:
+            img = _strip_quantity(self._columns[column.upper()])[frame]
+        if ax is None:
+            _, ax = plt.subplots()
+        extent = [self.column - 0.5, self.column + img.shape[1] - 0.5,
+                  self.row - 0.5, self.row + img.shape[0] - 0.5]
+        im = ax.imshow(img, origin="lower", extent=extent, **kwargs)
+        if show_colorbar:
+            plt.colorbar(im, ax=ax, label=f"Flux ({electron_per_second})")
+        if aperture_mask is not None:
+            mask = self._parse_aperture_mask(aperture_mask)
+            for r in range(mask.shape[0]):
+                for c in range(mask.shape[1]):
+                    if mask[r, c]:
+                        ax.add_patch(plt.Rectangle(
+                            (self.column + c - 0.5, self.row + r - 0.5),
+                            1, 1, color=mask_color, fill=True, alpha=0.6))
+        if title is None:
+            title = f"Target ID: {self.targetid}, Cadence: " \
+                f"{cadencenos[frame]}"
+        ax.set_title(title)
+        ax.set_xlabel("Pixel Column Number")
+        ax.set_ylabel("Pixel Row Number")
+        return ax
 
-    def plot_pixels(self, *args, **kwargs):
-        """Per-pixel light curves (reference ``:1869-2068``): not ported."""
-        _not_ported("plot_pixels", "plotting")
+    def plot_pixels(self, ax=None, periodogram=False, aperture_mask=None,
+                    show_flux=False, corrector_func=None, style=None,
+                    normalize=False, title=None, markersize=0.5, **kwargs):
+        """Grid of per-pixel light curves (reference ``:1869-2068``).
+        ``normalize=True`` divides each pixel's series by its median
+        before plotting (reference ``:1928-1934``); ``periodogram=True``
+        draws each pixel's Lomb-Scargle periodogram, computed on the
+        configured device."""
+        import matplotlib.pyplot as plt
+        mask = self._parse_aperture_mask(aperture_mask) \
+            if aperture_mask is not None else None
+        n, h, w = self.shape
+        fig, axs = plt.subplots(h, w, figsize=(w * 1.2, h * 1.2),
+                                sharex=True, sharey=False, squeeze=False)
+        tv = _strip_quantity(self.time.value)
+        flux = _strip_quantity(self.flux)
+        for r in range(h):
+            for c in range(w):
+                ax = axs[h - 1 - r][c]
+                y = flux[:, r, c]
+                if normalize:
+                    med = np.nanmedian(y)
+                    if med != 0 and np.isfinite(med):
+                        y = y / med
+                if periodogram:
+                    lc = LightCurve(time=tv, flux=np.nan_to_num(y))
+                    try:
+                        pg = lc.to_periodogram()
+                        ax.plot(_strip_quantity(pg.frequency),
+                                _strip_quantity(pg.power), lw=0.4, **kwargs)
+                    except Exception:
+                        pass
+                else:
+                    ax.plot(tv, y, ".", markersize=markersize, **kwargs)
+                ax.set_xticks([])
+                ax.set_yticks([])
+                if mask is not None and mask[r, c]:
+                    for spine in ax.spines.values():
+                        spine.set_color("red")
+                        spine.set_linewidth(2)
+        if title:
+            fig.suptitle(title)
+        return axs
 
-    def animate(self, *args, **kwargs):
-        """An animation over cadences (reference ``:1261-1330``): not
-        ported."""
-        _not_ported("animate", "plotting")
+    def animate(self, step=None, interval=200, **plot_args):
+        """matplotlib animation over cadences (reference ``:1261-1330``)."""
+        import matplotlib.pyplot as plt
+        from matplotlib import animation
+        if step is None:
+            step = max(len(self) // 50, 1)
+        fig, ax = plt.subplots()
+        frames = list(range(0, len(self), step))
+        img = _strip_quantity(self.flux)
+        cadencenos = _strip_quantity(self.cadenceno)
+        vmin, vmax = np.nanpercentile(img, [1, 99])
+        im = ax.imshow(img[0], origin="lower", vmin=vmin, vmax=vmax,
+                       **plot_args)
+
+        def update(i):
+            im.set_data(img[frames[i]])
+            ax.set_title(f"Cadence {cadencenos[frames[i]]}")
+            return [im]
+
+        return animation.FuncAnimation(fig, update, frames=len(frames),
+                                       interval=interval, blit=True)
 
     def interact(self, *args, **kwargs):
         """The pixel-selector widget (reference ``interact.py:999-1318``):
-        with ``html="path.html"`` a standalone page
-        (:func:`.interact.show_interact_widget`); without it, not
-        ported."""
+        with ``html="path.html"`` a standalone page, without it a static
+        matplotlib panel (:func:`.interact.show_interact_widget`)."""
         from .interact import show_interact_widget
         return show_interact_widget(self, *args, **kwargs)
 
     def interact_sky(self, *args, **kwargs):
         """The sky-view widget (reference ``interact.py:1319``): with
         ``html="path.html"`` and an offline ``catalog`` a standalone page
-        (:func:`.interact.show_skyview_widget`); without it, not ported."""
-        from .interact import show_skyview_widget
-        return show_skyview_widget(self, *args, **kwargs)
+        (:func:`.interact.show_skyview_widget`).  The live bokeh and Gaia
+        widget needs the network: raises."""
+        if kwargs.get("html") is not None:
+            from .interact import show_skyview_widget
+            return show_skyview_widget(self, *args, **kwargs)
+        raise NotImplementedError(
+            "interact_sky() requires `bokeh` and network access to Gaia, "
+            "which are unavailable in this environment. Pass "
+            "html='path.html' and an offline `catalog` to write a "
+            "standalone sky widget instead.")
 
     # ------------------------------------------------------------------
     # PRF photometry (reference :2347-2403)

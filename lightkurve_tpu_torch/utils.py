@@ -11,12 +11,22 @@ citation and notebook helpers (``show_citation_instructions``,
 ``is_notebook``, ``remote_jupyter_proxy_url``, ``finalize_notebook_url``).
 The batched torch variants of the numeric helpers live in
 :mod:`lightkurve_tpu_torch.ops`.
+
+Also here: ``plot_image`` (matplotlib, imported inside the call) and the
+SkyBot solar-system query (``_query_solar_system_objects``: pandas,
+imported inside the call; the HTTP fetch a pluggable ``fetch(url)``).
+Every array a plot or an export hands to matplotlib or pandas passes
+through :func:`_strip_quantity`, which copies a tensor (on any device) to
+the host with ``.cpu()`` explicitly.
 """
 from __future__ import annotations
 
 import logging
+import os
+import re
 
 import numpy as np
+import torch
 
 from .units import Quantity
 
@@ -39,6 +49,7 @@ __all__ = [
     "centroid_quadratic",
     "channel_to_module_output",
     "module_output_to_channel",
+    "plot_image",
     "show_citation_instructions",
     "is_notebook",
     "remote_jupyter_proxy_url",
@@ -59,8 +70,12 @@ class LightkurveDeprecationWarning(LightkurveWarning):
 
 
 def _strip_quantity(x):
+    """``x`` as a host array: a Quantity's value, and a tensor (on any
+    device) through one explicit copy to the host."""
     if isinstance(x, Quantity):
-        return x.value
+        x = x.value
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
     return np.asarray(x)
 
 
@@ -429,6 +444,127 @@ def module_output_to_channel(module, output):
     if output < 1 or output > 4:
         raise ValueError("Output must be in the range 1-4.")
     return _KEPLER_MODULES.index(module) * 4 + output
+
+
+def plot_image(image, ax=None, scale="linear", origin="lower",
+               xlabel="Pixel Column Number", ylabel="Pixel Row Number",
+               clabel="Flux", title=None, show_colorbar=True,
+               vmin=None, vmax=None, **kwargs):
+    """Plot a 2D image with sensible defaults (reference ``utils.py:444``);
+    ``image`` may be a tensor on any device."""
+    import matplotlib.pyplot as plt
+    from matplotlib import colors
+    image = _strip_quantity(image)
+    if ax is None:
+        _, ax = plt.subplots()
+    if vmin is None or vmax is None:
+        finite = image[np.isfinite(image)]
+        if len(finite):
+            lo, hi = np.percentile(finite, [1, 99])
+            vmin = lo if vmin is None else vmin
+            vmax = hi if vmax is None else vmax
+    norm = None
+    if scale == "log":
+        norm = colors.LogNorm(vmin=max(vmin, 1e-12) if vmin else None,
+                              vmax=vmax)
+        vmin = vmax = None
+    elif scale == "sqrt":
+        norm = colors.PowerNorm(gamma=0.5, vmin=vmin, vmax=vmax)
+        vmin = vmax = None
+    elif scale != "linear":
+        raise ValueError("scale must be 'linear', 'sqrt', or 'log'")
+    im = ax.imshow(image, origin=origin, norm=norm, vmin=vmin, vmax=vmax,
+                   **kwargs)
+    if show_colorbar:
+        plt.colorbar(im, ax=ax, label=clabel)
+    ax.set_xlabel(xlabel)
+    ax.set_ylabel(ylabel)
+    if title:
+        ax.set_title(title)
+    return ax
+
+
+def _default_skybot_fetch(url):
+    """Resolve a SkyBot conesearch URL from recorded responses.
+
+    ``$LIGHTKURVE_TPU_SKYBOT_FIXTURES`` may point to a JSON file mapping
+    either full URLs or bare ``EPOCH`` values to recorded SkyBot text
+    responses; absent that, the query raises with the reference's
+    guidance (the live service is
+    ``https://ssp.imcce.fr/webservices/skybot/``; pass ``fetch=`` to query
+    it)."""
+    import json
+    fx = os.environ.get("LIGHTKURVE_TPU_SKYBOT_FIXTURES")
+    if fx:
+        with open(fx) as f:
+            table = json.load(f)
+        if url in table:
+            return table[url]
+        m = re.search(r"EPOCH=([\d.]+)", url)
+        if m and m.group(1) in table:
+            return table[m.group(1)]
+        raise LightkurveError(
+            f"SkyBot fixture file {fx} has no response recorded for "
+            f"{url}")
+    raise NotImplementedError(
+        "Solar-system object queries require network access to the "
+        "SkyBot service (https://ssp.imcce.fr/webservices/skybot/), "
+        "which this package does not open by itself. Record responses in "
+        "$LIGHTKURVE_TPU_SKYBOT_FIXTURES or pass a `fetch=` callable.")
+
+
+def _query_solar_system_objects(ra, dec, times, radius=0.1,
+                                location="kepler", cache=True,
+                                show_progress=True, fetch=None):
+    """List asteroids/comets crossing a cone at the given epochs
+    (reference ``utils.py:705-794``).
+
+    Runs the reference's SkyBot pipeline — observer-location codes
+    (Kepler C55 / TESS C57), per-epoch conesearch URLs, the ``# Flag:
+    -1`` error contract, pipe-delimited response parsing, and the
+    Num/Name/Class/Mv/epoch result schema — against a pluggable
+    ``fetch(url) -> text`` hook.
+
+    Returns a `pandas.DataFrame` (None when no objects were found).
+    """
+    import pandas as pd
+
+    if fetch is None:
+        fetch = _default_skybot_fetch
+    if location.lower() in ("kepler", "k2"):
+        location = "C55"
+    elif location.lower() == "tess":
+        location = "C57"
+
+    url = ("https://ssp.imcce.fr/webservices/skybot/api/conesearch.php?"
+           "-mime=text&"
+           f"-ra={ra}&-dec={dec}&-bd={radius}&-loc={location}&")
+
+    df = None
+    for time in np.atleast_1d(_strip_quantity(times)):
+        text = fetch(url + f"EPOCH={time}")
+        if text[:10] == "# Flag: -1":
+            raise IOError(
+                "SkyBot Solar System query failed.\n"
+                "URL used:\n" + url + f"EPOCH={time}" + "\n"
+                "Response received:\n" + text)
+        import io as _io
+        try:
+            res = pd.read_csv(_io.StringIO(text), delimiter="|",
+                              skiprows=2)
+        except pd.errors.EmptyDataError:
+            res = []
+        if len(res) > 0:
+            res["epoch"] = time
+            res.rename({"# Num ": "Num", " Name ": "Name",
+                        " Class ": "Class", " Mv ": "Mv"},
+                       inplace=True, axis="columns")
+            res = res[["Num", "Name", "Class", "Mv",
+                       "epoch"]].reset_index(drop=True)
+            df = res if df is None else pd.concat([df, res])
+    if df is not None:
+        df.reset_index(drop=True)
+    return df
 
 
 def show_citation_instructions():

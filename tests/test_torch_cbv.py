@@ -20,6 +20,8 @@ Bars:
   over-fitting metric's noise from the same seeded generator (and with
   ``target_over_score=0``, where nothing is drawn).
 """
+import copy
+import json
 import os
 
 import numpy as np
@@ -451,7 +453,36 @@ def test_correct_optimised_alpha_equal(files, seeded_draws, over):
     assert 1e-4 <= tc.alpha <= 1e4
 
 
-def test_underfit_metric_with_neighbours_equal(files):
+def neighbour_archive(directory, n=32, tic0=2000):
+    """``n`` neighbours of ``write_lc``'s target (TIC 1234) as SPOC files,
+    and a recorded MAST fixture listing them and the target, placed
+    around it within 0.5 degrees (the resolver knows the target by its
+    TIC id, as the under-fitting metric searches for it)."""
+    rng = np.random.default_rng(8)
+    ra0, dec0 = 80.0, -70.0
+    obs, prods = [], []
+    for i, tic in enumerate([1234] + [tic0 + k for k in range(n)]):
+        name = f"tess2020-s0010-{tic:016d}-0195-s_lc.fits"
+        path = os.path.join(directory, name)
+        if tic != 1234:
+            write_lc(path, "TESS", tess_vectors(), 100 + i, SECTOR=10,
+                     CAMERA=2, CCD=4, TICID=tic)
+        ra, dec = (ra0, dec0) if tic == 1234 else (
+            ra0 + rng.uniform(-1, 1), dec0 + rng.uniform(-0.5, 0.5))
+        obs.append({"obs_id": f"tess_s0010_{tic}", "target_name": str(tic),
+                    "s_ra": ra, "s_dec": dec, "project": "TESS",
+                    "provenance_name": "SPOC", "t_exptime": 120,
+                    "sequence_number": 10, "dataproduct_type": "timeseries",
+                    "description": "TESS Sector 10"})
+        prods.append({"obs_id": f"tess_s0010_{tic}", "productFilename": name,
+                      "description": "Light curves",
+                      "dataURI": f"mast:TESS/product/{name}",
+                      "local_path": path})
+    return {"resolver": {"1234": [ra0, dec0]}, "observations": obs,
+            "products": prods}
+
+
+def test_underfit_metric_with_neighbours_equal(files, tmp_path, monkeypatch):
     (jc, _), (tc, _) = corrected_pair(files, "tess_lc", "tess",
                                       "correct_gaussian_prior", alpha=1e-3)
     nb = neighbours(tc)
@@ -470,8 +501,43 @@ def test_underfit_metric_with_neighbours_equal(files):
     x = np.random.default_rng(3).standard_normal((50, 6))
     np.testing.assert_allclose(tmetrics._compute_correlation(x),
                                jmetrics._compute_correlation(x), rtol=1e-13)
-    with pytest.raises(NotImplementedError, match="network"):
-        tc.under_fitting_metric()
+    # without neighbor_flux: the neighbours come from the archive, here a
+    # recorded MAST transport (the ambient one, from the environment, as
+    # correct() reaches it; and one passed in), copied into a cache
+    # directory inside tmp_path
+    for var in ("HOME", "XDG_CACHE_HOME", "XDG_CONFIG_HOME",
+                "LIGHTKURVE_CACHE_DIR"):
+        monkeypatch.setenv(var, str(tmp_path / var.lower()))
+    for conf in (jlk.conf, tlk.conf):
+        monkeypatch.setattr(conf, "cache_dir", None)
+    (tmp_path / "archive").mkdir()
+    fixture = neighbour_archive(str(tmp_path / "archive"))
+    (tmp_path / "mast.json").write_text(json.dumps(fixture))
+    monkeypatch.setenv("LIGHTKURVE_TPU_MAST_FIXTURES",
+                       str(tmp_path / "mast.json"))
+    a, b = jc.under_fitting_metric(), tc.under_fitting_metric()
+    np.testing.assert_allclose(b, a, rtol=RTOL)
+    assert 0 <= b <= 1
+    want = jmetrics._download_and_preprocess_neighbors(jc.corrected_lc)
+    got = tmetrics._download_and_preprocess_neighbors(tc.corrected_lc)
+    assert len(got) == len(want) == 32
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    monkeypatch.delenv("LIGHTKURVE_TPU_MAST_FIXTURES")
+    from lightkurve_tpu_torch.mast import RecordedMASTTransport
+    transport = RecordedMASTTransport(copy.deepcopy(fixture))
+    np.testing.assert_allclose(
+        tmetrics.underfit_metric_neighbors(tc.corrected_lc,
+                                           transport=transport,
+                                           radius=5000),
+        jmetrics.underfit_metric_neighbors(
+            jc.corrected_lc, radius=5000,
+            transport=jlk.mast.RecordedMASTTransport(
+                copy.deepcopy(fixture))), rtol=RTOL)
+    for mod, lc in ((jmetrics, jc.corrected_lc), (tmetrics, tc.corrected_lc)):
+        with pytest.raises(mod.MinTargetsError, match="neighbors found"):
+            mod.underfit_metric_neighbors(lc, radius=5000, min_targets=40,
+                                          transport=copy.deepcopy(transport))
     for mod in (jmetrics, tmetrics):
         with pytest.raises(mod.MinTargetsError):
             mod.underfit_metric_neighbors(tc.corrected_lc, neighbor_flux=[])
@@ -550,8 +616,11 @@ def test_error_paths_match(files):
     with pytest.raises(tutils.LightkurveError, match="network"):
         tl.to_corrector("cbv")
     assert jutils.LightkurveError.__name__ == tutils.LightkurveError.__name__
-    tc = tl.to_corrector("cbv", cbv_dir=files["tess"])
-    for call in (tc.diagnose, tc.goodness_metric_scan_plot,
-                 tc.cbvs[0].plot):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    # the plots' refusals, alike (their figures are test_torch_plots')
+    for lc in (jl, tl):
+        c = lc.to_corrector("cbv", cbv_dir=files["tess"])
+        with pytest.raises(ValueError, match="correct"):
+            c.diagnose()
+        for bad in ("some", [0, 2]):
+            with pytest.raises(ValueError, match="cbv_indices|index"):
+                c.cbvs[0].plot(cbv_indices=bad)

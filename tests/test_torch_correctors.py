@@ -26,10 +26,12 @@ import torch
 import lightkurve_tpu as jlk
 import lightkurve_tpu_torch as tlk
 from lightkurve_tpu import correctors as jcor
+from lightkurve_tpu.correctors import metrics as jmetrics
 from lightkurve_tpu.correctors import sffcorrector as jsff
 from lightkurve_tpu_torch import config
 from lightkurve_tpu_torch import correctors as tcor
 from lightkurve_tpu_torch import targetpixelfile as ttpf
+from lightkurve_tpu_torch.correctors import metrics as tmetrics
 from lightkurve_tpu_torch.correctors import sffcorrector as tsff
 from lightkurve_tpu_torch.ops import solve as tsolve
 from synthetic import make_synthetic_tpf, sawtooth_motion
@@ -208,10 +210,18 @@ def test_regression_corrector_matches_jax(propagate_errors):
     for k in jr.diagnostic_lightcurves:
         assert_lc_close(jr.diagnostic_lightcurves[k],
                         tr.diagnostic_lightcurves[k])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tr.compute_underfit_metric()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tr.diagnose()
+    # the under-fitting metric without neighbours searches the archive by
+    # the target's TARGETID, which this curve lacks: refused alike
+    for mod, r in ((jmetrics, jr), (tmetrics, tr)):
+        with pytest.raises(mod.MinTargetsError, match="TARGETID"):
+            r.compute_underfit_metric()
+    # the diagnostic plot of the JAX fit's numbers in both packages
+    # (test_torch_plots holds every corrector plot)
+    from test_torch_plots import assert_same_plot, give_port_the_fit
+    give_port_the_fit(tr, jr)
+    assert_same_plot(tr.diagnose(), jr.diagnose())
+    import matplotlib.pyplot as plt
+    plt.close("all")
 
 
 def pld_tpfs(mission, **kw):

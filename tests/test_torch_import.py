@@ -128,7 +128,8 @@ def test_slice_imports_without_jax_or_builds():
                  "seismology.stellar_estimators", "io.readers", "prf",
                  "prf.prfmodel", "prf.tpfmodel", "models", "diagnostics",
                  "roofline", "config", "convenience", "lightcurvefile",
-                 "mast", "search", "interact", "interact_html"):
+                 "mast", "mast_http", "search", "interact",
+                 "interact_html"):
         assert "lightkurve_tpu_torch." + name in modules
     out = subprocess.run([sys.executable, "-c", PROBE] + modules, cwd=ROOT,
                          env=_env(), capture_output=True, text=True,
@@ -138,12 +139,52 @@ def test_slice_imports_without_jax_or_builds():
 
 
 def test_top_level_names_are_the_references():
-    """Every name of ``lightkurve_tpu.__all__`` but the live MAST client
-    (network) and ``plot_image`` (plotting) is exported by the port."""
+    """Every name of ``lightkurve_tpu.__all__`` is exported by the port,
+    the live MAST client and ``plot_image`` included, each bound."""
     import lightkurve_tpu
     import lightkurve_tpu_torch
     assert set(lightkurve_tpu.__all__) - set(lightkurve_tpu_torch.__all__) \
-        == {"HTTPMASTTransport", "plot_image"}
+        == set()
+    for name in ("HTTPMASTTransport", "plot_image"):
+        assert getattr(lightkurve_tpu_torch, name) is not None
+
+
+def test_imports_without_matplotlib_or_pandas():
+    """With matplotlib and pandas blocked, the port (every module) still
+    imports; then a plot raises ImportError naming matplotlib and an
+    export one naming pandas, as lightkurve_tpu's lazy imports do."""
+    probe = (
+        "import builtins, importlib, sys\n"
+        "real = builtins.__import__\n"
+        "def guard(name, *a, **k):\n"
+        "    if name.split('.')[0] in ('matplotlib', 'pandas'):\n"
+        "        raise ImportError(f'No module named {name!r}')\n"
+        "    return real(name, *a, **k)\n"
+        "builtins.__import__ = guard\n"
+        "import lightkurve_tpu_torch as lk\n"
+        "for m in sys.argv[1:]:\n"
+        "    importlib.import_module(m)\n"
+        "import numpy as np\n"
+        "lc = lk.LightCurve(time=np.arange(5.0), flux=np.ones(5))\n"
+        "for call, pkg in ((lc.plot, 'matplotlib'), (lc.to_pandas, "
+        "'pandas'),\n"
+        "                  (lambda: lk.plot_image(np.ones((2, 2))), "
+        "'matplotlib')):\n"
+        "    try:\n"
+        "        call()\n"
+        "    except ImportError as e:\n"
+        "        assert pkg in str(e), e\n"
+        "    else:\n"
+        "        raise AssertionError('no ImportError')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('matplotlib', 'pandas', 'jax', 'lightkurve_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    out = subprocess.run([sys.executable, "-c", probe] + port_modules(),
+                         cwd=ROOT, env=_env(), capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
 
 
 @pytest.mark.parametrize("sub", ["io", "ops", "parallel"])

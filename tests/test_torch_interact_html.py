@@ -13,8 +13,9 @@ peak, the same ``best``; ``t0`` may differ only where the power ties to
 1e-9 (ROADMAP C); every other number within one unit of its last printed
 digit; strings, masks and flags equal.  The page outside ``D`` is equal.
 The ``html=`` routes of ``interact_bls``, ``interact``, ``interact_sky``
-and ``interact_echelle`` reach the exporters; without ``html=`` they raise
-``NotImplementedError``.
+and ``interact_echelle`` reach the exporters; without ``html=`` the
+static matplotlib figures match the reference's, and ``interact_sky``
+raises as the reference's does.
 """
 import json
 import math
@@ -28,6 +29,7 @@ import torch
 import lightkurve_tpu as jlk
 import lightkurve_tpu_torch as tlk
 from lightkurve_tpu import interact as jinteract
+from lightkurve_tpu import utils as jutils
 from lightkurve_tpu import interact_html as jhtml
 from lightkurve_tpu.periodogram import SNRPeriodogram as JSNR
 from lightkurve_tpu.targetpixelfile import TessTargetPixelFile as JTess
@@ -404,14 +406,33 @@ def test_html_routes_reach_the_exporters(tmp_path, tpfs):
 
 
 def test_without_html_the_widgets_raise(tpfs):
-    t, f, e = transit_columns(n=100)
-    lc = tlk.LightCurve(time=t, flux=f, flux_err=e)
-    _, tt = tpfs
-    _, tp = spectra()
-    for call in (lc.interact_bls, tt.interact, tt.interact_sky,
-                 tp.to_seismology().interact_echelle):
-        with pytest.raises(NotImplementedError, match="ROADMAP A"):
-            call()
+    """Without ``html=`` the pixel selector and the echelle explorer draw
+    the reference's static figures (test_torch_plots' axes signature), the
+    BLS explorer its three panels (titles, labels and legends equal; the
+    BLS numbers' parity is test_torch_periodogram's), and the sky view
+    raises as the reference's does."""
+    import matplotlib.pyplot as plt
+    from test_torch_plots import assert_same_plot, signature
+    t, f, e = transit_columns()
+    figs = [pkg.LightCurve(time=t, flux=f, flux_err=e).interact_bls()
+            for pkg in (jlk, tlk)]
+    texts = [[{k: ax[k] for k in ("xlabel", "ylabel", "title", "legend")}
+              for ax in signature(fig)["axes"]] for fig in figs]
+    assert len(texts[1]) == 3 and texts[1] == texts[0]
+    jt, tt = tpfs
+    assert_same_plot(tt.interact(), jt.interact())
+    jp, tp = spectra()
+    assert_same_plot(tp.to_seismology().interact_echelle(),
+                     jp.to_seismology().interact_echelle())
+    for tpf in (jt, tt):
+        with pytest.raises(NotImplementedError, match="bokeh"):
+            tpf.interact_sky()
+    for interact, tpf, err in (
+            (jinteract, jt, jutils.LightkurveError),
+            (tinteract, tt, tlk.LightkurveError)):
+        with pytest.raises(err, match="bokeh"):
+            interact.show_skyview_widget(tpf)
+    plt.close("all")
 
 
 def test_y_limits_and_preprocess_match():

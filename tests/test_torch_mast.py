@@ -4,7 +4,8 @@ imported): ``query_mast``, ``filter_products`` (the Kepler quarter and
 month masks included) and ``search_products_mast`` give equal rows;
 ``search_lightcurve``/``search_targetpixelfile`` through a transport and
 their downloads; ``default_transport`` under both environment variables
-(the port raises where the reference would open the network);
+(the live HTTP client of each package, its opener replaced by
+``test_mast_http``'s recorded Mashup server);
 ``search_tesscut`` → ``download(cutout_size=…)`` gives the reference's
 cube and WCS.  Bars: equal.
 """
@@ -17,11 +18,13 @@ import torch
 
 from lightkurve_tpu import config as jconfig
 from lightkurve_tpu import mast as jmast
+from lightkurve_tpu import mast_http as jmast_http
 from lightkurve_tpu import search as jsearch
 from lightkurve_tpu_torch import config as tconfig
 from lightkurve_tpu_torch import mast as tmast
+from lightkurve_tpu_torch import mast_http as tmast_http
 from lightkurve_tpu_torch import search as tsearch
-from lightkurve_tpu_torch.utils import LightkurveError
+from test_mast_http import MockMashup, _fixture_data
 from test_mast_pipeline import _build_fixture
 
 
@@ -181,11 +184,21 @@ def test_default_transport_from_environment(fixture, tmp_path, monkeypatch):
     assert strip(got.table) == strip(want.table) and len(got) == 1
     monkeypatch.delenv("LIGHTKURVE_TPU_MAST_FIXTURES")
     monkeypatch.setenv("LIGHTKURVE_TPU_MAST_HTTP", "1")
-    assert type(jmast.default_transport()).__name__ == "HTTPMASTTransport"
-    with pytest.raises(LightkurveError, match="ROADMAP A"):
-        tmast.default_transport()
-    with pytest.raises(LightkurveError, match="live MAST client"):
-        tsearch.search_lightcurve("KIC 11904151")
+    tt, jt = tmast.default_transport(), jmast.default_transport()
+    assert isinstance(tt, tmast_http.HTTPMASTTransport)
+    assert isinstance(jt, jmast_http.HTTPMASTTransport)
+    keys = ("mashup_url", "download_url", "timeout", "max_retries",
+            "poll_limit", "pagesize")
+    assert [getattr(tt, k) for k in keys] == [getattr(jt, k) for k in keys]
+    assert tt.mashup_url == tmast_http.MASHUP_URL == jmast_http.MASHUP_URL
+    # the ambient client's default opener answered by the recorded Mashup
+    # server, so the search runs the whole HTTP chain with no network
+    for mod in (jmast_http, tmast_http):
+        monkeypatch.setattr(mod, "_default_opener",
+                            MockMashup(*_fixture_data()))
+    got = tsearch.search_lightcurve("KIC 11904151", quarter=2)
+    want = jsearch.search_lightcurve("KIC 11904151", quarter=2)
+    assert strip(got.table) == strip(want.table) and len(got) == 1
 
 
 @pytest.mark.parametrize("size", [5, 7, (9, 5)])

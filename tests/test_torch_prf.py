@@ -139,10 +139,16 @@ def test_kepler_prf_calibration_errors_and_plots(tmp_path):
     with pytest.raises(LightkurveError, match="No PRF calibration file"):
         tprf.KeplerPRF(channel=56, shape=(5, 5), column=0, row=0,
                        prf_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tprf.GaussianPRF(shape=(5, 5)).plot()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tprf.PRFPhotometry(tprf.TPFModel()).plot_results()
+    # the plots draw the reference's figures (test_torch_plots holds them
+    # all): the model's image, and a refusal before any run
+    from test_torch_plots import assert_same_plot
+    assert_same_plot(tprf.GaussianPRF(shape=(5, 5)).plot(),
+                     jprf.GaussianPRF(shape=(5, 5)).plot())
+    for mod in (jprf, tprf):
+        with pytest.raises(ValueError, match="run"):
+            mod.PRFPhotometry(mod.TPFModel()).plot_results()
+    import matplotlib.pyplot as plt
+    plt.close("all")
 
 
 # ---------------------------------------------------------------------------

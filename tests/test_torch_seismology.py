@@ -169,12 +169,19 @@ def test_butler_chain_and_echelle_equal():
             pkg.Seismology(s.periodogram).estimate_deltanu()
         with pytest.raises(ValueError):
             s._clean_echelle(maximum_frequency=1e5)
-    for call in (ts.plot_echelle, ts.diagnose_numax, ts.diagnose_deltanu,
-                 ts.interact_echelle):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlk.diagnose_numax_acf2d(ts.numax)
+    # the plots: the echelle of the same numbers equal to the reference's
+    # figure (test_torch_plots holds every seismology plot), and the
+    # diagnostics of an estimate without them refused alike
+    import matplotlib.pyplot as plt
+    from test_torch_plots import assert_same_plot
+    for kw in ({}, dict(deltanu=15.0, numax=200.0)):
+        kw.setdefault("deltanu", float(js.deltanu.value))
+        assert_same_plot(ts.plot_echelle(**kw), js.plot_echelle(**kw))
+    for pkg, s in ((jseis, js), (tseis, ts)):
+        with pytest.raises(ValueError, match="No diagnostics"):
+            pkg.SeismologyQuantity(s.numax).plot_diagnostics()
+    assert type(tlk.diagnose_numax_acf2d(ts.numax)[0]).__name__ == "Axes"
+    plt.close("all")
 
 
 def test_estimator_errors_match():

@@ -322,10 +322,20 @@ def test_read_tpf_collection_and_refusals(tmp_path):
     coll = tlk.read_tpf_collection(paths + [str(tmp_path / "missing")])
     assert isinstance(coll, TColl) and len(coll) == 3
     t = coll[0]
-    for name in ("plot", "plot_pixels", "animate", "interact",
-                 "interact_sky", "query_solar_system_objects"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            getattr(t, name)()
+    # the plots draw the reference's figures for the same file
+    # (test_torch_plots holds every TPF plot); the live sky view and the
+    # solar-system query of a TPF raise, as the reference's do
+    import matplotlib.pyplot as plt
+    from test_torch_plots import assert_same_plot
+    j = jlk.read(paths[0])
+    for name in ("plot", "plot_pixels", "interact"):
+        assert_same_plot(getattr(t, name)(), getattr(j, name)())
+    assert_same_plot(t.animate(), j.animate())
+    for tpf in (j, t):
+        for name in ("interact_sky", "query_solar_system_objects"):
+            with pytest.raises(NotImplementedError):
+                getattr(tpf, name)()
+    plt.close("all")
     lc = t.to_lightcurve(method="prf")
     assert len(lc) == len(t) and np.isfinite(lc.flux.value).all()
 
