@@ -192,6 +192,19 @@ Phases:
      to_pandas() and the SkyBot query raise ImportError naming the
      package; with them, card-made PRF and BLS periodogram plots and an
      export against the CPU's; no kernel may launch in (b) or (c);
+ 19. the port's drivers: (a) lightkurve_tpu_torch.bench.run() at its full
+     default shape (2048 x 8,192 x 16,384 periods and its eight
+     companions; its JSON line printed): no companion may fail, the
+     primary must find the injected period and the PRF fit both stars;
+     then K-F and K-WF against their plain versions on the inputs of the
+     primary's call and of bls_cliff's weighted call at the 256 longest
+     periods; (b) the north-star search through
+     lightkurve_tpu_torch.tools.northstar_run.main: the sector's 10,240
+     files written by make_sector.ensure_sector, then five batches of
+     2048 curves x 100,000 periods in fits mode (StreamingStackLoader,
+     SweepRunner(method="shared", async_save=True)), recovery >= 99%, 8
+     K-F launches a batch and no other kernel; its rates, wall, load wait
+     and device-memory growth printed as a JSON line;
   9. one call past the one-hot fold's old memory ceiling: a year of
      two-minute cadences (262,800) x 2048 curves in float32, 4 periods
      near 300 d (~60,000 rows), through bls_power_shared_batch on the
@@ -232,9 +245,9 @@ Phases:
      the K-F call of (b) and the K-SF and K-U calls of (c) against their
      plain versions (K-SF against the float64 fold); (e)
      dryrun_multichip(4) at the reference's sizes.
-Each path (the sweeps of phases 3, 4, 6, 7, 8, 10, 12, 13, 14, 15, 16 and
-18 on the automatic route, the eight forced-route runs of phases 4, 6, 13
-and 18,
+Each path (the sweeps of phases 3, 4, 6, 7, 8, 10, 12, 13, 14, 15, 16,
+18 and 19 on the automatic route, the eight forced-route runs of phases
+4, 6, 13 and 18,
 phase 9, and each rank's parts (a)-(d) and dry run in phase 17) runs
 with every launch count set to 0 just before it and read just after; a
 path fails if a plain version ran, and a sweep fails unless its launches
@@ -291,7 +304,7 @@ import time
 
 import numpy as np
 
-# the north-star search configuration (tools/northstar_run.py)
+# the north-star search configuration (tools/northstar_run.py in the port)
 DURATIONS = np.array([0.05, 0.10, 0.15, 0.20, 0.25, 0.33])
 OVERSAMPLE = 10
 
@@ -385,7 +398,7 @@ def check_inputs(dtype, B=256, n=2048, P=257, seed=7):
     from lightkurve_tpu_torch.ops.bls_fused_weighted import weighted_fold
     from lightkurve_tpu_torch.ops.bls_fused import (max_nbins_bound,
                                                     uniform_fold)
-    from tools import make_sector as ms
+    from lightkurve_tpu_torch.tools import make_sector as ms
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed)
     t = ms.time_grid()[:n]
@@ -589,7 +602,7 @@ def check_long_durations(B=256, n=2048, seed=13):
     import torch
     from lightkurve_tpu_torch.ops import bls_fused, bls_window
     from lightkurve_tpu_torch.ops.bls_fused_weighted import weighted_fold
-    from tools import make_sector as ms
+    from lightkurve_tpu_torch.tools import make_sector as ms
     rng = np.random.default_rng(seed)
     t = ms.time_grid()[:n]
     durations = np.linspace(0.05, 2.5, 10)
@@ -684,7 +697,7 @@ def check_tile_edge(B=256, n=2048, seed=11):
     from lightkurve_tpu_torch.ops import (bls_fused, bls_fused_weighted,
                                           bls_window)
     from lightkurve_tpu_torch.ops.bls_fused_weighted import weighted_fold
-    from tools import make_sector as ms
+    from lightkurve_tpu_torch.tools import make_sector as ms
     dt = torch.float64
     rng = np.random.default_rng(seed)
     d_phase = 0.01
@@ -746,47 +759,21 @@ def recovery(best_period, p_inj):
 
 
 def write_sector(directory, n_files):
-    """The synthetic sector of tools/make_sector.py (its layout, seed rule
-    and headers) written with the port's FITS writer; returns the paths
-    and the injected periods."""
-    from lightkurve_tpu_torch.io.fits import (BinTableHDU, HDUList, Header,
-                                              PrimaryHDU, write_fits)
-    from tools import make_sector as ms
-    os.makedirs(directory, exist_ok=True)
-    t = ms.time_grid()
-    quality = np.zeros(ms.N, dtype=np.int32)
-    paths, truth = [], []
-    for ib in range(n_files // ms.BATCH):
-        flux, p_inj = ms.batch_flux(ib, t)
-        truth.append(p_inj)
-        for i in range(ms.BATCH):
-            g = ib * ms.BATCH + i
-            path = ms.file_path(directory, g)
-            ph = Header({"TELESCOP": "TESS", "ORIGIN": "lightkurve_tpu",
-                         "CREATOR": "make_sector.py",
-                         "OBJECT": f"SYNTH {g}", "TICID": g,
-                         "SECTOR": ms.SECTOR, "MISSION": "TESS",
-                         "TRUTHP": float(p_inj[i])})
-            table = BinTableHDU(data={
-                "TIME": t,
-                "PDCSAP_FLUX": flux[i].astype(np.float32),
-                "PDCSAP_FLUX_ERR": np.full(ms.N, ms.NOISE, dtype=np.float32),
-                "QUALITY": quality,
-            }, header=Header({"EXTNAME": "LIGHTCURVE",
-                              "BJDREFI": 2457000, "BJDREFF": 0.0,
-                              "TIMESYS": "TDB", "TUNIT2": "e-/s",
-                              "TUNIT3": "e-/s"}))
-            write_fits(HDUList([PrimaryHDU(header=ph), table]), path,
-                       overwrite=True)
-            paths.append(path)
-    return paths, np.concatenate(truth)
+    """The synthetic sector's first ``n_files`` files
+    (``lightkurve_tpu_torch.tools.make_sector.ensure_sector``, the port's
+    FITS writer); returns the paths and the injected periods."""
+    from lightkurve_tpu_torch.tools import make_sector as ms
+    batches = n_files // ms.BATCH
+    paths = ms.ensure_sector(directory, batches, verbose=False)
+    return paths, np.concatenate([ms.batch_truth(ib)[0]
+                                  for ib in range(batches)])
 
 
 def phase_uniform(tmp, B=2048, n_periods=25_000, chunk_periods=12_500):
     import torch
     from lightkurve_tpu_torch.io.pipeline import StreamingStackLoader
     from lightkurve_tpu_torch.parallel.checkpoint import SweepRunner
-    from tools import make_sector as ms
+    from lightkurve_tpu_torch.tools import make_sector as ms
     t0 = time.time()
     paths, p_inj = write_sector(os.path.join(tmp, "sector"), B)
     log(f"uniform: wrote {len(paths)} FITS files in {time.time() - t0:.1f}s")
@@ -844,7 +831,7 @@ def spoc_like_stack(B=2048, seed=2024, dtype=None):
     one injected box transit per curve."""
     import torch
     from lightkurve_tpu_torch.batch import LightCurveStack
-    from tools import make_sector as ms
+    from lightkurve_tpu_torch.tools import make_sector as ms
     rng = np.random.default_rng(seed)
     t = ms.time_grid()
     dy = ms.NOISE * rng.uniform(0.7, 1.3, (B, ms.N))
@@ -864,7 +851,7 @@ def phase_weighted(tmp, B=2048, n_periods=4096, chunk_periods=2048):
     route rule gives (:func:`expected_launches`) and, as ``route_check``,
     the stack and its first chunk's periods for :func:`compare_routes`."""
     from lightkurve_tpu_torch.parallel.checkpoint import SweepRunner
-    from tools import make_sector as ms
+    from lightkurve_tpu_torch.tools import make_sector as ms
     stack, p_inj = spoc_like_stack(B)
     t = ms.time_grid()
     periods = np.linspace(1.0, (t[-1] - t[0]) / 3, n_periods)
@@ -1035,7 +1022,7 @@ def main_shape_inputs(dtype, P, B=2048):
     from lightkurve_tpu_torch.config import numpy_dtype
     from lightkurve_tpu_torch.ops.bls_fused import max_nbins_bound
     from lightkurve_tpu_torch.ops.bls_fused_weighted import weighted_fold
-    from tools import make_sector as ms
+    from lightkurve_tpu_torch.tools import make_sector as ms
     stack, _ = spoc_like_stack(B, seed=5, dtype=dtype)
     t = ms.time_grid()
     grid = np.linspace(1.0, (t[-1] - t[0]) / 3, 25_000)
@@ -1213,7 +1200,7 @@ NARROW_GRID = (134.6, 134.7, 16)
 def sector_times(n_sectors=1):
     """Two-minute cadence midtimes of ``n_sectors`` consecutive 27-d
     sectors on one grid."""
-    from tools import make_sector as ms
+    from lightkurve_tpu_torch.tools import make_sector as ms
     one = np.arange(LONG_N) * (2.0 / 60 / 24) + ms.T_OFFSET
     return np.concatenate([one + SECTOR_DAYS * k for k in range(n_sectors)])
 
@@ -1225,7 +1212,7 @@ def long_sector_stack(B=2048, seed=2027, dtype=None, n_sectors=1,
     (periods uniform in 1.2 d to ``p_max``)."""
     import torch
     from lightkurve_tpu_torch.batch import LightCurveStack
-    from tools import make_sector as ms
+    from lightkurve_tpu_torch.tools import make_sector as ms
     rng = np.random.default_rng(seed)
     t = sector_times(n_sectors)
     flux = 1.0 + ms.NOISE * rng.standard_normal((B, t.size))
@@ -1291,7 +1278,7 @@ def route_stack(t, weighted, B=2048, seed=2032):
     noise and ~3% masked cadences, else one dy and nothing masked."""
     import torch
     from lightkurve_tpu_torch.batch import LightCurveStack
-    from tools import make_sector as ms
+    from lightkurve_tpu_torch.tools import make_sector as ms
     rng = np.random.default_rng(seed)
     shape = (B, t.size)
     dy = ms.NOISE * (rng.uniform(0.7, 1.3, shape) if weighted
@@ -1309,7 +1296,7 @@ def inject_transits(flux, t, p_inj, rng, depth=None):
     """Subtract a box transit of 0.1 d and ``depth`` (default the synthetic
     sector's) at a random epoch from each row of ``flux`` (on the times
     ``t``) at its period ``p_inj``."""
-    from tools import make_sector as ms
+    from lightkurve_tpu_torch.tools import make_sector as ms
     t0_inj = rng.uniform(0, p_inj)
     for i in range(len(flux)):
         ph = np.mod(t - t0_inj[i] + p_inj[i] / 2, p_inj[i]) - p_inj[i] / 2
@@ -1336,7 +1323,7 @@ def route_points():
     also at 256 curves and the long sweeps' also at 1024, 16.4-16.9 d on
     one sector (3,445 rows), and both regimes where a fused block holds one
     warp (:data:`NARROW_GRID`), at 2048 and 256 curves."""
-    from tools import make_sector as ms
+    from lightkurve_tpu_torch.tools import make_sector as ms
     t = ms.time_grid()
     top = (t[-1] - t[0]) / 3
     pts = []
@@ -1431,7 +1418,7 @@ def phase_routes():
     routes (:func:`route_point`); logs how many "auto" got within 10% of
     the faster route and returns the records."""
     import torch
-    from tools import make_sector as ms
+    from lightkurve_tpu_torch.tools import make_sector as ms
     grids = {8192: ms.time_grid(), LONG_N: sector_times(1),
              2 * LONG_N: sector_times(2)}
     records, stacks = [], {}
@@ -1705,7 +1692,7 @@ def mixed_grid_stack(B=2048, n_grids=4, seed=2028):
     per-cadence dy 0.7-1.3 x 2e-4, ~3% masked cadences, one transit each."""
     import torch
     from lightkurve_tpu_torch.batch import LightCurveStack
-    from tools import make_sector as ms
+    from lightkurve_tpu_torch.tools import make_sector as ms
     rng = np.random.default_rng(seed)
     per = B // n_grids
     t = (ms.time_grid()[None, :]
@@ -1725,7 +1712,7 @@ def mixed_grid_stack(B=2048, n_grids=4, seed=2028):
 
 
 def mixed_grid_periods():
-    from tools import make_sector as ms
+    from lightkurve_tpu_torch.tools import make_sector as ms
     t = ms.time_grid()
     return np.linspace(1.0, (t[-1] - t[0]) / 3, 4096)
 
@@ -1793,7 +1780,7 @@ def phase_percurve(tmp, B=2048, n_periods=1024, chunk_periods=512):
     """Phase 8: SweepRunner(method="fast") and method="exact" on the
     SPOC-like batch (2048 x 8192), 1,024 periods; plain torch, no kernel."""
     from lightkurve_tpu_torch.parallel.checkpoint import SweepRunner
-    from tools import make_sector as ms
+    from lightkurve_tpu_torch.tools import make_sector as ms
     stack, p_inj = spoc_like_stack(B, seed=2029)
     t = ms.time_grid()
     periods = np.linspace(1.0, (t[-1] - t[0]) / 3, n_periods)
@@ -1835,7 +1822,7 @@ def phase_past_ceiling(B=2048, seed=2030):
     result for :func:`check_past_ceiling`."""
     import torch
     from lightkurve_tpu_torch.ops.bls import bls_power_shared_batch
-    from tools import make_sector as ms
+    from lightkurve_tpu_torch.tools import make_sector as ms
     gen = torch.Generator(device="cuda").manual_seed(seed)
     t = (torch.arange(YEAR_N, dtype=torch.float64, device="cuda")
          * (2.0 / 60 / 24) + ms.T_OFFSET)
@@ -1946,7 +1933,7 @@ def flatten_arrays(B=2048, seed=2031, depth=FLATTEN_DEPTH,
     ``periods``, d); ~0.1% outliers at 10 dy; ~3% masked cadences.
     Returns the arrays, the injected transit periods and the rotation
     periods."""
-    from tools import make_sector as ms
+    from lightkurve_tpu_torch.tools import make_sector as ms
     rng = np.random.default_rng(seed)
     if t is None:
         t = sector_times(1)
@@ -2043,7 +2030,7 @@ def flatten_limits(tmp, B=2048, chunk_periods=1024):
     from lightkurve_tpu_torch.ops.detrend import flatten_batch
     from lightkurve_tpu_torch.ops.savgol import savgol_design_matrix
     from lightkurve_tpu_torch.parallel.checkpoint import SweepRunner
-    from tools import make_sector as ms
+    from lightkurve_tpu_torch.tools import make_sector as ms
     arrays, p_inj, _ = flatten_arrays(B, depth=ms.DEPTH,
                                       rotation=(2.0, 10.0))
     stack = LightCurveStack.from_numpy(*arrays, device="cuda",
@@ -2353,10 +2340,10 @@ def ls_f64_cold(B=2048, rows=64):
 
 def bench_ls_inputs(B=2048, device="cuda"):
     """The bench's LS inputs: B curves of the uniform cell's sector
-    (``tools/make_sector.batch_flux``) on bench.py's time grid (8,192
+    (``make_sector.batch_flux``) on bench.py's time grid (8,192
     two-minute cadences from 0), dy 2e-4 per cadence, float32."""
     import torch
-    from tools import make_sector as ms
+    from lightkurve_tpu_torch.tools import make_sector as ms
     t = np.arange(ms.N) * (2.0 / 60 / 24)
     flux = np.concatenate([ms.batch_flux(ib, t)[0]
                            for ib in range(-(-B // ms.BATCH))])[:B]
@@ -3194,25 +3181,32 @@ class _Caught(Exception):
     """Stops the entry point once it has handed the scan its inputs."""
 
 
-def entry_scan_args(stack, pvals):
-    """The arguments ``bls_power_shared_batch`` hands the weighted scan for
-    one SweepRunner chunk of ``stack`` at ``pvals`` (:func:`route_call`),
+def caught_scan(name, call):
+    """The arguments ``ops.bls`` hands its scan ``name``
+    (``fused_scan_weighted``, ``fused_scan_uniform``) in ``call()``,
     caught before the scan runs, so no kernel launches."""
     from lightkurve_tpu_torch.ops import bls
-    seen, scan = [], bls.fused_scan_weighted
+    seen, scan = [], getattr(bls, name)
 
     def catch(*args, **kw):
         seen.append((args, kw))
         raise _Caught
 
-    bls.fused_scan_weighted = catch
+    setattr(bls, name, catch)
     try:
-        route_call(stack, pvals, "fused")
+        call()
     except _Caught:
         pass
     finally:
-        bls.fused_scan_weighted = scan
+        setattr(bls, name, scan)
     return seen[0]
+
+
+def entry_scan_args(stack, pvals):
+    """The arguments ``bls_power_shared_batch`` hands the weighted scan for
+    one SweepRunner chunk of ``stack`` at ``pvals`` (:func:`route_call`)."""
+    return caught_scan("fused_scan_weighted",
+                       lambda: route_call(stack, pvals, "fused"))
 
 
 def fold_against_f64(name, ts, WWY, pc, d_phase, nbins, max_nbp, k_max,
@@ -3667,7 +3661,7 @@ def cbv_grid():
     """The CBV file's cadence numbers and times (BTJD): phase 10's sector
     with its downlink gap's cadences in place, and the light curves'
     cadences among them (the gap's left out)."""
-    from tools import make_sector as ms
+    from lightkurve_tpu_torch.tools import make_sector as ms
     n = LONG_N + CBV_GAP[1] - CBV_GAP[0]
     t = np.arange(n) * (2.0 / 60 / 24) + ms.T_OFFSET + 1500.0
     cad = CBV_CADENCE0 + np.arange(n)
@@ -5875,6 +5869,183 @@ def phase_http(tmp, card, sweep, runs, arc):
 
 
 # ---------------------------------------------------------------------------
+# phase 19: the port's drivers, the bench and the north-star search
+# ---------------------------------------------------------------------------
+#: the bench's longest periods at which phase 19 holds K-F and K-WF
+BENCH_KERNEL_PERIODS = 256
+#: the north-star run's --max-seconds (its watchdog adds 300 s)
+NS_MAX_SECONDS = 900
+
+
+def bench_call_launches(periods, curves, uniform):
+    """What the route rule gives one of the bench's calls
+    (``bench.bls_call``) in float32: uniform calls one per 128-row tile
+    group of the periods (``bucket=True``), weighted ones one for all."""
+    import torch
+    from lightkurve_tpu_torch.ops.bls import _bucket_periods
+    from lightkurve_tpu_torch.parallel.checkpoint import _k_max
+    p = np.asarray(periods).astype(np.float32)
+    d_phase = float(DURATIONS.astype(np.float32).min()) / OVERSAMPLE
+    groups = ([idx for idx, _ in _bucket_periods(
+        p, d_phase, _k_max(DURATIONS, d_phase))[0]] if uniform
+        else [np.arange(len(p))])
+    return route_launches([p[idx] for idx in groups], curves, not uniform,
+                          torch.float32, torch.device("cuda"), 8)
+
+
+def add_launches(total, more, times=1):
+    for k, v in more.items():
+        total[k] += times * v
+    return total
+
+
+def bench_expected_launches(B, N, P):
+    """The launches of ``bench.run()`` at B curves, N cadences and P
+    periods by the route rule: the primary's warm-up and timed calls;
+    bls_cliff's uniform, weighted and ragged cases (a warm-up and a timed
+    call each) over a quarter of the periods; bls_bucketed's two sweeps of
+    that quarter, one call per time grid of B/4 curves."""
+    import torch
+    from lightkurve_tpu_torch import bench
+    periods = bench.primary_inputs(1, N, P)["periods"]
+    quarter = periods[:max(P // 4, bench.CLIFF_MIN_P)]
+    want = dict.fromkeys(kernel_table(), 0)
+    add_launches(want, bench_call_launches(periods, B, True),
+                 1 + bench.PRIMARY_REPS)
+    add_launches(want, bench_call_launches(quarter, B, True), 2)
+    add_launches(want, bench_call_launches(quarter, B, False), 2)
+    add_launches(want, bench_call_launches(quarter, bench.CLIFF_RAGGED,
+                                           False), 2)
+    grid = route_launches([quarter.astype(np.float32)], B // 4, False,
+                          torch.float32, torch.device("cuda"), 8)
+    return add_launches(want, grid, 4 * 2)
+
+
+def phase_bench():
+    """Phase 19 (a): ``bench.run()`` at its full default shape (raises if
+    a companion failed).  Fails unless the primary found the injected
+    period and the PRF fit the two stars; prints the bench's JSON line.
+    Returns the line and the launches the route rule gives."""
+    from lightkurve_tpu_torch import bench
+    t0 = time.time()
+    line = bench.run()
+    d = line["detail"]
+    errors = [k for k in d if k.endswith("_error")]
+    if errors or not d["recovered_period_ok"] or not d[
+            "prf_two_star_flux_ok"]:
+        raise AssertionError(f"bench: errors {errors}, recovered "
+                             f"{d['recovered_period_ok']}, PRF two stars "
+                             f"{d['prf_two_star_flux_ok']}")
+    log(f"bench: {line['value']:.6g} {line['unit']} (B={d['B']} "
+        f"N={d['N']} P={d['P']}, best of {d['step_times_all_reps']} s; "
+        f"vs_baseline {line['vs_baseline']:.6g}, K-F mfu {d['bls_mfu']}, "
+        f"membw {d['bls_membw_frac']}); {time.time() - t0:.1f}s")
+    print(json.dumps(line), flush=True)
+    return dict(line=line, routes=bench_expected_launches(d["B"], d["N"],
+                                                         d["P"]))
+
+
+def check_bench_kernels():
+    """K-F and K-WF against their plain versions on the inputs the bench's
+    calls give them at its primary's :data:`BENCH_KERNEL_PERIODS` longest
+    periods: the primary's (uniform) and bls_cliff's weighted case's,
+    caught before the scan (:func:`caught_scan`).  Returns each kernel's
+    max |power error|."""
+    import torch
+    from lightkurve_tpu_torch import bench
+    from lightkurve_tpu_torch.ops import bls_fused as bf
+    from lightkurve_tpu_torch.ops import bls_fused_weighted as bfw
+    ctx = bench.make_context()
+    pvals = ctx.periods[-BENCH_KERNEL_PERIODS:]
+    dy_var = bench.weighted_dy(ctx)
+    errs = {}
+    for key, scan, kern, plain, dy, uniform in (
+            ("K-F", "fused_scan_uniform", bf.fused_scan_uniform,
+             bf.fused_scan_uniform_plain, ctx.dy, True),
+            ("K-WF", "fused_scan_weighted", bfw.fused_scan_weighted,
+             bfw.fused_scan_weighted_plain, dy_var, False)):
+        args, kw = caught_scan(scan, lambda: bench.bls_call(
+            ctx, ctx.flux, dy, pvals, uniform))
+        got, want = kern(*args, **kw), plain(*args, **kw)
+        torch.cuda.synchronize()
+        errs[key] = compare(f"{key} bench, {len(pvals)} longest periods",
+                            got, want, False)[0]
+        del got, want, args, kw
+    torch.cuda.empty_cache()
+    return errs
+
+
+def phase_northstar(tmp):
+    """Phase 19 (b): the north-star search at its full shape through its
+    entry point, ``northstar_run.main``: the sector's 10,240 files written
+    by ``make_sector.ensure_sector`` first (timed), then five batches of
+    2048 x 100,000 periods in fits mode.  Fails unless it recovers
+    RECOVERY_SHARE of the injected periods; prints the record's rates.
+    Returns the record and the launches the route rule gives (one fused
+    launch a chunk)."""
+    import torch
+    from lightkurve_tpu_torch.tools import make_sector as ms
+    from lightkurve_tpu_torch.tools import northstar_run as ns
+    sector, state = os.path.join(tmp, "ns_sector"), os.path.join(tmp,
+                                                                 "ns_state")
+    t0 = time.time()
+    paths = ms.ensure_sector(sector, ns.N_CURVES_TOTAL // ms.BATCH,
+                             verbose=False)
+    write_s = time.time() - t0
+    log(f"north-star: wrote {len(paths)} FITS files in {write_s:.1f}s")
+    code = ns.main(["--sector-dir", sector, "--state-dir", state,
+                    "--max-seconds", str(NS_MAX_SECONDS)])
+    path = os.path.join(state, "NORTHSTAR.json")
+    if code or not os.path.exists(path):
+        raise AssertionError(f"north-star: exit {code}, no record")
+    with open(path) as f:
+        record = json.load(f)
+    keys = ("curve_period_evals_per_sec_per_chip",
+            "steady_state_evals_per_sec_per_chip", "wall_clock_s",
+            "load_wait_s", "hbm_growth_bytes", "recovery_rate",
+            "batch_seconds", "load_wait_seconds",
+            "hbm_live_bytes_per_batch", "native_fits_loader", "card")
+    summary = {k: record[k] for k in keys}
+    summary["sector_write_s"] = write_s
+    log(f"north-star: {record['curves']} curves x {record['period_grid']} "
+        f"periods: {summary}")
+    print(json.dumps({"northstar": summary}), flush=True)
+    if record["recovery_rate"] < RECOVERY_SHARE:
+        raise AssertionError(f"north-star recovery {record['recovery_rate']}"
+                             f" < {RECOVERY_SHARE}")
+    t = ms.time_grid()
+    periods = np.linspace(1.0, (t[-1] - t[0]) / 3, ns.P_GRID)
+    chunks = [periods[lo:lo + ns.CHUNK_PERIODS]
+              for lo in range(0, ns.P_GRID, ns.CHUNK_PERIODS)]
+    batches = record["curves"] // ns.RUN_BATCH
+    want = add_launches(dict.fromkeys(kernel_table(), 0), route_launches(
+        chunks, ns.RUN_BATCH, False, torch.float32, torch.device("cuda"), 8,
+        ns.CHUNK_PERIODS), batches)
+    if want["K-F"] != 8 * batches or sum(want.values()) != want["K-F"]:
+        raise AssertionError(f"north-star: the route rule gives {want}, "
+                             "not 8 K-F launches a batch")
+    return dict(record=record, write_s=write_s, routes=want)
+
+
+def phase_drivers(tmp, sweep):
+    """Phase 19: (a) the bench (:func:`phase_bench`) and (b) the north-star
+    search (:func:`phase_northstar`), each a path whose launches must be
+    the route rule's (``sweep``); then K-F and K-WF against their plain
+    versions on the bench's inputs (:func:`check_bench_kernels`).  Returns
+    the numbers and the kernels' errors."""
+    import torch
+    t0 = time.time()
+    out = {"bench": sweep("bench (phase 19 a)", phase_bench)}
+    torch.cuda.empty_cache()
+    errs = check_bench_kernels()
+    out["northstar"] = sweep("north-star search (phase 19 b)",
+                             phase_northstar, tmp)
+    out["seconds"] = time.time() - t0
+    log(f"phase 19: {out['seconds']:.1f}s")
+    return out, errs
+
+
+# ---------------------------------------------------------------------------
 # phase 17: the multi-rank slice, four gloo ranks on the one card
 # ---------------------------------------------------------------------------
 MR_RANKS = 4
@@ -5937,10 +6108,10 @@ def counted(fn):
 
 def ragged_sector(B=MR_RAGGED_B):
     """Phase 3's sector kind in memory: B curves of
-    ``tools/make_sector.batch_flux`` on its time grid (8,192 two-minute
+    ``make_sector.batch_flux`` on its time grid (8,192 two-minute
     cadences), one dy per curve; returns the times, the float32 fluxes and
     dy as host arrays."""
-    from tools import make_sector as ms
+    from lightkurve_tpu_torch.tools import make_sector as ms
     t = ms.time_grid()
     flux = np.concatenate([ms.batch_flux(ib, t)[0]
                            for ib in range(-(-B // ms.BATCH))])[:B]
@@ -6425,7 +6596,7 @@ def phase_profile(tmp, B=2048):
     from lightkurve_tpu_torch.io.read import read
     from lightkurve_tpu_torch.ops.lombscargle import lombscargle_fastchi2
     from lightkurve_tpu_torch.parallel.checkpoint import SweepRunner
-    from tools import make_sector as ms
+    from lightkurve_tpu_torch.tools import make_sector as ms
     t = ms.time_grid()
     top = (t[-1] - t[0]) / 3
     flux = np.concatenate([ms.batch_flux(ib, t)[0]
@@ -6813,6 +6984,9 @@ def main():
         h18, h18_errs = phase_http(tmp, card, sweep, runs,
                                    arc.pop("phase18"))
     torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        p19, p19_errs = phase_drivers(tmp, sweep)
+    torch.cuda.empty_cache()
     ls = phase_ls()
     path = "past the one-hot ceiling (phase 9)"
     big, runs[path] = drive(path, phase_past_ceiling,
@@ -6827,13 +7001,14 @@ def main():
         errs[key], times[key], bounds[key], per_launch[key] = e, t, b, per
     errs["K-F"] = max(errs["K-F"], kf_err)
     for key, e in (*px_errs.items(), *p14_errs.items(), *prf_errs.items(),
-                   *arc_errs.items(), *h18_errs.items()):
+                   *arc_errs.items(), *h18_errs.items(), *p19_errs.items()):
         errs[key] = max(errs[key], e)
     phase_routes()
     with tempfile.TemporaryDirectory() as tmp:
         mr, mr_errs = phase_multirank(tmp, runs)
     for key, e in mr_errs.items():
         errs[key] = max(errs[key], e)
+    ns = p19["northstar"]["record"]
     log(f"main paths: uniform {uni['rate']:.6g}, weighted "
         f"{wei['rate']:.6g}, long sector {lng['rate']:.6g}, two sectors "
         f"{two['rate']:.6g}, mixed grids {mix['rate']:.6g}, flatten -> "
@@ -6863,6 +7038,12 @@ def main():
         f"with fetched neighbours "
         f"{max(f for _, f in h18['cbv']):.3f}s at most, phase 18 "
         f"{h18['seconds']:.1f}s; "
+        f"bench {p19['bench']['line']['value']:.6g} curve-period evals/s; "
+        f"north-star {ns['curve_period_evals_per_sec_per_chip']:.6g} "
+        f"(steady {ns['steady_state_evals_per_sec_per_chip']:.6g}) "
+        f"curve-period evals/s, wall {ns['wall_clock_s']:.3f}s, load wait "
+        f"{ns['load_wait_s']:.3f}s, recovered {ns['recovery_rate']:.4f}, "
+        f"phase 19 {p19['seconds']:.1f}s; "
         f"LS sector "
         f"{ls['sector']['rate']:.6g}, "
         f"LS bench shape {ls['bench']['rate']:.6g} curve-frequency "

@@ -29,8 +29,9 @@ import torch
 
 __all__ = ["PEAKS", "device_peaks", "fractions_of_peak", "ls_fast_cost",
            "fastchi2_cost", "flatten_cost", "acf_windows_cost",
-           "pld_photometry_cost", "bound_fused", "bound_weighted_fused",
-           "bound_weighted", "bound_uniform", "bound_staged_fold"]
+           "pld_photometry_cost", "shared_uniform_cost", "bound_fused",
+           "bound_weighted_fused", "bound_weighted", "bound_uniform",
+           "bound_staged_fold"]
 
 #: peaks per device, in operations/s by type (``f32``, ``f64`` outside the
 #: tensor cores; ``tf32``, ``bf16``, ``f64_tensor``: dense tensor-core
@@ -215,18 +216,48 @@ def _fold_ops(n, nbp, k_max, wrap):
     return n * len(nbp) + rows + (k_max - 1) * len(nbp) * bool(wrap)
 
 
+def _fused_counts(n, B, item, nbp, k_durs, wrap):
+    """K-F's (bytes, operations) for one launch over the periods whose bins
+    are ``nbp``: the flux (n, B), the times and the weights read once, the
+    outputs written once; per period every sample folded into each curve's
+    column and the shared count column (:func:`_fold_ops`), then the
+    window scans."""
+    fold = (B + 1) * _fold_ops(n, nbp, max(k_durs), wrap)
+    return ((n * B + n + B) * item + _outputs_bytes(len(nbp), B, item),
+            fold + _uniform_scan_ops(B, _windows(nbp, k_durs)))
+
+
 def bound_fused(ts, Y0, pc, k_durs, dur_values, d_phase, nbins, max_nbp,
                 like=True, wrap=True, chunk=8):
-    """K-F: reads the flux (n, B) and times once; per period it folds every
-    sample into each curve's column and the shared count column
-    (:func:`_fold_ops`) and scans the windows."""
+    """K-F's least time for one launch (:func:`_fused_counts`)."""
     from .ops.bls_fused import nbins_per_period
     n, B = Y0.shape
-    item = Y0.element_size()
     nbp = nbins_per_period(pc, d_phase).cpu().numpy()
-    fold = (B + 1) * _fold_ops(n, nbp, max(k_durs), wrap)
-    return _bound((n * B + n + B) * item + _outputs_bytes(len(nbp), B, item),
-                  fold + _uniform_scan_ops(B, _windows(nbp, k_durs)))
+    return _bound(*_fused_counts(n, B, Y0.element_size(), nbp, k_durs, wrap))
+
+
+def shared_uniform_cost(n, B, periods, durations, oversample=10,
+                        dtype=torch.float32):
+    """The work of one uniform-weight ``bls_power_shared_batch`` call with
+    ``bucket=True`` on the fused route (K-F), as :func:`fractions_of_peak`
+    takes it: K-F's operations and bytes (:func:`_fused_counts`) summed
+    over the call's launches, one per group of periods of one 128-row tile
+    count (``ops.bls._bucket_periods``)."""
+    from .ops.bls import _bucket_periods
+    from .ops.bls_fused import nbins_per_period
+    durations = np.asarray(durations, np.float64)
+    d_phase = float(durations.min()) / oversample
+    k_durs = tuple(int(max(int(d / d_phase + 0.5), 1)) for d in durations)
+    pc = torch.as_tensor(np.asarray(periods, np.float64), dtype=dtype)
+    groups, _ = _bucket_periods(pc.numpy(), d_phase, max(k_durs))
+    item = torch.empty((), dtype=dtype).element_size()
+    nbytes = ops = 0
+    for idx, _ in groups:
+        nbp = nbins_per_period(pc[torch.as_tensor(idx)], d_phase).numpy()
+        b, o = _fused_counts(n, B, item, nbp, k_durs, True)
+        nbytes, ops = nbytes + b, ops + o
+    return {"flops": float(ops), "hbm_bytes": float(nbytes),
+            "detail": {"launches": len(groups)}}
 
 
 def bound_weighted_fused(ts, W, WY, pc, k_durs, dur_values, d_phase, nbins,

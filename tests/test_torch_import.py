@@ -1,8 +1,9 @@
 """lightkurve_tpu_torch imports without jax and without building anything
 (every module, the correctors, the CBV corrector, the seismology package,
 the science-product readers, PRF photometry, models, diagnostics and
-roofline, the settings, the archive search and the HTML explorers
-included; a light curve's SFF corrector, a spectrum's numax and Delta-nu,
+roofline, the settings, the archive search, the HTML explorers, the bench,
+the north-star tools and the examples included, the last three without the
+repository's root ``tools`` package either; a light curve's SFF corrector, a spectrum's numax and Delta-nu,
 a 4-cadence PRF fit and a BLS explorer page on the CPU run without them),
 its top-level names are lightkurve_tpu's but the network client and the
 plotting helper, and chip_smoke.py refuses to run without a CUDA
@@ -103,6 +104,9 @@ assert not _build._LOADED and not native._LIB, "a library was loaded"
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "lightkurve_tpu.")))
 assert not bad and "lightkurve_tpu" not in sys.modules, bad
+# the drivers use the port's own tools, never the repository's
+bad = sorted(m for m in sys.modules if m == "tools" or m.startswith("tools."))
+assert not bad, bad
 print("clean")
 """
 
@@ -129,7 +133,9 @@ def test_slice_imports_without_jax_or_builds():
                  "prf.prfmodel", "prf.tpfmodel", "models", "diagnostics",
                  "roofline", "config", "convenience", "lightcurvefile",
                  "mast", "mast_http", "search", "interact",
-                 "interact_html"):
+                 "interact_html", "bench", "tools", "tools.make_sector",
+                 "tools.northstar_run", "examples",
+                 "examples.sector_search", "examples.multi_sector_sweep"):
         assert "lightkurve_tpu_torch." + name in modules
     out = subprocess.run([sys.executable, "-c", PROBE] + modules, cwd=ROOT,
                          env=_env(), capture_output=True, text=True,
