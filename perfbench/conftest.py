@@ -1,0 +1,21 @@
+"""pytest settings of the benchmark's own tests (``perfbench/tests``).
+
+Tests that need the card carry the ``card`` marker and take the ``card``
+fixture, which decides at run time, never at import, whether CUDA is
+there, and skips where it is not.
+"""
+import pytest
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "card: needs an NVIDIA card (skipped without CUDA)")
+
+
+@pytest.fixture
+def card():
+    import torch
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: torch.cuda.is_available() is "
+                    "false")
+    return "cuda"
