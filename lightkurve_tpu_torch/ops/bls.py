@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from ..config import numpy_dtype, on_device
+from ..diagnostics import set_attrs, span
 from .bls_fused import (fold_rows, fused_fits, fused_scan_uniform,
                         max_nbins_bound)
 from .bls_fused_weighted import fused_scan_weighted
@@ -68,6 +69,7 @@ def _staged_scan_weighted(ts, W, WY, periods, k_durs, dur_values, d_phase,
     npad = fold_rows(nbins, max_nbins_p, max(k_durs))
     step = staged_slice(chunk, npad, n, 2 * B, W.element_size(),
                         _free_device_bytes(W.device))
+    set_attrs(slices=-(-periods.shape[0] // step))
     parts = []
     for i in range(0, periods.shape[0], step):
         pc = periods[i:i + step]
@@ -87,6 +89,7 @@ def _bls_shared_scan(ts, W, WY, periods, k_durs, dur_values, d_phase, nbins,
     from log_likelihood or depth_snr)."""
     route = fold_route(fold_impl, max_nbins_p, max(k_durs), W.dtype,
                        W.device, weighted=True, curves=W.shape[1])
+    set_attrs(route=route, slices=0)
     scan = fused_scan_weighted if route == "fused" else _staged_scan_weighted
     best = scan(ts, W, WY, periods, k_durs, dur_values, d_phase, nbins,
                 max_nbins_p, use_likelihood, chunk=chunk, wrap=wrap)
@@ -233,6 +236,7 @@ def _staged_scan_uniform(ts, Y0, periods, k_durs, dur_values, d_phase, nbins,
     npad = fold_rows(nbins, max_nbins_p, max(k_durs))
     step = staged_slice(chunk, npad, n, B, Y0.element_size(),
                         _free_device_bytes(Y0.device))
+    set_attrs(slices=-(-periods.shape[0] // step))
     parts = []
     for i in range(0, periods.shape[0], step):
         pc = periods[i:i + step]
@@ -252,6 +256,7 @@ def _bls_shared_scan_uniform(ts, Y0, c_b, periods, k_durs, dur_values,
     ``c_b`` (B,) per-curve weights.  Returns a dict of (B, P) tensors."""
     route = fold_route(fold_impl, max_nbins_p, max(k_durs), Y0.dtype,
                        Y0.device, curves=Y0.shape[1])
+    set_attrs(route=route, slices=0)
     scan = fused_scan_uniform if route == "fused" else _staged_scan_uniform
     out = scan(ts, Y0, periods, k_durs, dur_values, d_phase, nbins,
                max_nbins_p, use_likelihood, wrap=wrap, chunk=chunk)
@@ -354,72 +359,79 @@ def bls_power_shared_batch(t, Y, dy, periods, durations, oversample=10,
     normalized to mean 1 for float32 accuracy, and the normalization is
     undone on the outputs.
     """
-    if uniform_weights is None:
-        uniform_weights = _detect_uniform_weights(dy)
-    Y = on_device(Y, device)
-    device, dtype = Y.device, Y.dtype
-    t = _as_tensor(t, device)
-    # the grid geometry is read on the host: keep a host copy of the
-    # periods in the data dtype, and ship host periods without a blocking
-    # copy (the sweep runner dispatches its next chunk before it waits)
-    np_dtype = numpy_dtype(dtype)
-    if isinstance(periods, torch.Tensor):
-        periods = periods.to(device=device, dtype=dtype)
-        p_host = periods.cpu().numpy()
-    else:
-        p_host = np.ascontiguousarray(periods, dtype=np_dtype)
-        periods = torch.from_numpy(p_host)
-        if device.type == "cuda":
-            periods = periods.pin_memory().to(device, non_blocking=True)
-    durations_np = _host_f64(durations)
-    use_likelihood = objective == "likelihood"
-    wrap = edge_mode != "astropy"
-    B = Y.shape[0]
-    if not uniform_weights:
-        if dy is None:
-            W = torch.ones_like(Y)
+    with span("bls.prepare"):
+        if uniform_weights is None:
+            uniform_weights = _detect_uniform_weights(dy)
+        Y = on_device(Y, device)
+        device, dtype = Y.device, Y.dtype
+        t = _as_tensor(t, device)
+        # the grid geometry is read on the host: keep a host copy of the
+        # periods in the data dtype, and ship host periods without a
+        # blocking copy (the sweep runner dispatches its next chunk before
+        # it waits)
+        np_dtype = numpy_dtype(dtype)
+        if isinstance(periods, torch.Tensor):
+            periods = periods.to(device=device, dtype=dtype)
+            p_host = periods.cpu().numpy()
         else:
-            W = 1.0 / torch.square(_as_tensor(dy, device, dtype))
-        finite = torch.isfinite(W)
-        w_scale = torch.where(finite, W, 0.0).mean()
-        Wn = torch.where(finite, W / w_scale, 0.0)
-        # mean-shift the flux: depth is shift-invariant, and the fold then
-        # sums w·(y−μ) relative to the transit signal, not the continuum
-        mu = ((Wn * Y).sum(1) / torch.clamp(Wn.sum(1), min=1e-30))[:, None]
-    else:
-        if dy is None:
-            c_b = torch.ones((B,), dtype=dtype, device=device)
+            p_host = np.ascontiguousarray(periods, dtype=np_dtype)
+            periods = torch.from_numpy(p_host)
+            if device.type == "cuda":
+                periods = periods.pin_memory().to(device, non_blocking=True)
+        durations_np = _host_f64(durations)
+        use_likelihood = objective == "likelihood"
+        wrap = edge_mode != "astropy"
+        B = Y.shape[0]
+        if not uniform_weights:
+            if dy is None:
+                W = torch.ones_like(Y)
+            else:
+                W = 1.0 / torch.square(_as_tensor(dy, device, dtype))
+            finite = torch.isfinite(W)
+            w_scale = torch.where(finite, W, 0.0).mean()
+            Wn = torch.where(finite, W / w_scale, 0.0)
+            # mean-shift the flux: depth is shift-invariant, and the fold
+            # then sums w·(y−μ) relative to the transit signal, not the
+            # continuum
+            mu = ((Wn * Y).sum(1)
+                  / torch.clamp(Wn.sum(1), min=1e-30))[:, None]
         else:
-            dy0 = _as_tensor(dy, device, dtype)[:, 0]
-            c_b = torch.where(torch.isfinite(dy0), 1.0 / torch.square(dy0),
-                              0.0)
-        mu = Y.mean(1, keepdim=True)
-    t_min = t.min()
-    ts = (t - t_min).to(dtype)
+            if dy is None:
+                c_b = torch.ones((B,), dtype=dtype, device=device)
+            else:
+                dy0 = _as_tensor(dy, device, dtype)[:, 0]
+                c_b = torch.where(torch.isfinite(dy0),
+                                  1.0 / torch.square(dy0), 0.0)
+            mu = Y.mean(1, keepdim=True)
+        t_min = t.min()
+        ts = (t - t_min).to(dtype)
 
-    if d_phase is None:
-        d_phase = float(durations_np.min()) / oversample
-    if nbins is None:
-        nbins = int(np.ceil(float(np.max(p_host)) / d_phase))
-    # round-half-UP (+0.5 truncation), never Python round()'s banker's
-    # rounding of half-bin ties
-    k_durs = tuple(int(max(int(d / d_phase + 0.5), 1)) for d in durations_np)
-    dvals = tuple(float(d) for d in durations_np)
-    k_max = max(k_durs)
+        if d_phase is None:
+            d_phase = float(durations_np.min()) / oversample
+        if nbins is None:
+            nbins = int(np.ceil(float(np.max(p_host)) / d_phase))
+        # round-half-UP (+0.5 truncation), never Python round()'s banker's
+        # rounding of half-bin ties
+        k_durs = tuple(int(max(int(d / d_phase + 0.5), 1))
+                       for d in durations_np)
+        dvals = tuple(float(d) for d in durations_np)
+        k_max = max(k_durs)
 
-    # (n, B) views of (B, n) tensors: the layout the fused kernels read;
-    # the staged route copies them to contiguous (n, cols) once per call
-    if uniform_weights:
-        scan, cols = _bls_shared_scan_uniform, ((Y - mu).T, c_b)
-    else:
-        scan, cols = _bls_shared_scan, (Wn.T, (Wn * (Y - mu)).T)
+        # (n, B) views of (B, n) tensors: the layout the fused kernels read;
+        # the staged route copies them to contiguous (n, cols) once per call
+        if uniform_weights:
+            scan, cols = _bls_shared_scan_uniform, ((Y - mu).T, c_b)
+        else:
+            scan, cols = _bls_shared_scan, (Wn.T, (Wn * (Y - mu)).T)
 
     def run(p_sub, p_sub_host, nb):
         # the host copy bounds the bins per period without a device read
         max_nbp = max_nbins_bound(p_sub_host, d_phase, dtype)
-        return scan(ts, *cols, p_sub, k_durs, dvals, float(d_phase), int(nb),
-                    max_nbp, use_likelihood, chunk, wrap=wrap,
-                    fold_impl=fold_impl)
+        with span("bls.search", rows=int(max_nbp) + k_max - 1, curves=B,
+                  periods=len(p_sub_host)):
+            return scan(ts, *cols, p_sub, k_durs, dvals, float(d_phase),
+                        int(nb), max_nbp, use_likelihood, chunk, wrap=wrap,
+                        fold_impl=fold_impl)
 
     if bucket:
         groups, order = _bucket_periods(p_host, d_phase, k_max)

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from ..diagnostics import span
 from .interp import interp_linear_fill
 from .masked import masked_median, masked_median_grouped, masked_std
 from .savgol import savgol_filter_interp
@@ -52,53 +53,69 @@ def flatten_batch(time, flux, valid, H, break_tolerance, sigma, niters=3,
     Returns (trend, valid_out): the trend at every time (interpolated
     through the kept samples) and the mask after clipping, both (B, n).
     """
-    H = torch.as_tensor(H, dtype=flux.dtype, device=flux.device)
-    w = H.shape[0]
-    bt, sigma = float(break_tolerance), float(sigma)
     B, n = flux.shape
-    idx = torch.arange(n, device=flux.device)
+    niters = max(int(niters), 1)
+    with span("flatten", curves=B, cadences=n, niters=niters):
+        with span("flatten.design"):
+            H = torch.as_tensor(H, dtype=flux.dtype, device=flux.device)
+        w = H.shape[0]
+        bt, sigma = float(break_tolerance), float(sigma)
+        idx = torch.arange(n, device=flux.device)
 
-    def one_iter(valid):
-        m = valid.sum(-1, keepdim=True)
-        in_m = idx < m
-        # valid samples first, each group in its original order
-        order = torch.sort((~valid).to(torch.uint8), dim=-1,
-                           stable=True).indices
-        ct, cf = torch.gather(time, -1, order), torch.gather(flux, -1, order)
+        def one_iter(valid):
+            with span("flatten.compact"):
+                m = valid.sum(-1, keepdim=True)
+                in_m = idx < m
+                # valid samples first, each group in its original order
+                order = torch.sort((~valid).to(torch.uint8), dim=-1,
+                                   stable=True).indices
+                ct = torch.gather(time, -1, order)
+                cf = torch.gather(flux, -1, order)
 
-        # gaps over the compacted times (lightcurve.py:1022-1027)
-        dt = torch.cat([ct[:, 1:] - ct[:, :-1],
-                        torch.zeros_like(ct[:, :1])], -1)
-        med_dt = masked_median(dt, idx < m - 1)[:, None]
-        is_gap = dt > bt * med_dt                        # NaN tol: none
-        brk = torch.cat([torch.ones_like(valid[:, :1]), is_gap[:, :-1]], -1)
-        brk = brk | ~in_m                                # padding: alone
-        lo, hi = _segment_bounds(brk)
-        hi = torch.minimum(hi, m)                        # end at padding
-        seglen = hi - lo
-        trend_c = savgol_filter_interp(cf, H, lo, hi)
+            # gaps over the compacted times (lightcurve.py:1022-1027)
+            with span("flatten.gaps"):
+                dt = torch.cat([ct[:, 1:] - ct[:, :-1],
+                                torch.zeros_like(ct[:, :1])], -1)
+                med_dt = masked_median(dt, idx < m - 1)[:, None]
+                is_gap = dt > bt * med_dt                # NaN tol: none
+                brk = torch.cat([torch.ones_like(valid[:, :1]),
+                                 is_gap[:, :-1]], -1)
+                brk = brk | ~in_m                        # padding: alone
+                lo, hi = _segment_bounds(brk)
+                hi = torch.minimum(hi, m)                # end at padding
+                seglen = hi - lo
+            with span("flatten.savgol"):
+                trend_c = savgol_filter_interp(cf, H, lo, hi)
 
-        # short-segment median fallback (lightcurve.py:1035-1038)
-        seg_id = torch.clamp(torch.cumsum(brk, -1) - 1, 0, max_segments - 1)
-        seg_med = masked_median_grouped(cf, seg_id, max_segments, valid=in_m)
-        short = (w > seglen) | (seglen < bt)
-        trend_c = torch.where(short, torch.gather(seg_med, -1, seg_id),
-                              trend_c)
+            # short-segment median fallback (lightcurve.py:1035-1038)
+            with span("flatten.median"):
+                seg_id = torch.clamp(torch.cumsum(brk, -1) - 1, 0,
+                                     max_segments - 1)
+                seg_med = masked_median_grouped(cf, seg_id, max_segments,
+                                                valid=in_m)
+                short = (w > seglen) | (seglen < bt)
+                trend_c = torch.where(short,
+                                      torch.gather(seg_med, -1, seg_id),
+                                      trend_c)
 
-        # clip outliers against the trend (lightcurve.py:1049-1056)
-        resid = cf - trend_c
-        std = masked_std(resid, in_m)[:, None]
-        keep = (torch.abs(resid) < std * sigma + 1e-14) & in_m
+            # clip outliers against the trend (lightcurve.py:1049-1056)
+            with span("flatten.clip"):
+                resid = cf - trend_c
+                std = masked_std(resid, in_m)[:, None]
+                keep = (torch.abs(resid) < std * sigma + 1e-14) & in_m
 
-        # the kept trend back at original positions (NaN marks the
-        # dropped), then interpolated over every time
-        merged = torch.where(keep, trend_c, torch.nan)
-        trend_orig = torch.empty_like(merged).scatter_(-1, order, merged)
-        valid_new = torch.isfinite(trend_orig)
-        return valid_new, interp_linear_fill(time, valid_new, trend_orig)
+                # the kept trend back at original positions (NaN marks the
+                # dropped), then interpolated over every time
+                merged = torch.where(keep, trend_c, torch.nan)
+                trend_orig = torch.empty_like(merged).scatter_(-1, order,
+                                                               merged)
+                valid_new = torch.isfinite(trend_orig)
+                return valid_new, interp_linear_fill(time, valid_new,
+                                                     trend_orig)
 
-    for _ in range(max(int(niters), 1)):
-        valid, trend = one_iter(valid)
+        for it in range(niters):
+            with span("flatten.iter", index=it):
+                valid, trend = one_iter(valid)
     return trend, valid
 
 

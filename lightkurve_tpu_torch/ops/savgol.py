@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..config import full_f32_matmul
+from ..diagnostics import count, span
 
 __all__ = ["savgol_design_matrix", "savgol_filter_interp"]
 
@@ -35,10 +36,11 @@ def savgol_design_matrix(window_length: int, polyorder: int) -> np.ndarray:
         raise ValueError("window_length must be a positive odd integer")
     if polyorder >= w:
         raise ValueError("polyorder must be less than window_length")
-    # centred positions for numerical conditioning
-    pos = np.arange(w, dtype=np.float64) - (w - 1) / 2.0
-    V = np.vander(pos, N=polyorder + 1, increasing=True)
-    return V @ np.linalg.pinv(V)
+    with span("flatten.design", window_length=w, polyorder=int(polyorder)):
+        # centred positions for numerical conditioning
+        pos = np.arange(w, dtype=np.float64) - (w - 1) / 2.0
+        V = np.vander(pos, N=polyorder + 1, increasing=True)
+        return V @ np.linalg.pinv(V)
 
 
 def _centred(xc, h):
@@ -98,12 +100,14 @@ def savgol_filter_interp(x, H, seg_lo=None, seg_hi=None):
     start = torch.minimum(start, torch.maximum(lo, hi - w))
     shifted = ((hi - lo) >= w) & (start != idx - hw)
     rr, ii = torch.nonzero(shifted, as_tuple=True)
+    count("host_sync")                  # nonzero waits for the device
     if rr.numel():
         st = start[rr, ii]
         # one window per segment end, numbered in row-major order
         ends = torch.zeros((rows, n), dtype=torch.bool, device=dev)
         ends[rr, st] = True
         r, s = torch.nonzero(ends, as_tuple=True)
+        count("host_sync")
         win_id = torch.zeros((rows, n), dtype=torch.int64, device=dev)
         win_id[r, s] = torch.arange(r.numel(), device=dev)
         win = xc[r[:, None], s[:, None] + torch.arange(w, device=dev)]

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..config import numpy_dtype
+from ..diagnostics import count, span
 
 log = logging.getLogger(__name__)
 
@@ -45,6 +46,13 @@ def _reduce_winner(out, n_valid):
     idx = torch.argmax(power, dim=1)[:, None]
     return torch.stack([torch.gather(out[f], 1, idx)[:, 0]
                         for f in _FIELDS])
+
+
+def _host_bool(x):
+    """A one-element device tensor read on the host, which waits for the
+    device: counted as ``host_sync``."""
+    count("host_sync")
+    return bool(x)
 
 
 def _k_max(durations, d_phase):
@@ -194,19 +202,21 @@ class SweepRunner:
     def _save(self):
         if self.mesh is not None and not self.mesh.is_lead:
             return                      # one rank writes the mesh's file
-        # _merge REPLACES the state arrays, so this snapshot by reference
-        # stays consistent while a background write reads it
-        payload = dict(periods=self.periods, next_chunk=self.next_chunk,
-                       chunk_periods=self.chunk_periods, **self.state)
-        if not self.async_save:
-            self._write_npz(payload)
-            return
-        if self._save_pool is None:
-            self._save_pool = ThreadPoolExecutor(
-                1, thread_name_prefix="lk-torch-sweep-ckpt")
-        if self._pending_save is not None:
-            self._pending_save.result()            # one write in flight
-        self._pending_save = self._save_pool.submit(self._write_npz, payload)
+        with span("sweep.save"):
+            # _merge REPLACES the state arrays, so this snapshot by
+            # reference stays consistent while a background write reads it
+            payload = dict(periods=self.periods, next_chunk=self.next_chunk,
+                           chunk_periods=self.chunk_periods, **self.state)
+            if not self.async_save:
+                self._write_npz(payload)
+                return
+            if self._save_pool is None:
+                self._save_pool = ThreadPoolExecutor(
+                    1, thread_name_prefix="lk-torch-sweep-ckpt")
+            if self._pending_save is not None:
+                self._pending_save.result()        # one write in flight
+            self._pending_save = self._save_pool.submit(self._write_npz,
+                                                        payload)
 
     def flush_saves(self):
         """Block until any in-flight checkpoint write lands, and stop the
@@ -239,7 +249,7 @@ class SweepRunner:
         # per-curve-constant weights (all cadences valid, row-constant
         # flux_err) take the uniform regime
         err = stack.flux_err
-        uniform = bool(torch.all(stack.mask)) and bool(
+        uniform = _host_bool(torch.all(stack.mask)) and _host_bool(
             torch.all(err == err[:, :1]))
         k_max = _k_max(self.durations, d_phase)
         oversample, objective = self.oversample, self.objective
@@ -253,7 +263,7 @@ class SweepRunner:
             return _reduce_winner(out, n_valid)
 
         time = stack.time
-        if not bool(torch.all(time == time[0:1])):
+        if not _host_bool(torch.all(time == time[0:1])):
             return self._make_bucketed_step(search, dy)
         t_row = time[0].to(dtype)
         return lambda pvals, n_valid: search(t_row, stack.flux, dy, pvals,
@@ -267,9 +277,9 @@ class SweepRunner:
         from .grid import sharded_bls
         stack = self.stack
         err = stack.flux_err
-        uniform = bool(torch.all(stack.mask)) and bool(
+        uniform = _host_bool(torch.all(stack.mask)) and _host_bool(
             torch.all(err == err[:, :1]))
-        shared = bool(torch.all(stack.time == stack.time[0:1]))
+        shared = _host_bool(torch.all(stack.time == stack.time[0:1]))
         # the durations stay a host float64 array: sharded_bls derives the
         # grid geometry (d_phase, nbins) from them, and a float32 round
         # trip would put the bin edges elsewhere than the unsharded
@@ -293,6 +303,7 @@ class SweepRunner:
         Past 32 buckets the per-curve methods are likely faster, and a
         warning says so."""
         stack = self.stack
+        count("host_sync")
         time_np = stack.time.cpu().numpy()
         B = time_np.shape[0]
         key_to_bucket, buckets = {}, []
@@ -347,17 +358,18 @@ class SweepRunner:
         return step
 
     def _merge(self, stacked):
-        out = {f: stacked[i] for i, f in enumerate(_FIELDS)}
-        better = out["power"] > self.state["power"]
-        for f in _FIELDS:
-            self.state[f] = np.where(better, out[f], self.state[f])
-        self.next_chunk += 1
-        if (self.next_chunk % self.save_every == 0
-                or self.next_chunk >= self.n_chunks):
-            self._save()
-        log.info("Sweep chunk %d/%d done (best power so far: %.3g)",
-                 self.next_chunk, self.n_chunks,
-                 float(np.nanmax(self.state["power"])))
+        with span("sweep.merge"):
+            out = {f: stacked[i] for i, f in enumerate(_FIELDS)}
+            better = out["power"] > self.state["power"]
+            for f in _FIELDS:
+                self.state[f] = np.where(better, out[f], self.state[f])
+            self.next_chunk += 1
+            if (self.next_chunk % self.save_every == 0
+                    or self.next_chunk >= self.n_chunks):
+                self._save()
+            log.info("Sweep chunk %d/%d done (best power so far: %.3g)",
+                     self.next_chunk, self.n_chunks,
+                     float(np.nanmax(self.state["power"])))
 
     @staticmethod
     def _to_host(winners):
@@ -379,37 +391,51 @@ class SweepRunner:
         for, so the host merge and checkpoint IO overlap the device.  On a
         mesh the run ends with a barrier once the checkpoint is written, so
         a runner made next on any rank reads it whole.  Returns the
-        best-so-far dict."""
-        step = self._make_step()
-        np_dtype = numpy_dtype(self.stack.flux.dtype)
+        best-so-far dict.
+
+        Spans (:mod:`lightkurve_tpu_torch.diagnostics`): ``sweep`` around
+        the run; ``sweep.prepare`` (the step's set-up); per chunk
+        ``sweep.chunk`` with ``sweep.dispatch`` (its step and winner
+        copy), then the previous chunk's ``sweep.wait`` and
+        ``sweep.merge`` (with ``sweep.save``); the last chunk's wait and
+        merge under ``sweep``; ``sweep.flush``."""
         n_do = self.n_chunks - self.next_chunk
         if max_chunks is not None:
             n_do = min(n_do, max_chunks)
-        pending = None
-        try:
-            for i in range(self.next_chunk, self.next_chunk + n_do):
-                lo = i * self.chunk_periods
-                hi = min(lo + self.chunk_periods, len(self.periods))
-                pchunk = self.periods[lo:hi]
-                # pad the final chunk so every step has one shape
-                pad = self.chunk_periods - len(pchunk)
-                pvals = np.pad(pchunk, (0, pad),
-                               constant_values=pchunk[-1]).astype(np_dtype)
-                nxt = self._to_host(step(pvals, len(pchunk)))
+        with span("sweep", chunks=n_do, curves=len(self.stack)):
+            with span("sweep.prepare"):
+                step = self._make_step()
+            np_dtype = numpy_dtype(self.stack.flux.dtype)
+            pending = None
+            try:
+                for i in range(self.next_chunk, self.next_chunk + n_do):
+                    lo = i * self.chunk_periods
+                    hi = min(lo + self.chunk_periods, len(self.periods))
+                    with span("sweep.chunk", index=i, lo=lo, hi=hi):
+                        pchunk = self.periods[lo:hi]
+                        # pad the final chunk so every step has one shape
+                        pad = self.chunk_periods - len(pchunk)
+                        pvals = np.pad(pchunk, (0, pad),
+                                       constant_values=pchunk[-1]
+                                       ).astype(np_dtype)
+                        with span("sweep.dispatch"):
+                            nxt = self._to_host(step(pvals, len(pchunk)))
+                        if pending is not None:
+                            self._merge(self._wait(pending))
+                        pending = nxt
                 if pending is not None:
                     self._merge(self._wait(pending))
-                pending = nxt
-            if pending is not None:
-                self._merge(self._wait(pending))
-        finally:
-            self.flush_saves()
-        if self.mesh is not None:
-            self.mesh.barrier()
+            finally:
+                with span("sweep.flush"):
+                    self.flush_saves()
+            if self.mesh is not None:
+                self.mesh.barrier()
         return dict(self.state)
 
     @staticmethod
     def _wait(pending):
-        host, done = pending
-        if done is not None:
-            done.synchronize()
-        return host.numpy()
+        with span("sweep.wait"):
+            host, done = pending
+            if done is not None:
+                done.synchronize()
+            return host.numpy()

@@ -78,20 +78,29 @@ def mesh_sweep(stack, periods, durations, directory, mesh, n_chunks=None,
     by a fresh runner, each from its own checkpoint in ``directory`` (one
     directory for every rank).  Returns the uninterrupted and the resumed
     states, each chunk's seconds on this rank and the gathers' seconds per
-    chunk (the mesh's, over the uninterrupted run)."""
+    chunk (this rank's ``mesh.gather`` spans over the uninterrupted run,
+    recorded under :func:`.diagnostics.enable`)."""
+    from .. import diagnostics
     from .checkpoint import SweepRunner
     first = os.path.join(directory, f"{tag}_ref.npz")
     runner = SweepRunner(stack, periods, durations, first, mesh=mesh, **kw)
     n_chunks = runner.n_chunks if n_chunks is None else n_chunks
     chunk_s, gather_s = [], []
-    for _ in range(n_chunks):
-        before = len(mesh.gather_seconds)
-        if stack.device.type == "cuda":
-            torch.cuda.synchronize(stack.device)
-        t0 = time.perf_counter()
-        ref = runner.run(max_chunks=1)
-        chunk_s.append(time.perf_counter() - t0)
-        gather_s.append(float(sum(mesh.gather_seconds[before:])))
+    was_on = diagnostics.enable()
+    try:
+        for _ in range(n_chunks):
+            before = len(diagnostics.spans())
+            if stack.device.type == "cuda":
+                torch.cuda.synchronize(stack.device)
+            t0 = time.perf_counter()
+            ref = runner.run(max_chunks=1)
+            chunk_s.append(time.perf_counter() - t0)
+            gather_s.append(1e-9 * sum(
+                s.end_ns - s.start_ns for s in diagnostics.spans()[before:]
+                if s.name == "mesh.gather"))
+    finally:
+        if not was_on:
+            diagnostics.disable()
     killed = os.path.join(directory, f"{tag}_kill.npz")
     r1 = SweepRunner(stack, periods, durations, killed, mesh=mesh, **kw)
     r1.run(max_chunks=kill_after)

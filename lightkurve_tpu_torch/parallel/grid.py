@@ -22,13 +22,13 @@ gather, as in the reference.  The caller initialises the process group
 from __future__ import annotations
 
 import os
-import time
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
 from ..config import resolve_device
+from ..diagnostics import span
 from .checkpoint import _FIELDS
 
 __all__ = ["Mesh", "make_mesh", "sharded_bls", "sharded_lombscargle",
@@ -54,8 +54,10 @@ class Mesh:
     device_mesh : the ``torch.distributed.device_mesh.DeviceMesh`` it
         wraps (``mesh_dim_names=("targets", "grid")``), ``None`` for the
         1x1 mesh of a process without a process group.
-    gather_seconds : host seconds of each gather this rank made through
-        the mesh, from the end of its device work to the gathered result.
+
+    Each gather through the mesh is a span ``mesh.gather`` (attributes
+    ``axis``, ``ranks``; :mod:`lightkurve_tpu_torch.diagnostics`), from
+    the end of this rank's device work to the gathered result.
     """
 
     def __init__(self, ranks, device, device_mesh=None):
@@ -67,7 +69,6 @@ class Mesh:
         rank = dist.get_rank() if device_mesh is not None else 0
         hit = np.argwhere(self.ranks == rank)
         self.coordinate = tuple(int(c) for c in hit[0]) if len(hit) else None
-        self.gather_seconds = []
 
     def __repr__(self):
         return (f"Mesh({self.shape}, coordinate={self.coordinate}, "
@@ -97,10 +98,9 @@ class Mesh:
         x = x.contiguous()
         if x.device.type == "cuda":
             torch.cuda.synchronize(x.device)
-        t0 = time.perf_counter()
-        blocks = [torch.empty_like(x) for _ in range(size)]
-        dist.all_gather(blocks, x, group=group)
-        self.gather_seconds.append(time.perf_counter() - t0)
+        with span("mesh.gather", axis=axis, ranks=size):
+            blocks = [torch.empty_like(x) for _ in range(size)]
+            dist.all_gather(blocks, x, group=group)
         dim = AXES.index(axis)
         # the group's ranks in group-rank order, each put at its coordinate
         order = [int(np.argwhere(self.ranks == r)[0][dim])

@@ -345,6 +345,11 @@ def test_mesh_sweep_kill_resume_matches_reference(ranks, tmp_path, mesh):
     np.testing.assert_array_equal(got["period"], want["period"])
     np.testing.assert_array_equal(got["duration"], want["duration"])
     assert len(out["chunk_seconds"]) == len(SWEEP_PERIODS) // 16
+    # each chunk gathers along a mesh axis of more than one rank: its
+    # mesh.gather spans read under diagnostics.enable()
+    assert len(out["gather_seconds"]) == len(out["chunk_seconds"])
+    assert all(0 < g < c for g, c in zip(out["gather_seconds"],
+                                         out["chunk_seconds"]))
 
 
 def test_mesh_sweep_checkpoints_hold_the_whole_state(ranks):
