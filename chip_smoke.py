@@ -1112,11 +1112,50 @@ def phase_main_shapes():
                 log(f"{name} block at {rows_cap} rows: {warps} warps, "
                     f"{blocks} resident blocks per SM ({warps * blocks} "
                     f"warps per SM, occupancy calculator)")
-                fused_breakdown(name, kern, x["weighted_args" if weighted
-                                              else "fold_args"], weighted)
+                args = x["weighted_args" if weighted else "fold_args"]
+                deposit_runs(name, kern, args, rows_cap, weighted)
+                fused_breakdown(name, kern, args, weighted)
         del x
         torch.cuda.empty_cache()
     return errs, times, bounds, launches
+
+
+def deposit_runs(name, kern, args, rows_cap, weighted):
+    """A fused kernel's staged runs of 32 samples by the scan rounds their
+    groups need: the ``bls.deposit_runs.*`` counters of one call on
+    ``args`` with diagnostics recording.  Each block counts the runs it
+    stages, so they add up to periods x blocks x ceil(n / 32); the call's
+    outputs must equal an unrecorded call's bit for bit.  Logs and returns
+    the counts."""
+    import torch
+    from lightkurve_tpu_torch import diagnostics
+    from lightkurve_tpu_torch.ops import bls_fused
+    plain = kern(*args)
+    before = diagnostics.counters()
+    was = diagnostics.enable()
+    try:
+        got = kern(*args)
+        torch.cuda.synchronize()
+    finally:
+        if not was:
+            diagnostics.disable()
+    after = diagnostics.counters()
+    runs = {k: after.get(k, 0) - before.get(k, 0)
+            for k in bls_fused.DEPOSIT_RUNS}
+    n, B = args[1].shape
+    P = args[3 if weighted else 2].shape[0]
+    warps, _ = bls_fused.fused_block(rows_cap, args[1].dtype, "cuda",
+                                     weighted)
+    want = P * -(-B // warps) * -(-n // 32)
+    log(f"{name} deposit runs ({P} periods x {-(-B // warps)} blocks x "
+        f"{-(-n // 32)} runs = {want}): " + ", ".join(
+            f"{k.rsplit('.', 1)[1]} {v}" for k, v in runs.items()))
+    if sum(runs.values()) != want:
+        raise AssertionError(f"{name}: {sum(runs.values())} runs counted, "
+                             f"{want} staged")
+    if not all(torch.equal(got[f], plain[f]) for f in got):
+        raise AssertionError(f"{name}: a recorded call's outputs differ")
+    return runs
 
 
 def first_periods(args, per_period, k=8):

@@ -13,15 +13,21 @@
 //     with __match_any_sync.  Equal ids need not be adjacent (a period
 //     shorter than 32 cadences, or an unsorted time grid), so a run is
 //     staged one of two ways: when every group is a contiguous range of
-//     lanes, by where each group starts; otherwise by each group's lowest
+//     lanes, by where each group starts (in the lane's id word) and the
+//     scan rounds its widest group needs; otherwise by each group's lowest
 //     lane (its leader) and the mask of the others.
 //   * Deposits.  Each warp reads 32 consecutive samples of its curve (the
 //     curves are rows of a (B, n) array, so one 128-byte segment in
 //     float32), sums each group -- by a segmented warp scan in a run of
 //     contiguous groups, else on the leader in ascending lane order -- and
-//     one lane per group adds the sum to the row.  No float atomics, and
-//     the order of every sum is fixed, so the result is the same from run
-//     to run.
+//     one lane per group adds the sum to the row.  The scan runs only the
+//     rounds that the run's widest group needs (staged with the ids):
+//     none where every sample has a bin of its own, as at a cadence
+//     longer than the bin width, two for groups of 3-4 samples.  A round
+//     past the widest group adds nothing to any depositing lane, so the
+//     sums are those of the full 5-round scan, bit for bit.  No float
+//     atomics, and the order of every sum is fixed, so the result is the
+//     same from run to run.
 //   * Prefix.  A warp scan turns the column into inclusive prefix sums P0
 //     of the single-deposit fold; in wrap mode the extension rows
 //     r in [nbp, nbp + k_max - 1) then become P0[r] + P0[r - nbp], which is
@@ -37,6 +43,20 @@
 // memory fits the device's opt-in limit: the one with the most resident
 // warps per SM by the occupancy calculator (registers included), the
 // widest on ties.
+//
+// What bounds the fold on the H100: per run of 32 samples a warp sends NV
+// global loads, 2 shared loads of staged words (the run's rounds and the
+// lane's id word; a scattered run also its leader's mask), NV shuffles a
+// scan round and 2 x NV shared loads and stores for the deposit, all on
+// the SM's shared-memory and shuffle pipe (MIO), one per clock.
+// With NV = 2 (K-WF) that is 8 at a cadence longer than the bin width (no
+// round) and 12 for groups of 3-4 samples (two rounds), where a fixed
+// 5-round scan that read 3 staged words sent 19; the L2 traffic (8
+// bytes a sample, curve and period) stays below what the card delivers,
+// so the MIO pipe, not L2, sets the fold's pace at the block widths that
+// keep many warps resident.  Where few are (long periods), the latency of
+// each run's chain of loads and shuffles does: the deposit starts a whole
+// batch's staged loads before its first shuffle.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -49,15 +69,28 @@ constexpr int kLkMaxWarps = 32;   // curves (warps) per block at most
 constexpr int kLkIdTile = 512;    // samples whose fold ids are staged at once
 constexpr int kLkBatch = 4;       // runs of 32 samples loaded ahead
 
+// A staged run's word: the scan rounds its contiguous groups need (0-5),
+// or kLkScattered where a group is not a contiguous range of lanes.
+constexpr signed char kLkScattered = -1;
+// A staged id word's low 16 bits where its lane does not deposit (rows stay
+// below it: a block's shared memory holds fewer than 2^16 rows).
+constexpr int kLkNoId = 0xFFFF;
+// Kinds of staged runs a launch counts: runs at 0-5 rounds, scattered runs.
+constexpr int kLkRunKinds = 7;
+// The block's run region: a word per run of a tile, then kLkRunKinds
+// counts of the runs the block staged.
+constexpr size_t kLkRunBytes = (kLkIdTile / 32) * sizeof(int);
+static_assert(kLkIdTile / 32 + kLkRunKinds * sizeof(int) <= kLkRunBytes,
+              "the run words and counts outgrow their region");
+
 // Shared memory of one fused block: ``per_warp_row`` bytes per row for
 // each of ``warps`` curves, ``shared_row`` bytes per row for the block
-// (K-F's count column), and the staged ids, lane masks and run flags.
+// (K-F's count column), the staged ids and lane masks, and the run region.
 // The same formula is ops/bls_fused.fused_smem_bytes on the host.
 inline size_t lk_fold_smem_bytes(int rows_cap, int warps, size_t per_warp_row,
                                  size_t shared_row) {
   return (size_t)rows_cap * (warps * per_warp_row + shared_row) +
-         (size_t)kLkIdTile * (sizeof(int) + sizeof(unsigned)) +
-         (size_t)(kLkIdTile / 32) * sizeof(int);
+         (size_t)kLkIdTile * (sizeof(int) + sizeof(unsigned)) + kLkRunBytes;
 }
 
 inline int lk_shared_optin(int dev) {
@@ -108,21 +141,30 @@ cudaError_t lk_fold_block(Kernel kernel, int rows_cap, size_t per_warp_row,
   return best_w > 0 ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// The block's counts of staged runs, by kind, after the run words.
+__device__ __forceinline__ int* lk_run_kinds(signed char* srun) {
+  return reinterpret_cast<int*>(srun + kLkIdTile / 32);
+}
+
 // Stage the fold ids of samples [i0, i0 + m) of one period (m <= kLkIdTile)
-// for the whole block, per aligned run of 32 samples.  When every group of
-// equal ids in the run is a contiguous range of lanes (the usual case: a
-// sorted time grid at periods longer than 32 cadences), srun[run] is 1,
-// the group's LAST lane deposits (sid[i] = id, -1 on the others) and
-// speer[i] holds the lane where its group starts.  Otherwise srun[run] is
-// 0, the group's lowest lane (its leader) deposits and speer[i] holds the
-// leader's other lanes, ascending.  Ids outside the ``rows`` rows are -1.
-// ``cnt`` (or nullptr) gets each group's size added at its id (integer
-// shared atomics: exact, so order-free).  The tail up to a multiple of 32
-// is staged as -1.
+// for the whole block, per aligned run of 32 samples.  The low 16 bits of
+// sid[i] hold the id where lane i deposits, kLkNoId elsewhere.  When every
+// group of equal ids in the run is a contiguous range of lanes (the usual
+// case: a sorted time grid at periods longer than 32 cadences), srun[run]
+// holds the scan rounds its widest depositing group needs,
+// ceil(log2(width)), the group's LAST lane deposits and the bits of sid[i]
+// above the id hold the lane where its group starts.  Otherwise srun[run]
+// is kLkScattered, the group's lowest lane (its leader) deposits and
+// speer[i] holds the leader's other lanes, ascending.  Ids outside the
+// ``rows`` rows (and the tail up to a multiple of 32) deposit nowhere.
+// ``cnt`` (or nullptr) gets each group's size added at its id and, when
+// the launch counts (``run_counts`` not nullptr), the block's count of the
+// run's kind one (integer shared atomics: exact, so order-free).
 template <typename T>
 __device__ __forceinline__ void lk_stage_fold_ids(
     const T* __restrict__ ts, int m, T period, T inv_d_phase, int nbins,
-    int rows, int* sid, unsigned* speer, int* srun, int* cnt) {
+    int rows, int* sid, unsigned* speer, signed char* srun, int* cnt,
+    const unsigned long long* run_counts) {
   const int lane = threadIdx.x & 31;
   const int m32 = (m + 31) & ~31;
   for (int i = threadIdx.x; i < m32; i += blockDim.x) {
@@ -140,57 +182,78 @@ __device__ __forceinline__ void lk_stage_fold_ids(
     const bool contig = __all_sync(
         LK_FULL_MASK,
         peers == ((LK_FULL_MASK >> (31 - last)) & (LK_FULL_MASK << first)));
-    const bool dep = lane == (contig ? last : first) && id >= 0 && id < rows;
-    sid[i] = dep ? id : -1;
-    speer[i] = contig ? (unsigned)first
-                      : (dep ? (peers & (peers - 1u)) : 0u);
-    if (lane == 0) srun[i / 32] = contig;
+    const bool kept = id >= 0 && id < rows;
+    const bool dep = lane == (contig ? last : first) && kept;
+    const int widest = __reduce_max_sync(LK_FULL_MASK,
+                                         kept ? __popc(peers) : 1);
+    const int rounds = widest > 1 ? 32 - __clz(widest - 1) : 0;
+    // the lane's word: its id where it deposits, else kLkNoId, and in a
+    // contiguous run the lane where its group starts above it
+    sid[i] = (dep ? id : kLkNoId) | (contig ? first << 16 : 0);
+    if (!contig) speer[i] = dep ? (peers & (peers - 1u)) : 0u;
+    if (lane == 0) {
+      srun[i / 32] = contig ? (signed char)rounds : kLkScattered;
+      if (run_counts != nullptr)
+        atomicAdd(lk_run_kinds(srun) + (contig ? rounds : kLkRunKinds - 1),
+                  1);
+    }
     if (cnt != nullptr && dep) atomicAdd(&cnt[id], __popc(peers));
   }
 }
 
 // One warp deposits samples [0, m) of its curve (``src0``, and ``src1``
-// when NV == 2, already offset to the tile) into its columns.  A run whose
-// groups are contiguous sums each group by a segmented warp scan (a fixed
-// tree order; the sum lands on the group's last lane); any other run sums
+// when NV == 2, already offset to the tile) into its columns, kLkBatch
+// runs at a time, their values and staged words loaded first.  A run whose
+// groups are contiguous sums each group by a segmented warp scan of the
+// run's staged rounds (a fixed tree order; the sum lands on the group's
+// last lane; no round where every group is one lane); any other run sums
 // each group on its leader in ascending lane order.  Then one lane per
 // group adds the sum to the row.
 template <typename T, int NV>
 __device__ __forceinline__ void lk_deposit_tile(
     const T* __restrict__ src0, const T* __restrict__ src1, int m,
-    const int* sid, const unsigned* speer, const int* srun, T* col0,
+    const int* sid, const unsigned* speer, const signed char* srun, T* col0,
     T* col1) {
   const int lane = threadIdx.x & 31;
   for (int c0 = 0; c0 < m; c0 += 32 * kLkBatch) {
     T v[kLkBatch][NV];
+    int words[kLkBatch], runs[kLkBatch];
 #pragma unroll
     for (int u = 0; u < kLkBatch; ++u) {
       const int i = c0 + 32 * u + lane;
       v[u][0] = i < m ? src0[i] : (T)0;
       if (NV == 2) v[u][NV - 1] = i < m ? src1[i] : (T)0;
+      words[u] = sid[i];                      // i < kLkIdTile; past m unused
+      runs[u] = srun[c0 / 32 + u];
     }
 #pragma unroll
     for (int u = 0; u < kLkBatch; ++u) {
       const int c = c0 + 32 * u;
       if (c >= m) break;                      // the same for the warp
       const int i = c + lane;
-      const int id = sid[i];
-      const unsigned info = speer[i];
+      const int word = words[u];
+      const int id = word & kLkNoId;
+      const int rounds = runs[u];             // the same for the warp
       T s[NV];
 #pragma unroll
       for (int q = 0; q < NV; ++q) s[q] = v[u][q];
-      if (srun[c / 32]) {                     // the same for the warp
-        const int first = (int)info;
+      if (rounds > 0) {
+        // a round adds the value ``off`` lanes down while that lane is in
+        // the group; rounds with off >= 2^rounds would add nothing to a
+        // depositing lane
+        const int first = word >> 16;
+        const int span = 1 << rounds;
 #pragma unroll
         for (int off = 1; off < 32; off <<= 1) {
+          if (off >= span) break;             // the same for the warp
 #pragma unroll
           for (int q = 0; q < NV; ++q) {
             const T o = __shfl_up_sync(LK_FULL_MASK, s[q], off);
             if (lane - off >= first) s[q] += o;
           }
         }
-      } else {
-        unsigned rest = info;
+      } else if (rounds == kLkScattered) {
+        unsigned rest = speer[i];
         while (__any_sync(LK_FULL_MASK, rest != 0u)) {
           const int from = rest ? __ffs(rest) - 1 : lane;
 #pragma unroll
@@ -201,12 +264,29 @@ __device__ __forceinline__ void lk_deposit_tile(
           rest &= rest - 1u;
         }
       }
-      if (id >= 0) {
+      if (id != kLkNoId) {
         col0[id] += s[0];
         if (NV == 2) col1[id] += s[NV - 1];
       }
     }
   }
+}
+
+// Zero the block's run counts when the launch counts (``run_counts`` not
+// nullptr); the caller syncs the block before the first staging.
+__device__ __forceinline__ void lk_zero_run_kinds(
+    signed char* srun, const unsigned long long* run_counts) {
+  if (run_counts != nullptr && threadIdx.x < kLkRunKinds)
+    lk_run_kinds(srun)[threadIdx.x] = 0;
+}
+
+// Add the block's run counts to the launch's ``run_counts`` (one integer
+// atomic per kind: exact in any order), after the last staging's barrier.
+__device__ __forceinline__ void lk_flush_run_kinds(
+    signed char* srun, unsigned long long* run_counts) {
+  if (run_counts == nullptr || threadIdx.x >= kLkRunKinds) return;
+  const int n = lk_run_kinds(srun)[threadIdx.x];
+  if (n != 0) atomicAdd(&run_counts[threadIdx.x], (unsigned long long)n);
 }
 
 // Inclusive prefix sums of col[0, rows) by one warp, 32 rows per step.  A

@@ -20,7 +20,9 @@
 // column is shared by the block's curves: integer shared atomics on the
 // staged ids, then one warp's scan.  A period whose rows (nbins_p + k_max
 // - 1) exceed rows_cap -- the caller's host bound on nbins_p -- gets NaN
-// statistics, never a silent clamp.
+// statistics, never a silent clamp.  With ``run_counts`` (7 int64, or
+// nullptr) each block adds the runs of 32 samples it staged, by kind: at
+// 0-5 scan rounds, scattered.
 //
 // What bounds it on the H100: the bound chip_smoke.py computes is the
 // count-based window arithmetic (~7 operations per window and curve) and
@@ -28,23 +30,31 @@
 // fold: every period re-reads its curves' flux (n x B values, from L2: the
 // period index is the fastest grid axis, so concurrently resident blocks
 // share one curve tile) and does a shared read-modify-write per group of
-// equal ids; the rest is the window scan, whose count terms every warp
-// of a block recomputes.  Each curve's prefix column lives in shared
-// memory, so the block narrows as the rows grow (PERF.md).
+// equal ids, its segmented scan running only the rounds the run's groups
+// need (bls_fold_warp.cuh: per run of 32 samples of one value, 5 MIO
+// instructions at no round, 7 at two, 11 with a fixed 5-round scan); the
+// rest is the window scan, whose count terms every warp of a block
+// recomputes.  Each curve's prefix column lives in shared memory, so the
+// block narrows as the rows grow (PERF.md).
 #include <cuda_runtime.h>
 
 #include "bls_fold_warp.cuh"
 
 namespace {
 
+// At most 40 registers in float32: left to itself the compiler takes about
+// 55 for the deposit's branches on its scan rounds, which keeps 36 warps
+// resident per SM where 40 keep 48 (824 rows); 64 in float64, as a block
+// of 1024 threads needs.
 template <typename T>
-__global__ void __launch_bounds__(kLkMaxWarps * 32)
+__global__ void __maxnreg__(sizeof(T) == 4 ? 40 : 64)
 fused_uniform_kernel(const T* __restrict__ ts, const T* __restrict__ Yt,
                      const T* __restrict__ tot_y, const T* __restrict__ pc,
                      const int* __restrict__ nbins_p, int n, int B, int nbins,
                      int k_max, int rows_cap, LkDurations durs, T d_phase,
                      T inv_d_phase, T n_total, int likelihood, int wrap,
-                     T* power, T* depth, T* n_in, T* t0, T* dur) {
+                     T* power, T* depth, T* n_in, T* t0, T* dur,
+                     unsigned long long* run_counts) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int warps = blockDim.x / 32;
   const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
@@ -69,23 +79,25 @@ fused_uniform_kernel(const T* __restrict__ ts, const T* __restrict__ Yt,
                                     (size_t)warps * rows_cap);
   int* sid = cnt + rows_cap;                                // [kLkIdTile]
   unsigned* speer = reinterpret_cast<unsigned*>(sid + kLkIdTile);
-  int* srun = reinterpret_cast<int*>(speer + kLkIdTile);    // [kLkIdTile / 32]
+  signed char* srun = reinterpret_cast<signed char*>(speer + kLkIdTile);
 
   for (int r = lane; r < rows; r += 32) col[r] = (T)0;
   for (int r = threadIdx.x; r < rows; r += blockDim.x) cnt[r] = 0;
+  lk_zero_run_kinds(srun, run_counts);
   __syncthreads();
 
   const T* y = Yt + (size_t)(active ? b : 0) * n;
   for (int i0 = 0; i0 < n; i0 += kLkIdTile) {
     const int m = min(kLkIdTile, n - i0);
     lk_stage_fold_ids<T>(ts + i0, m, period, inv_d_phase, nbins, rows, sid,
-                         speer, srun, cnt);
+                         speer, srun, cnt, run_counts);
     __syncthreads();
     if (active)
       lk_deposit_tile<T, 1>(y + i0, nullptr, m, sid, speer, srun, col,
                             nullptr);
     __syncthreads();
   }
+  lk_flush_run_kinds(srun, run_counts);
 
   if (warp == 0) {
     lk_warp_prefix<int>(cnt, rows);
@@ -134,9 +146,9 @@ int launch(const T* ts, const T* Yt, const T* tot_y, const T* pc,
            int rows_cap, const int* k_durs, const double* dur_values,
            int n_durs, double d_phase, double inv_d_phase, int likelihood,
            int wrap, T* power, T* depth, T* n_in, T* t0, T* dur,
-           void* stream) {
+           unsigned long long* run_counts, void* stream) {
   if (n_durs < 1 || n_durs > LK_MAX_DURS || n < 1 || B < 1 || P < 1 ||
-      nbins < 1 || k_max < 1 || rows_cap < 1)
+      nbins < 1 || k_max < 1 || rows_cap < 1 || rows_cap >= kLkNoId)
     return (int)cudaErrorInvalidValue;
   LkDurations durs;
   durs.n = n_durs;
@@ -153,7 +165,7 @@ int launch(const T* ts, const T* Yt, const T* tot_y, const T* pc,
   fused_uniform_kernel<T><<<grid, 32 * warps, smem, (cudaStream_t)stream>>>(
       ts, Yt, tot_y, pc, nbins_p, n, B, nbins, k_max, rows_cap, durs,
       (T)d_phase, (T)inv_d_phase, (T)n, likelihood, wrap, power, depth, n_in,
-      t0, dur);
+      t0, dur, run_counts);
   return (int)cudaGetLastError();
 }
 
@@ -175,7 +187,8 @@ int lk_bls_fused_uniform_block(int f64, int rows_cap, int* warps,
                    : block_of<float>(rows_cap, warps, blocks));
 }
 
-// ``Yt`` is the mean-shifted flux as (B, n), one curve per row.
+// ``Yt`` is the mean-shifted flux as (B, n), one curve per row;
+// ``run_counts``: 7 int64 the launch adds its staged runs to, or nullptr.
 int lk_bls_fused_uniform_f32(const float* ts, const float* Yt,
                              const float* tot_y, const float* pc,
                              const int* nbins_p, int n, int B, int P,
@@ -185,11 +198,12 @@ int lk_bls_fused_uniform_f32(const float* ts, const float* Yt,
                              double inv_d_phase, int likelihood,
                              int wrap, float* power, float* depth,
                              float* n_in, float* t0, float* dur,
+                             unsigned long long* run_counts,
                              void* stream) {
   return launch<float>(ts, Yt, tot_y, pc, nbins_p, n, B, P, nbins, k_max,
                        rows_cap, k_durs, dur_values, n_durs, d_phase,
                        inv_d_phase, likelihood, wrap, power, depth,
-                       n_in, t0, dur, stream);
+                       n_in, t0, dur, run_counts, stream);
 }
 
 int lk_bls_fused_uniform_f64(const double* ts, const double* Yt,
@@ -201,11 +215,12 @@ int lk_bls_fused_uniform_f64(const double* ts, const double* Yt,
                              double inv_d_phase, int likelihood,
                              int wrap, double* power, double* depth,
                              double* n_in, double* t0, double* dur,
+                             unsigned long long* run_counts,
                              void* stream) {
   return launch<double>(ts, Yt, tot_y, pc, nbins_p, n, B, P, nbins, k_max,
                         rows_cap, k_durs, dur_values, n_durs, d_phase,
                         inv_d_phase, likelihood, wrap, power, depth,
-                        n_in, t0, dur, stream);
+                        n_in, t0, dur, run_counts, stream);
 }
 
 }  // extern "C"

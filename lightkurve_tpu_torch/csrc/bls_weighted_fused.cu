@@ -24,30 +24,44 @@
 // One launch covers every period of a call: a whole SweepRunner chunk,
 // where the staged route takes a GEMM, a cumsum and a K-W launch per 8
 // periods.  A period whose rows (nbins_p + k_max - 1) exceed rows_cap gets
-// NaN.
+// NaN.  With ``run_counts`` (7 int64, or nullptr) each block adds the
+// runs of 32 samples it staged, by kind: at 0-5 scan rounds, scattered.
 //
 // What bounds it on the H100: the bound chip_smoke.py computes is the
 // window scan (~12 operations per window and curve, three of them
 // divisions) and two adds per deposit; the kernel is far from it, and
 // most of its time is the fold: per period both inputs are re-read from
-// L2 and every sample goes into two columns.  The per-curve weights leave
-// no count column to share, so a block of W curves needs 2 x W columns
-// and fewer warps fit an SM than in K-F (PERF.md).
+// L2 and every sample goes into two columns.  The fold's pace is set by
+// the MIO pipe, not L2 (bls_fold_warp.cuh): per run of 32 samples a warp
+// sends 19 MIO instructions with a fixed 5-round scan, 12 at two rounds
+// (groups of 3-4 samples, TESS's 2-min cadence in 7.2-min bins) and 8 at
+// none (Kepler's 29.4-min cadence), now that the scan runs only the
+// rounds its groups need; on an H100 at 700 W that took a TESS sector's
+// first sweep chunk (2048 curves, 652 periods) from 80.7 to 68.3 ms and a
+// Kepler archive's (1,250 periods) from 621 to 385 ms, the bytes read
+// from L2 unchanged.  The per-curve weights leave no count column to
+// share, so a block of W curves needs 2 x W columns and fewer warps fit
+// an SM than in K-F (PERF.md).
 #include <cuda_runtime.h>
 
 #include "bls_fold_warp.cuh"
 
 namespace {
 
+// At most 48 registers in float32 (left to itself the compiler takes about
+// 53): 42 warps resident per SM where the rows leave shared memory to
+// spare (a TESS sector's short periods), not 36; 64 in float64, as a block
+// of 1024 threads needs.
 template <typename T>
-__global__ void __launch_bounds__(kLkMaxWarps * 32)
+__global__ void __maxnreg__(sizeof(T) == 4 ? 48 : 64)
 fused_weighted_kernel(const T* __restrict__ ts, const T* __restrict__ Wt,
                       const T* __restrict__ WYt, const T* __restrict__ tot_w,
                       const T* __restrict__ tot_wy, const T* __restrict__ pc,
                       const int* __restrict__ nbins_p, int n, int B,
                       int nbins, int k_max, int rows_cap, LkDurations durs,
                       T d_phase, T inv_d_phase, int likelihood, int wrap,
-                      T* power, T* depth, T* w_in, T* t0, T* dur) {
+                      T* power, T* depth, T* w_in, T* t0, T* dur,
+                      unsigned long long* run_counts) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int warps = blockDim.x / 32;
   const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
@@ -71,21 +85,26 @@ fused_weighted_kernel(const T* __restrict__ ts, const T* __restrict__ Wt,
   int* sid = reinterpret_cast<int*>(reinterpret_cast<T*>(smem_raw) +
                                     (size_t)2 * warps * rows_cap);
   unsigned* speer = reinterpret_cast<unsigned*>(sid + kLkIdTile);
-  int* srun = reinterpret_cast<int*>(speer + kLkIdTile);    // [kLkIdTile / 32]
+  signed char* srun = reinterpret_cast<signed char*>(speer + kLkIdTile);
 
   for (int r = lane; r < rows; r += 32) cw[r] = cwy[r] = (T)0;
+  if (run_counts != nullptr) {
+    lk_zero_run_kinds(srun, run_counts);
+    __syncthreads();
+  }
 
   const size_t row0 = (size_t)(active ? b : 0) * n;
   for (int i0 = 0; i0 < n; i0 += kLkIdTile) {
     const int m = min(kLkIdTile, n - i0);
     lk_stage_fold_ids<T>(ts + i0, m, period, inv_d_phase, nbins, rows, sid,
-                         speer, srun, nullptr);
+                         speer, srun, nullptr, run_counts);
     __syncthreads();
     if (active)
       lk_deposit_tile<T, 2>(Wt + row0 + i0, WYt + row0 + i0, m, sid, speer,
                             srun, cw, cwy);
     __syncthreads();
   }
+  lk_flush_run_kinds(srun, run_counts);
   if (!active) return;
   lk_warp_prefix<T>(cw, rows);
   lk_warp_prefix<T>(cwy, rows);
@@ -134,9 +153,10 @@ int launch(const T* ts, const T* Wt, const T* WYt, const T* tot_w,
            int P, int nbins, int k_max, int rows_cap, const int* k_durs,
            const double* dur_values, int n_durs, double d_phase,
            double inv_d_phase, int likelihood, int wrap, T* power, T* depth,
-           T* w_in, T* t0, T* dur, void* stream) {
+           T* w_in, T* t0, T* dur, unsigned long long* run_counts,
+           void* stream) {
   if (n_durs < 1 || n_durs > LK_MAX_DURS || n < 1 || B < 1 || P < 1 ||
-      nbins < 1 || k_max < 1 || rows_cap < 1)
+      nbins < 1 || k_max < 1 || rows_cap < 1 || rows_cap >= kLkNoId)
     return (int)cudaErrorInvalidValue;
   LkDurations durs;
   durs.n = n_durs;
@@ -152,7 +172,7 @@ int launch(const T* ts, const T* Wt, const T* WYt, const T* tot_w,
   fused_weighted_kernel<T><<<grid, 32 * warps, smem, (cudaStream_t)stream>>>(
       ts, Wt, WYt, tot_w, tot_wy, pc, nbins_p, n, B, nbins, k_max, rows_cap,
       durs, (T)d_phase, (T)inv_d_phase, likelihood, wrap, power, depth, w_in,
-      t0, dur);
+      t0, dur, run_counts);
   return (int)cudaGetLastError();
 }
 
@@ -168,7 +188,8 @@ int lk_bls_fused_weighted_block(int f64, int rows_cap, int* warps,
                    : block_of<float>(rows_cap, warps, blocks));
 }
 
-// ``Wt`` / ``WYt``: weights and weighted mean-shifted flux as (B, n).
+// ``Wt`` / ``WYt``: weights and weighted mean-shifted flux as (B, n);
+// ``run_counts``: 7 int64 the launch adds its staged runs to, or nullptr.
 int lk_bls_fused_weighted_f32(const float* ts, const float* Wt,
                               const float* WYt, const float* tot_w,
                               const float* tot_wy, const float* pc,
@@ -179,11 +200,12 @@ int lk_bls_fused_weighted_f32(const float* ts, const float* Wt,
                               double inv_d_phase, int likelihood, int wrap,
                               float* power, float* depth,
                               float* w_in, float* t0, float* dur,
+                              unsigned long long* run_counts,
                               void* stream) {
   return launch<float>(ts, Wt, WYt, tot_w, tot_wy, pc, nbins_p, n, B, P,
                        nbins, k_max, rows_cap, k_durs, dur_values, n_durs,
                        d_phase, inv_d_phase, likelihood, wrap, power,
-                       depth, w_in, t0, dur, stream);
+                       depth, w_in, t0, dur, run_counts, stream);
 }
 
 int lk_bls_fused_weighted_f64(const double* ts, const double* Wt,
@@ -196,11 +218,12 @@ int lk_bls_fused_weighted_f64(const double* ts, const double* Wt,
                               double inv_d_phase, int likelihood, int wrap,
                               double* power, double* depth,
                               double* w_in, double* t0, double* dur,
+                              unsigned long long* run_counts,
                               void* stream) {
   return launch<double>(ts, Wt, WYt, tot_w, tot_wy, pc, nbins_p, n, B, P,
                         nbins, k_max, rows_cap, k_durs, dur_values, n_durs,
                         d_phase, inv_d_phase, likelihood, wrap, power,
-                        depth, w_in, t0, dur, stream);
+                        depth, w_in, t0, dur, run_counts, stream);
 }
 
 }  // extern "C"

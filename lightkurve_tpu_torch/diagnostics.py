@@ -7,6 +7,8 @@ Counterpart of ``lightkurve_tpu/diagnostics.py``:
   directory;
 - :func:`span` / :func:`count` — the program's own spans and counters,
   kept in one registry (:func:`spans`, :func:`counters`, :func:`reset`);
+- :func:`pending_counts` — counters that kernels add to on the device,
+  read into the registry by :func:`counters`;
 - :class:`KernelTimer` / :func:`timed` — wall-clock counters per named
   region, ended by a device synchronisation, kept in the same registry
   and tabled by :func:`report`;
@@ -27,7 +29,10 @@ Chrome trace shows it, and, unlike a user-scope range, the profiler puts
 no copy of it on the device's timeline, so device activity stays device
 work.  A counter adds to its total and to the innermost open span of its
 thread.  The registry keeps at most :data:`MAX_SPANS` spans, then counts
-the ones it drops (:func:`dropped`).
+the ones it drops (:func:`dropped`).  A kernel counts on the device into
+the tensor :func:`pending_counts` hands out, which stays pending until
+:func:`counters` reads it: no launch waits for a read, and those counts go
+to the totals alone, not to a span.
 
 **Reading a trace of the card.**  Profile a region, then put its idle
 time down to the program's steps::
@@ -68,6 +73,7 @@ log = logging.getLogger(__name__)
 __all__ = ["trace", "timed", "annotate", "report", "reset",
            "KernelTimer", "hbm_stats", "span", "count", "set_attrs",
            "enable", "disable", "recording", "spans", "counters", "dropped",
+           "pending_counts",
            "idle_by_span", "busy_intervals", "Span", "MAX_SPANS"]
 
 #: the most spans the registry keeps; later ones are dropped and counted
@@ -115,6 +121,7 @@ class _Registry:
             self.timers = defaultdict(
                 lambda: {"calls": 0, "total_s": 0.0, "max_s": 0.0})
             self.dropped = 0
+            self.pending = {}
 
     def stack(self):
         st = getattr(self.local, "stack", None)
@@ -145,6 +152,24 @@ class _Registry:
             if st and st[-1] is not None:
                 c = st[-1].counts
                 c[name] = c.get(name, 0) + n
+
+    def pending_for(self, names, device):
+        """The pending tensor of ``names`` on ``device``, made zero at the
+        first call."""
+        with self.lock:
+            t = self.pending.get((names, device))
+            if t is None:
+                t = self.pending[(names, device)] = torch.zeros(
+                    len(names), dtype=torch.int64, device=device)
+            return t
+
+    def resolve(self):
+        """Read every pending tensor into the totals and drop it."""
+        with self.lock:
+            pending, self.pending = self.pending, {}
+            for (names, _), t in pending.items():
+                for name, n in zip(names, t.tolist()):
+                    self.totals[name] += n
 
     def time(self, name, dt):
         with self.lock:
@@ -240,6 +265,18 @@ def count(name, n=1):
         _REG.add(name, n)
 
 
+def pending_counts(names, device):
+    """While :func:`recording`, an int64 tensor of ``len(names)`` counts on
+    ``device`` for the device to add to, pending under the counters
+    ``names``; else ``None``.  Every call with the same names and device
+    gets the same tensor until :func:`counters` reads it (one device read)
+    and adds each count to its name's total; :func:`reset` drops it
+    unread."""
+    if not (_explicit or _profiling()):
+        return None
+    return _REG.pending_for(tuple(names), torch.device(device))
+
+
 def set_attrs(**attrs):
     """Add host values to the attributes of this thread's innermost open
     span, while :func:`recording`."""
@@ -257,7 +294,9 @@ def spans():
 
 
 def counters():
-    """Each counter's total: ``{name: n}``."""
+    """Each counter's total: ``{name: n}``, the pending device counters
+    (:func:`pending_counts`) read in first."""
+    _REG.resolve()
     with _REG.lock:
         return dict(_REG.totals)
 
@@ -360,8 +399,8 @@ def report(sort_by="total_s"):
 
 
 def reset():
-    """Empty the registry: spans, counters, the timers' table and the
-    drop count.  Call it with no span open."""
+    """Empty the registry: spans, counters, pending device counters, the
+    timers' table and the drop count.  Call it with no span open."""
     _REG.clear()
 
 

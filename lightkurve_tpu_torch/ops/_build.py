@@ -121,11 +121,11 @@ def _declare_cuda(lib):
         lib.lk_bls_window_weighted_f32.argtypes
     lib.lk_bls_fused_uniform_f32.argtypes = (
         [P, P, P, P, P, I, I, I, I, I, I, P, P, I, D, D, I, I] + [P] * 5
-        + [P])
+        + [P, P])
     lib.lk_bls_fused_uniform_f64.argtypes = \
         lib.lk_bls_fused_uniform_f32.argtypes
     lib.lk_bls_fused_weighted_f32.argtypes = (
-        [P] * 7 + [I] * 6 + [P, P, I, D, D, I, I] + [P] * 5 + [P])
+        [P] * 7 + [I] * 6 + [P, P, I, D, D, I, I] + [P] * 5 + [P, P])
     lib.lk_bls_fused_weighted_f64.argtypes = \
         lib.lk_bls_fused_weighted_f32.argtypes
     lib.lk_bls_window_uniform_f32.argtypes = (

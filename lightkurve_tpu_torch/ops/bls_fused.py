@@ -25,6 +25,7 @@ import ctypes
 import numpy as np
 import torch
 
+from .. import diagnostics
 from ..config import full_f32_matmul, numpy_dtype
 from .bls_window import (_check_cuda, _undersized, durations_args,
                          uniform_scan_staged)
@@ -33,7 +34,8 @@ __all__ = ["fused_scan_uniform", "fused_scan_uniform_plain", "fold_ids",
            "nbins_per_period", "max_nbins_bound", "inv_d_phase",
            "uniform_fold", "fold_rows",
            "fused_smem_bytes", "fused_fits", "fused_block",
-           "check_fused_rows", "shared_memory_optin", "FUSED_TILE"]
+           "check_fused_rows", "shared_memory_optin", "FUSED_TILE",
+           "DEPOSIT_RUNS", "deposit_run_counts"]
 
 #: curves (warps) per fused block at most (``kLkMaxWarps`` in
 #: csrc/bls_fold_warp.cuh)
@@ -41,6 +43,11 @@ FUSED_TILE = 32
 _ID_TILE = 512          # samples a fused block stages ids for (``kLkIdTile``)
 
 _FIELDS = ("power", "depth", "n_in", "transit_time", "duration")
+
+#: the fused kernels' counters of staged runs of 32 samples, per block: runs
+#: whose segmented scan takes 0-5 rounds, runs whose groups are scattered
+DEPOSIT_RUNS = tuple(f"bls.deposit_runs.r{r}" for r in range(6)) + (
+    "bls.deposit_runs.scattered",)
 
 
 def inv_d_phase(d_phase, dtype):
@@ -89,8 +96,9 @@ def fused_smem_bytes(rows_cap, dtype, tile=FUSED_TILE, weighted=False):
     """Shared memory of one fused block of ``tile`` warps
     (``lk_fold_smem_bytes`` in csrc/bls_fold_warp.cuh): each warp's prefix
     columns of ``rows_cap`` rows (one for K-F, two for K-WF), K-F's count
-    column shared by the block, and the staged fold ids and lane masks (8
-    bytes per staged sample) with one flag per run of 32 samples."""
+    column shared by the block, the staged fold ids and lane masks (8
+    bytes per staged sample) and 4 bytes per run of 32 staged samples (a
+    word per run, then the block's run counters)."""
     itemsize = torch.empty((), dtype=dtype).element_size()
     per_row = tile * itemsize * (2 if weighted else 1) + (0 if weighted
                                                           else 4)
@@ -134,6 +142,17 @@ def check_fused_rows(rows_cap, dtype, device, weighted=False):
             f"{fused_smem_bytes(rows_cap, dtype, 1, weighted)} bytes of "
             f"shared memory, more than {device} allows: use "
             f"fold_impl='staged'")
+
+
+def deposit_run_counts(device):
+    """The pointer a fused kernel adds its staged runs to: while
+    :func:`.diagnostics.recording`, the data pointer of the pending device
+    counter :data:`DEPOSIT_RUNS` on ``device``
+    (:func:`.diagnostics.pending_counts`, read by
+    :func:`.diagnostics.counters` after the recording, so no launch waits
+    for a read); else ``None``, and the kernel counts nothing."""
+    counts = diagnostics.pending_counts(DEPOSIT_RUNS, device)
+    return None if counts is None else counts.data_ptr()
 
 
 def shared_memory_optin(device):
@@ -268,7 +287,8 @@ def fused_scan_uniform(ts, Y0, periods, k_durs, dur_values, d_phase, nbins,
                   v_arr.ctypes.data_as(ctypes.c_void_p), len(k_arr),
                   float(d_phase), inv_d_phase(d_phase, dtype),
                   int(bool(use_likelihood)), int(bool(wrap)),
-                  *[o.data_ptr() for o in outs], stream)
+                  *[o.data_ptr() for o in outs],
+                  deposit_run_counts(Y0.device), stream)
     check_status(lib, code, "bls_fused_uniform")
     fused_scan_uniform.launches += 1
     return dict(zip(_FIELDS, outs))

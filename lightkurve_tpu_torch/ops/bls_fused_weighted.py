@@ -24,8 +24,8 @@ import ctypes
 import torch
 
 from ..config import full_f32_matmul
-from .bls_fused import (check_fused_rows, fold_ids, fold_rows, inv_d_phase,
-                        nbins_per_period)
+from .bls_fused import (check_fused_rows, deposit_run_counts, fold_ids,
+                        fold_rows, inv_d_phase, nbins_per_period)
 from .bls_staged_fold import staged_fold_plain
 from .bls_window import (_check_cuda, _undersized, durations_args,
                          weighted_scan_staged)
@@ -137,7 +137,8 @@ def fused_scan_weighted(ts, W, WY, periods, k_durs, dur_values, d_phase,
                   v_arr.ctypes.data_as(ctypes.c_void_p), len(k_arr),
                   float(d_phase), inv_d_phase(d_phase, dtype),
                   int(bool(use_likelihood)), int(bool(wrap)),
-                  *[o.data_ptr() for o in outs], stream)
+                  *[o.data_ptr() for o in outs],
+                  deposit_run_counts(W.device), stream)
     check_status(lib, code, "bls_fused_weighted")
     fused_scan_weighted.launches += 1
     return dict(zip(_FIELDS, outs))

@@ -160,3 +160,121 @@ def test_weighted_wrapper_refuses_non_cuda_devices():
     with pytest.raises(ValueError, match="CUDA"):
         bls_fused_weighted.fused_scan_weighted(ts, W, W, pc, (2,), (0.1,),
                                                0.05, 40, 40)
+
+
+# The deposit's segmented warp scan (csrc/bls_fold_warp.cuh), one run of
+# 32 lanes in numpy: the kernel runs only the rounds that the run's widest
+# depositing group needs, and must deposit what the full 5 rounds deposit.
+def scan_rounds(sizes, kept):
+    """The rounds the staging rule gives a run of contiguous groups of
+    ``sizes``: ceil(log2) of the widest group that deposits (``kept``), as
+    ``32 - __clz(widest - 1)`` computes it."""
+    widest = max([s for s, k in zip(sizes, kept) if k], default=1)
+    return (widest - 1).bit_length()
+
+
+def warp_scan(v, first, rounds):
+    """``rounds`` rounds of ``__shfl_up_sync`` over the lanes' values ``v``:
+    lane L adds the value ``off`` lanes down while L - off is in its group
+    (its group starts at ``first[L]``); lanes below ``off`` read their own
+    value, which the group test drops."""
+    s = v.copy()
+    lane = np.arange(32)
+    for r in range(rounds):
+        off = 1 << r
+        up = np.concatenate([s[:off], s[:-off]])
+        s = np.where(lane - off >= first, s + up, s)
+    return s
+
+
+def run_groups(kind, rng):
+    """Group sizes of one run of 32 lanes, each a contiguous range."""
+    if kind == "tess":            # 2-min cadences in 7.2-min bins
+        sizes = [int(rng.integers(1, 5))]
+        while sum(sizes) < 32:
+            sizes.append(int(rng.choice([3, 4])))
+    elif kind == "singletons":    # cadence longer than a bin
+        sizes = [1] * 32
+    elif kind == "whole":         # one bin spans the run
+        sizes = [32]
+    else:
+        sizes = []
+        while sum(sizes) < 32:
+            sizes.append(int(rng.integers(1, 33)))
+    sizes[-1] -= sum(sizes) - 32
+    return sizes
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("kind, want_rounds",
+                         [("tess", 2), ("singletons", 0), ("whole", 5),
+                          ("mixed", None)])
+def test_truncated_deposit_scan_gives_the_five_round_bits(rng, dtype, kind,
+                                                           want_rounds):
+    """Over random contiguous groupings the group sums that the depositing
+    lanes (each group's last) hold after the rule's rounds equal the full
+    5-round scan's bit for bit, in float32 and float64; one round fewer
+    leaves the widest group short.  A group that does not deposit (ids
+    past the rows, the tail) may be wider than the rule's rounds cover."""
+    for trial in range(200):
+        sizes = run_groups(kind, rng)
+        kept = [True] * len(sizes)
+        if kind == "mixed" and len(sizes) > 1 and trial % 3 == 0:
+            kept[-1] = False          # the tail's -1 ids
+        starts = np.cumsum([0] + sizes[:-1])
+        first = np.repeat(starts, sizes)
+        last = starts + np.array(sizes) - 1
+        v = rng.uniform(-1, 1, 32).astype(dtype)
+        rounds = scan_rounds(sizes, kept)
+        widest = max([s for s, k in zip(sizes, kept) if k], default=1)
+        assert rounds == int(np.ceil(np.log2(widest)))
+        if want_rounds is not None:
+            assert rounds == want_rounds, sizes
+        full = warp_scan(v, first, 5)
+        got = warp_scan(v, first, rounds)
+        dep = last[np.array(kept)]
+        np.testing.assert_array_equal(got[dep].view(np.uint8),
+                                      full[dep].view(np.uint8))
+        assert got.dtype == full.dtype == dtype
+        if rounds > 0:
+            short = warp_scan(v, first, rounds - 1)
+            wide = [l for l, s, k in zip(last, sizes, kept)
+                    if k and s == widest]
+            assert not np.array_equal(short[wide], full[wide]), sizes
+
+
+def test_pending_device_counter_read_by_counters_and_reset():
+    """A pending device counter (here a CPU tensor) is handed out only
+    while recording, the same tensor until ``counters()`` reads it into the
+    totals, and ``reset()`` drops it unread; the fused wrappers' pointer is
+    None while not recording."""
+    from lightkurve_tpu_torch import diagnostics as diag
+    names = bls_fused.DEPOSIT_RUNS
+    assert len(names) == 7 and names[0] == "bls.deposit_runs.r0"
+    diag.disable()
+    diag.reset()
+    try:
+        if not diag.recording():
+            assert diag.pending_counts(names, "cpu") is None
+            assert bls_fused.deposit_run_counts("cpu") is None
+        diag.enable()
+        t = diag.pending_counts(names, "cpu")
+        assert t.dtype == torch.int64 and t.tolist() == [0] * 7
+        assert diag.pending_counts(names, "cpu") is t
+        assert bls_fused.deposit_run_counts("cpu") == t.data_ptr()
+        t += torch.tensor([5, 0, 3, 0, 0, 1, 2])
+        got = diag.counters()
+        assert {k: got[k] for k in names} == dict(zip(names,
+                                                      [5, 0, 3, 0, 0, 1, 2]))
+        assert diag.counters() == got            # read once, not again
+        u = diag.pending_counts(names, "cpu")
+        assert u is not t and u.tolist() == [0] * 7
+        u[0] += 4
+        assert diag.counters()[names[0]] == 9
+        diag.pending_counts(names, "cpu")[1] += 8
+        diag.reset()
+        assert diag.counters() == {}
+        assert diag.pending_counts(names, "cpu").tolist() == [0] * 7
+    finally:
+        diag.disable()
+        diag.reset()

@@ -170,7 +170,8 @@ def test_route_rule_at_the_boundary(monkeypatch, dtype, weighted, full_rows,
     the rows 'auto' would not take; a block of 32 warps fits
     ``full_rows``; explicit choices pass through; the CPU has no limit.  A
     block holds each warp's prefix columns (one, or two for weights), K-F's
-    shared count column, 512 staged ids and masks and 16 run flags."""
+    shared count column, 512 staged ids and masks and a 64-byte run region
+    (a word per run of 32 staged samples, then the block's run counters)."""
     optin = 232_448
     cpu = torch.device("cpu")
     itemsize = torch.empty((), dtype=dtype).element_size()
