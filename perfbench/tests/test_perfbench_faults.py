@@ -7,9 +7,9 @@ import pytest
 import torch
 
 from perfbench import harness, limits
-from perfbench.tests.tiny import set_traffic, tiny_root
+from perfbench.tests.tiny import cells_of_kind, set_traffic, tiny_root
 
-SEARCHING = ["tess_sector.sweep", "kepler_lc.sweep"]
+SEARCHING = cells_of_kind("sweep")
 
 
 def _correct(root, cell, seed=2 ** 31 + 17):

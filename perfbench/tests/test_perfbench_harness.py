@@ -1,6 +1,6 @@
-"""The harness on the CPU at a tiny size: every cell end to end, the result
-line, BENCHMARK.json against the contract, a cell added from files alone,
-and the JAX checks."""
+"""The harness on the CPU at a tiny size: every cell of BENCHMARK.json end
+to end, the result line, BENCHMARK.json against the contract, a cell of a
+new kind added from files and entries alone, and the JAX checks."""
 import hashlib
 import json
 import os
@@ -13,9 +13,8 @@ import pytest
 
 from perfbench import harness
 from perfbench.harness import ROOT
-from perfbench.tests.tiny import set_traffic, tiny_root
+from perfbench.tests.tiny import cells, cells_of_kind, set_traffic, tiny_root
 
-CELLS = ["tess_sector.sweep", "kepler_lc.sweep"]
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 
@@ -25,9 +24,10 @@ def _bench():
         return json.load(f)
 
 
-@pytest.mark.parametrize("cell", CELLS)
-def test_every_cell_runs_and_reports(tmp_path, cell):
-    root = tiny_root(str(tmp_path))
+def runs_and_reports(root, cell):
+    """Run ``cell`` of ``<root>/BENCHMARK.json`` traced for 0.2 s and hold
+    both result lines to the contract; returns the run and the traced
+    line."""
     c = harness.load_cell(cell, root)
     run, checks, info, breakdown, drv = harness.run_cell(c, 2 ** 31 + 5, 0.2,
                                                          True, device="cpu")
@@ -46,6 +46,12 @@ def test_every_cell_runs_and_reports(tmp_path, cell):
     assert "setup_s" in plain["metrics"] and len(plain["metrics"]) >= 2
     assert all(v > 0 for v in (m["value"] for m in plain["metrics"].values()))
     json.dumps(traced)
+    return run, traced
+
+
+@pytest.mark.parametrize("cell", cells())
+def test_every_cell_runs_and_reports(tmp_path, cell):
+    runs_and_reports(tiny_root(str(tmp_path)), cell)
 
 
 NEW_KIND = """\
@@ -77,52 +83,64 @@ def test_a_traffic_kind_is_added_as_a_file(tmp_path):
     with open(os.path.join(root, "perfbench", "kinds", "counted.py"),
               "w") as f:
         f.write(NEW_KIND)
-    set_traffic(root, "tess_sector.sweep", kind="counted")
-    cell = harness.load_cell("tess_sector.sweep", root)
+    name = cells_of_kind("sweep")[0]
+    set_traffic(root, name, kind="counted")
+    cell = harness.load_cell(name, root)
     run, checks, *_ = harness.run_cell(cell, 5, 0.0, False, device="cpu")
     assert run.counters["new_kind_steps"] >= 1
     assert all(v <= lim for _, v, lim in checks), checks
     control = limits.control_checks(cell, 5, device="cpu")
     assert [n for n, _, _ in control] == [n for n, _, _ in checks]
-    set_traffic(root, "tess_sector.sweep", kind="no_such_kind")
+    set_traffic(root, name, kind="no_such_kind")
     with pytest.raises(ValueError, match="no_such_kind"):
-        harness.run_cell(harness.load_cell("tess_sector.sweep", root), 5,
-                         0.0, False, device="cpu")
+        harness.run_cell(harness.load_cell(name, root), 5, 0.0, False,
+                         device="cpu")
     with pytest.raises(ValueError, match="no_such_kind"):
-        limits.control_checks(harness.load_cell("tess_sector.sweep", root),
-                              5, device="cpu")
+        limits.control_checks(harness.load_cell(name, root), 5,
+                              device="cpu")
 
 
-def test_benchmark_json_keeps_the_contract():
-    b = _bench()
+def check_contract(b, root):
+    """Hold the BENCHMARK.json ``b`` to the benchmark's contract, each file
+    it names looked up under ``root``.  No cell is known by name: a cell is
+    well formed by its entries and its files."""
     assert set(b) == {"command", "paths", "run_seconds", "configs",
                       "workloads", "end_to_end", "per_layer"}
     assert b["paths"] == ["perfbench"] and 1 <= b["run_seconds"] <= 51
     assert len(b["command"]) <= 32
     e2e = {m["name"]: m for m in b["end_to_end"]}
     assert e2e["setup_s"]["bound"] <= 0.25
-    cells = {w["name"] for w in b["workloads"]}
+    configs = [c["name"] for c in b["configs"]]
+    names = [w["name"] for w in b["workloads"]]
+    metrics = [m["name"] for m in b["end_to_end"] + b["per_layer"]]
+    pairs = [(w["config"], w["traffic"]) for w in b["workloads"]]
+    for unique in (configs, names, metrics, pairs):
+        assert len(set(unique)) == len(unique), unique
+    assert 1 <= len(names) <= 24
+    cells = set(names)
     for c in b["configs"]:
         assert set(c) == {"name", "source", "file", "reduced", "why"}
         assert NAME.match(c["name"]) and len(c["source"]) <= 200
+        assert any(w["config"] == c["name"] for w in b["workloads"])
         assert c["file"].startswith("perfbench/")
-        with open(os.path.join(ROOT, c["file"])) as f:
+        with open(os.path.join(root, c["file"])) as f:
             cfg = json.load(f)
         assert all(k in cfg for k in c["reduced"])
     for w in b["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
         assert w["chips"] == 1 and len(w["why"]) <= 200
-        assert w["name"] in CELLS
-        with open(os.path.join(ROOT, "perfbench", "workloads",
+        assert NAME.match(w["name"]) and NAME.match(w["traffic"])
+        assert w["config"] in configs
+        with open(os.path.join(root, "perfbench", "workloads",
                                w["name"] + ".json")) as f:
             kind = json.load(f)["kind"]
-        assert os.path.exists(os.path.join(ROOT, "perfbench", "kinds",
+        assert os.path.exists(os.path.join(root, "perfbench", "kinds",
                                            kind + ".py"))
     for m in b["end_to_end"] + b["per_layer"]:
         assert NAME.match(m["name"]) and UNIT.match(m["unit"])
         assert m["better"] in ("lower", "higher")
         assert set(m.get("workloads", cells)) <= cells
-        assert os.path.exists(os.path.join(ROOT, "perfbench", "metrics",
+        assert os.path.exists(os.path.join(root, "perfbench", "metrics",
                                            m["name"] + ".py"))
     for m in b["end_to_end"]:
         assert m["source"] in ("host_clock", "device_trace")
@@ -140,6 +158,10 @@ def test_benchmark_json_keeps_the_contract():
         assert any(cell in m["workloads"] for m in b["per_layer"])
 
 
+def test_benchmark_json_keeps_the_contract():
+    check_contract(_bench(), ROOT)
+
+
 def _tree_digest(root):
     h = hashlib.sha256()
     for dirpath, dirs, files in sorted(os.walk(root)):
@@ -152,51 +174,59 @@ def _tree_digest(root):
 
 
 def test_a_configuration_cell_and_metric_are_added_as_files(tmp_path):
-    """A new configuration, traffic and per-layer metric need new files
-    and BENCHMARK.json entries only: no file of the package changes."""
+    """A new configuration, a cell of a new traffic kind with its traffic
+    file, and a per-layer metric need new files and BENCHMARK.json entries
+    only: the contract and the every-cell run take them with the cells
+    already there, and no file of the package changes."""
     before = _tree_digest(os.path.join(ROOT, "perfbench"))
     root = tiny_root(str(tmp_path))
     pb = os.path.join(root, "perfbench")
-    with open(os.path.join(pb, "configs", "tess_sector_2min.json")) as f:
+    with open(os.path.join(root, "BENCHMARK.json")) as f:
+        bench = json.load(f)
+    first = cells_of_kind("sweep", root)[0]
+    base = next(w for w in bench["workloads"] if w["name"] == first)
+    conf = next(c for c in bench["configs"] if c["name"] == base["config"])
+    with open(os.path.join(root, conf["file"])) as f:
         cfg = json.load(f)
     cfg.update(name="tess_two_grid", curves=6)
     cfg["time"]["segments"] = [[0.0, 800], [3.0, 900]]
     with open(os.path.join(pb, "configs", "tess_two_grid.json"), "w") as f:
         json.dump(cfg, f)
-    with open(os.path.join(pb, "workloads",
-                           "tess_sector.sweep.json")) as f:
+    with open(os.path.join(pb, "kinds", "counted.py"), "w") as f:
+        f.write(NEW_KIND)
+    with open(os.path.join(pb, "workloads", base["name"] + ".json")) as f:
         traffic = json.load(f)
-    traffic["stacks"] = 2
-    with open(os.path.join(pb, "workloads", "tess_two.sweep.json"),
+    traffic.update(kind="counted", stacks=2)
+    with open(os.path.join(pb, "workloads", "tess_two.counted.json"),
               "w") as f:
         json.dump(traffic, f)
     with open(os.path.join(pb, "metrics", "sweeps_done.py"), "w") as f:
         f.write("def read(run):\n    return len(run.searches) or None\n")
-    with open(os.path.join(root, "BENCHMARK.json")) as f:
-        bench = json.load(f)
     bench["configs"].append({"name": "tess_two_grid", "source": "a test",
                              "file": "perfbench/configs/tess_two_grid.json",
                              "reduced": ["curves"], "why": "a test"})
-    bench["workloads"].append({"name": "tess_two.sweep",
-                               "config": "tess_two_grid", "traffic": "sweep",
-                               "chips": 1, "why": "a test"})
+    bench["workloads"].append({"name": "tess_two.counted",
+                               "config": "tess_two_grid",
+                               "traffic": "counted", "chips": 1,
+                               "why": "a test"})
     for m in bench["end_to_end"]:
         if m["name"] == "search_evals_per_s":
-            m["workloads"].append("tess_two.sweep")
+            m["workloads"].append("tess_two.counted")
     bench["per_layer"].append({"name": "sweeps_done", "unit": "searches",
                                "better": "higher", "source": "program_span",
-                               "layer": "a test", "moves": "setup_s",
-                               "workloads": ["tess_two.sweep"]})
+                               "layer": "a test",
+                               "moves": "search_evals_per_s",
+                               "workloads": ["tess_two.counted"]})
     with open(os.path.join(root, "BENCHMARK.json"), "w") as f:
         json.dump(bench, f)
-    cell = harness.load_cell("tess_two.sweep", root)
-    assert cell.config["name"] == "tess_two_grid"
-    run, checks, info, bd, drv = harness.run_cell(cell, 3, 0.1, True,
-                                                  device="cpu")
-    line = harness.result_line(run, checks, info, bd, drv, True)
-    assert line["metrics"]["sweeps_done"]["value"] >= 1
-    line = harness.result_line(run, checks, info, bd, drv, False)
-    assert "search_evals_per_s" in line["metrics"]
+    check_contract(bench, root)
+    assert cells_of_kind("counted", root) == ["tess_two.counted"]
+    assert harness.load_cell("tess_two.counted",
+                             root).config["name"] == "tess_two_grid"
+    runs = {cell: runs_and_reports(root, cell) for cell in cells(root)}
+    run, traced = runs["tess_two.counted"]
+    assert run.counters["new_kind_steps"] >= 1
+    assert traced["metrics"]["sweeps_done"]["value"] >= 1
     assert _tree_digest(os.path.join(ROOT, "perfbench")) == before
 
 
@@ -206,7 +236,7 @@ def test_set_up_on_the_cpu_loads_no_jax(tmp_path):
     code = (
         "import sys, tempfile\n"
         "from perfbench import harness, drivers\n"
-        f"cell = harness.load_cell('tess_sector.sweep', {root!r})\n"
+        f"cell = harness.load_cell({cells()[0]!r}, {root!r})\n"
         "run = harness.Run(cell=cell)\n"
         "with tempfile.TemporaryDirectory() as tmp:\n"
         "    drivers.make(cell, 1, 'cpu', run, tmp).setup()\n"
@@ -234,7 +264,7 @@ def test_run_exits_non_zero_without_a_card_or_the_program(tmp_path):
     BENCHMARK.json and perfbench/ neither."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     cmd = [sys.executable, "-m", "perfbench.run", "--workload",
-           "tess_sector.sweep", "--seed", "1", "--seconds", "1"]
+           cells()[0], "--seed", "1", "--seconds", "1"]
     out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
                          timeout=300, env=env)
     assert out.returncode != 0 and out.stdout == ""
@@ -249,10 +279,8 @@ def test_run_exits_non_zero_without_a_card_or_the_program(tmp_path):
 
 @pytest.mark.card
 def test_a_cell_runs_correct_on_the_card(card):
-    cmd = [sys.executable, "-m", "perfbench.run", "--workload",
-           "tess_sector.sweep", "--seed", "2147483999", "--seconds",
-           "3",
-           "--trace", "0"]
+    cmd = [sys.executable, "-m", "perfbench.run", "--workload", cells()[0],
+           "--seed", "2147483999", "--seconds", "3", "--trace", "0"]
     out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
                          timeout=600)
     assert out.returncode == 0, out.stderr[-3000:]

@@ -1,17 +1,17 @@
 """The readers of the program's own spans and counters on a tiny traced CPU
-run of each cell: sound values, and nothing read where there is no trace
-or where the program records no spans (a checkout from before it had
-them)."""
+run of each cell of kind ``sweep``: sound values, and nothing read where
+there is no trace or where the program records no spans (a checkout from
+before it had them)."""
 import pytest
 
 from perfbench import harness
-from perfbench.tests.tiny import tiny_root
+from perfbench.tests.tiny import cells_of_kind, tiny_root
 
 READERS = ("flatten_idle_ms.sweep", "sweep_idle_ms.sweep",
            "flatten_syncs.sweep")
 
 
-@pytest.mark.parametrize("cell", ["tess_sector.sweep", "kepler_lc.sweep"])
+@pytest.mark.parametrize("cell", cells_of_kind("sweep"))
 def test_the_program_span_readers_read_a_traced_run(tmp_path, cell,
                                                     monkeypatch):
     from lightkurve_tpu_torch import diagnostics

@@ -3,7 +3,7 @@ route the program takes."""
 import pytest
 
 from perfbench import harness, roofline
-from perfbench.tests.tiny import tiny_root
+from perfbench.tests.tiny import cells_of_kind, tiny_root
 
 
 def test_counts_at_a_hand_worked_shape():
@@ -26,7 +26,7 @@ def test_counts_at_a_hand_worked_shape():
     assert t == pytest.approx(1.0) and bound == "operations"
 
 
-@pytest.mark.parametrize("cell", ["tess_sector.sweep", "kepler_lc.sweep"])
+@pytest.mark.parametrize("cell", cells_of_kind("sweep"))
 def test_count_is_the_same_on_either_route(tmp_path, monkeypatch, cell):
     """The count comes from the inputs handed over: forcing the fused or
     the staged route changes the kernels called, not the count."""

@@ -1,6 +1,8 @@
 """A copy of the benchmark's data files under a temporary root, cut to a
 size the CPU runs in seconds (a few curves, two short segments, window
-101); the code is the package's own."""
+101); the code is the package's own.  Also the lookup of the cells the
+tests run: every cell of ``BENCHMARK.json``, or those of one traffic kind,
+so that a cell added as files and entries is tested with no test edited."""
 import json
 import os
 import shutil
@@ -50,3 +52,21 @@ def set_traffic(root, cell, **kw):
     tr.update(kw)
     with open(path, "w") as f:
         json.dump(tr, f)
+
+
+def cells(root=ROOT):
+    """The names of the cells of ``<root>/BENCHMARK.json``, in its order."""
+    with open(os.path.join(root, "BENCHMARK.json")) as f:
+        return [w["name"] for w in json.load(f)["workloads"]]
+
+
+def cells_of_kind(kind, root=ROOT):
+    """The cells whose traffic file ``perfbench/workloads/<cell>.json``
+    names the traffic kind ``kind``."""
+    out = []
+    for cell in cells(root):
+        path = os.path.join(root, "perfbench", "workloads", cell + ".json")
+        with open(path) as f:
+            if json.load(f)["kind"] == kind:
+                out.append(cell)
+    return out
