@@ -159,8 +159,9 @@ class LightCurveStack:
                 niters=3, sigma=3, return_trend=False):
         """Divide each curve by its Savitzky-Golay trend
         (:func:`~lightkurve_tpu_torch.ops.detrend.flatten_batch`; the
-        reference's ``LightCurve.flatten`` over the whole stack).  The
-        mask is kept; ``flux_err`` is divided by the trend too, so a
+        reference's ``LightCurve.flatten`` over the whole stack, every
+        segment's own median in the short-segment fallback).  The mask is
+        kept; ``flux_err`` is divided by the trend too, so a
         search of the result takes the per-cadence weighted regime.
         ``break_tolerance=None`` disables gap splitting.  With
         ``return_trend`` also returns a stack whose flux is the trend."""
@@ -170,7 +171,8 @@ class LightCurveStack:
                                  min(polyorder, window_length - 1))
         bt = np.nan if break_tolerance is None else float(break_tolerance)
         trend, _ = flatten_batch(self.time, self.flux, self.mask, H, bt,
-                                 float(sigma), niters=int(niters))
+                                 float(sigma), niters=int(niters),
+                                 max_segments=None)
         flat = self._replace(flux=self.flux / trend,
                              flux_err=self.flux_err / trend)
         if return_trend:

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from . import config
+from .diagnostics import count, span
 from .time import Time, TimeDelta
 from .units import Quantity, Unit, dimensionless, percent, ppm, ppt
 from .utils import (
@@ -844,8 +845,15 @@ class LightCurve:
         The pipeline (compaction, gap segmentation, SG smoothing,
         iterative clipping, trend interpolation) runs as torch functions
         on the configured device and dtype
-        (:func:`lightkurve_tpu_torch.ops.detrend.flatten`).
+        (:func:`lightkurve_tpu_torch.ops.detrend.flatten`), with every
+        segment's own median in the short-segment fallback.  The times stay
+        float64 whatever the dtype: gaps are found where the reference
+        finds them (a BTJD time in float32 is 1.2e-4 d coarse, against a
+        TESS cadence of 1.4e-3 d).  On a CUDA device the flatten is a CUDA
+        graph captured on the first curve of a length and settings, and
+        replayed for the next (:class:`~.ops.detrend.FlattenGraph`).
         """
+        from .ops.detrend import FlattenGraph
         from .ops.detrend import flatten as flatten_op
         from .ops.savgol import savgol_design_matrix
 
@@ -856,40 +864,58 @@ class LightCurve:
             window_length += 1
 
         n = len(self)
-        tv = self.time.value.astype(float)
-        fv = self.flux.value.astype(float)
-
-        if mask is None:
-            keep = np.ones(n, dtype=bool)
-        else:
-            keep = ~np.asarray(mask, dtype=bool)
-        # NaN & global outlier pre-mask (reference :1003-1010)
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore", RuntimeWarning)
-            extra = np.isfinite(fv)
-            extra &= np.nan_to_num(np.abs(fv - np.nanmedian(fv))) <= (
-                np.nanstd(fv) * sigma)
-        keep &= extra
-
-        bt = np.nan if break_tolerance is None else float(break_tolerance)
-        H = savgol_design_matrix(window_length, polyorder)
-        time_t = _tensor(tv)
-        trend, _ = flatten_op(
-            time_t, _tensor(fv), _tensor(keep, torch.bool), H, bt,
-            float(sigma), niters=int(niters))
-        trend = trend.cpu().numpy().astype(float)
-
-        flatten_lc = self.copy()
-        with np.errstate(divide="ignore", invalid="ignore"):
-            flatten_lc.flux = Quantity(fv / trend, dimensionless)
-            flatten_lc.flux_err = Quantity(self.flux_err.value / trend,
-                                           dimensionless)
-        flatten_lc.meta["NORMALIZED"] = True
-        if return_trend:
-            trend_lc = self.copy()
-            trend_lc.flux = Quantity(trend, self.flux.unit)
-            return flatten_lc, trend_lc
-        return flatten_lc
+        with span("lc.flatten", cadences=n):
+            with span("lc.flatten.host"):
+                tv = self.time.value.astype(float)
+                fv = self.flux.value.astype(float)
+                if mask is None:
+                    keep = np.ones(n, dtype=bool)
+                else:
+                    keep = ~np.asarray(mask, dtype=bool)
+                # NaN & global outlier pre-mask (reference :1003-1010)
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore", RuntimeWarning)
+                    extra = np.isfinite(fv)
+                    extra &= np.nan_to_num(np.abs(fv - np.nanmedian(fv))) \
+                        <= (np.nanstd(fv) * sigma)
+                keep &= extra
+                bt = np.nan if break_tolerance is None else \
+                    float(break_tolerance)
+                key = (n, str(config.resolve_device(None)),
+                       config.resolve_dtype(None), window_length, polyorder,
+                       None if np.isnan(bt) else bt, float(sigma),
+                       int(niters))
+                graph = _FLATTEN_GRAPHS.get(key)
+                H = None if graph is not None else savgol_design_matrix(
+                    window_length, polyorder)
+            args = (_tensor(tv, torch.float64), _tensor(fv),
+                    _tensor(keep, torch.bool))
+            if graph is None and args[1].is_cuda:
+                while len(_FLATTEN_GRAPHS) >= _FLATTEN_GRAPHS_KEPT:
+                    _FLATTEN_GRAPHS.pop(next(iter(_FLATTEN_GRAPHS)))
+                graph = _FLATTEN_GRAPHS[key] = FlattenGraph(
+                    *args, _tensor(H, torch.float64).to(args[1].dtype), bt,
+                    sigma, niters)
+            if graph is not None:
+                trend, _ = graph(*args)
+            else:
+                trend, _ = flatten_op(*args, H, bt, float(sigma),
+                                      niters=int(niters), max_segments=None)
+            with span("lc.flatten.out"):
+                # the copy while the card still runs the flatten
+                flatten_lc = self.copy()
+                trend = trend.cpu().numpy().astype(float)
+                count("host_sync")
+                with np.errstate(divide="ignore", invalid="ignore"):
+                    flatten_lc.flux = Quantity(fv / trend, dimensionless)
+                    flatten_lc.flux_err = Quantity(
+                        self.flux_err.value / trend, dimensionless)
+                flatten_lc.meta["NORMALIZED"] = True
+                if return_trend:
+                    trend_lc = self.copy()
+                    trend_lc.flux = Quantity(trend, self.flux.unit)
+                    return flatten_lc, trend_lc
+                return flatten_lc
 
     def fold(self, period=None, epoch_time=None, epoch_phase=0,
              wrap_phase=None, normalize_phase=False):
@@ -1682,6 +1708,12 @@ def _as_days(x):
             return float(np.asarray(x.to(day).value))
         return float(np.asarray(x.value))
     return float(x)
+
+
+#: :meth:`LightCurve.flatten`'s CUDA graphs, by curve length, device,
+#: dtype and settings, the oldest dropped past ``_FLATTEN_GRAPHS_KEPT``
+_FLATTEN_GRAPHS = {}
+_FLATTEN_GRAPHS_KEPT = 4
 
 
 def _tensor(x, dtype=None):

@@ -43,7 +43,7 @@ import numpy as np
 import torch
 
 from ..config import numpy_dtype, on_device
-from ..diagnostics import set_attrs, span
+from ..diagnostics import count, set_attrs, span
 from .bls_fused import (fold_rows, fused_fits, fused_scan_uniform,
                         max_nbins_bound)
 from .bls_fused_weighted import fused_scan_weighted
@@ -583,12 +583,24 @@ def _bls_one_period(ts, w, wy, pc, t0_grid, durations, use_likelihood):
                 duration=durations[best % D], transit_time=t0_grid[best // D])
 
 
+def _chunks(periods, chunk):
+    """The first period of each chunk of a per-curve scan; the caller's
+    work on a chunk runs under its span ``bls.curve.chunk``, and each
+    chunk counts once in ``bls.curve.chunks``."""
+    P = periods.shape[0]
+    for index, lo in enumerate(range(0, P, chunk)):
+        with span("bls.curve.chunk", index=index,
+                  periods=min(chunk, P - lo)):
+            count("bls.curve.chunks")
+            yield lo
+
+
 def _bls_scan(ts, w, wy, periods, durations, d_phase, use_likelihood, chunk,
               t0_count):
     t0_grid = torch.arange(t0_count, device=w.device, dtype=ts.dtype) * d_phase
     parts = [_bls_one_period(ts, w, wy, periods[i:i + chunk], t0_grid,
                              durations, use_likelihood)
-             for i in range(0, periods.shape[0], chunk)]
+             for i in _chunks(periods, chunk)]
     return {k: torch.cat([p[k] for p in parts], dim=1) for k in parts[0]}
 
 
@@ -615,20 +627,20 @@ def bls_power(t, y, dy, periods, durations, oversample=10,
         t0_count = int(np.ceil(float(_host_f64(periods).max())
                                / d_phase)) + 1
 
-    y = on_device(y, device)
-
     def run(t, y, dy):
         ts, w, wy, t_min, pc, durs = _curve_inputs(t, y, dy, periods,
                                                    durations)
         step = chunk or _periods_per_step(w.shape[0], max(
             w.shape[1], t0_count * durs.shape[0]))
+        set_attrs(chunks=-(-pc.shape[0] // step))
         out = _bls_scan(ts, w, wy, pc, durs, d_phase,
                         objective == "likelihood", step, t0_count)
         out["transit_time"] = out["transit_time"] + t_min
         out["period"] = pc[None, :].expand(w.shape[0], pc.shape[0])
         return {k: v.to(w.dtype) for k, v in out.items()}
 
-    return _batched(run, t, y, dy)
+    with span("bls.curve", route="exact", periods=np.shape(periods)[0]):
+        return _batched(run, t, on_device(y, device), dy)
 
 
 # The sorted-phase search IS the exact ("direct") objective.
@@ -754,7 +766,7 @@ def _bls_scan_binned(ts, w, wy, periods, durations, d_phase, use_likelihood,
                                     durations, d_phase, nbins,
                                     use_likelihood, wrap=wrap,
                                     reciprocal=reciprocal)
-             for i in range(0, periods.shape[0], chunk)]
+             for i in _chunks(periods, chunk)]
     return {k: torch.cat([p[k] for p in parts], dim=1) for k in parts[0]}
 
 
@@ -794,6 +806,7 @@ def _binned(t, y, dy, periods, durations, oversample=10,
         dp = torch.tensor(d_phase, dtype=ts.dtype, device=w.device)
         step = chunk or _periods_per_step(w.shape[0], max(
             w.shape[1], nbins * durs.shape[0]))
+        set_attrs(chunks=-(-pc.shape[0] // step))
         out = _bls_scan_binned(ts, w, wy, pc, durs, dp,
                                objective == "likelihood", step, nbins,
                                wrap=edge_mode != "astropy",
@@ -802,4 +815,5 @@ def _binned(t, y, dy, periods, durations, oversample=10,
         out["period"] = pc[None, :].expand(w.shape[0], pc.shape[0])
         return {k: v.to(w.dtype) for k, v in out.items()}
 
-    return _batched(run, t, y, dy)
+    with span("bls.curve", route="binned", periods=np.shape(periods)[0]):
+        return _batched(run, t, y, dy)

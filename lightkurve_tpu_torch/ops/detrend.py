@@ -9,6 +9,10 @@ every cadence.  Here as batched tensor code over (B, n): the valid
 samples of each row are moved to its front in their order (the
 reference's ``flux[mask]``) by a stable sort on the validity key, and the
 segment bounds come from running maxima and minima of break positions.
+
+Times may be float64 beside float32 fluxes: the gaps are then found, and
+the trend interpolated, on the times as given (a BTJD time rounded to
+float32 moves by up to 6e-5 d, which turns masked runs into gaps).
 """
 from __future__ import annotations
 
@@ -16,10 +20,11 @@ import torch
 
 from ..diagnostics import span
 from .interp import interp_linear_fill
-from .masked import masked_median, masked_median_grouped, masked_std
+from .masked import (masked_median, masked_median_grouped, masked_std,
+                     segment_medians)
 from .savgol import savgol_filter_interp
 
-__all__ = ["flatten", "flatten_batch"]
+__all__ = ["FlattenGraph", "flatten", "flatten_batch"]
 
 
 def _segment_bounds(brk):
@@ -35,12 +40,24 @@ def _segment_bounds(brk):
     return lo, hi
 
 
+def _medians(cf, brk, lo, hi, in_m, max_segments):
+    """Each compacted sample's segment median: its own segment's
+    (``max_segments=None``), or that of segment id ``min(id,
+    max_segments - 1)`` over the ids' pooled samples."""
+    if max_segments is None:
+        return segment_medians(cf, lo, hi)
+    seg_id = torch.clamp(torch.cumsum(brk, -1) - 1, 0, max_segments - 1)
+    med = masked_median_grouped(cf, seg_id, max_segments, valid=in_m)
+    return torch.gather(med, -1, seg_id)
+
+
 def flatten_batch(time, flux, valid, H, break_tolerance, sigma, niters=3,
-                  max_segments=16):
+                  max_segments=16, static=False):
     """The SG trend of each row of a (masked, padded) batch.
 
     time, flux : (B, n) tensors; padded tail entries must be finite and
-        each row's valid times ascending.
+        each row's valid times ascending.  ``time`` may be float64 with
+        ``flux`` in float32; the trend comes back in ``flux``'s dtype.
     valid : (B, n) bool, True where the sample enters the fit.
     H : (w, w) SG projection matrix (``savgol_design_matrix``).
     break_tolerance : float; NaN disables gap splitting (the reference
@@ -48,7 +65,11 @@ def flatten_batch(time, flux, valid, H, break_tolerance, sigma, niters=3,
     sigma : clip threshold.  niters : sigma-clip iterations.
     max_segments : segments whose medians the short-segment fallback
         tracks; segment ids past it share the last one's median, as
-        ``lightkurve_tpu`` does.
+        ``lightkurve_tpu`` does.  ``None`` tracks every segment, as
+        lightkurve does (:func:`~.masked.segment_medians`).
+    static : no read on the host, so that the call can be captured in a
+        CUDA graph (``savgol_filter_interp(static=True)``; with
+        ``max_segments=None``, as :class:`FlattenGraph` calls it).
 
     Returns (trend, valid_out): the trend at every time (interpolated
     through the kept samples) and the mask after clipping, both (B, n).
@@ -57,7 +78,11 @@ def flatten_batch(time, flux, valid, H, break_tolerance, sigma, niters=3,
     niters = max(int(niters), 1)
     with span("flatten", curves=B, cadences=n, niters=niters):
         with span("flatten.design"):
-            H = torch.as_tensor(H, dtype=flux.dtype, device=flux.device)
+            # cast where the flux is: a host cast of a (w, w) matrix wakes
+            # torch's CPU thread pool, whose spinning threads then slow the
+            # host's launches (14 ms of a 36-ms single-curve flatten at
+            # w = 901 on an H100's host)
+            H = torch.as_tensor(H, device=flux.device).to(flux.dtype)
         w = H.shape[0]
         bt, sigma = float(break_tolerance), float(sigma)
         idx = torch.arange(n, device=flux.device)
@@ -85,18 +110,13 @@ def flatten_batch(time, flux, valid, H, break_tolerance, sigma, niters=3,
                 hi = torch.minimum(hi, m)                # end at padding
                 seglen = hi - lo
             with span("flatten.savgol"):
-                trend_c = savgol_filter_interp(cf, H, lo, hi)
+                trend_c = savgol_filter_interp(cf, H, lo, hi, static)
 
             # short-segment median fallback (lightcurve.py:1035-1038)
             with span("flatten.median"):
-                seg_id = torch.clamp(torch.cumsum(brk, -1) - 1, 0,
-                                     max_segments - 1)
-                seg_med = masked_median_grouped(cf, seg_id, max_segments,
-                                                valid=in_m)
                 short = (w > seglen) | (seglen < bt)
-                trend_c = torch.where(short,
-                                      torch.gather(seg_med, -1, seg_id),
-                                      trend_c)
+                trend_c = torch.where(short, _medians(
+                    cf, brk, lo, hi, in_m, max_segments), trend_c)
 
             # clip outliers against the trend (lightcurve.py:1049-1056)
             with span("flatten.clip"):
@@ -116,7 +136,7 @@ def flatten_batch(time, flux, valid, H, break_tolerance, sigma, niters=3,
         for it in range(niters):
             with span("flatten.iter", index=it):
                 valid, trend = one_iter(valid)
-    return trend, valid
+    return trend.to(flux.dtype), valid
 
 
 def flatten(time, flux, valid, H, break_tolerance, sigma, niters=3,
@@ -126,3 +146,51 @@ def flatten(time, flux, valid, H, break_tolerance, sigma, niters=3,
     trend, valid = flatten_batch(time[None], flux[None], valid[None], H,
                                  break_tolerance, sigma, niters, max_segments)
     return trend[0], valid[0]
+
+
+class FlattenGraph:
+    """:func:`flatten_batch` of one curve on a CUDA device, with every
+    segment's own median, captured once as a CUDA graph for a length, its
+    dtypes and the settings, then replayed for each curve.
+
+    On one curve the flatten is ~450 small kernels and 6 host reads, and
+    the host's launches set its pace; a replay is one launch and no read.
+    Inputs are copied into the graph's own tensors; ``H`` is the (w, w)
+    projection matrix on the device in the flux's dtype.  Built where the
+    capture fails, the instance runs the flatten as it is, uncaptured.
+    """
+
+    def __init__(self, time, flux, valid, H, break_tolerance, sigma,
+                 niters=3):
+        self.args = (H, float(break_tolerance), float(sigma), int(niters))
+        self.time, self.flux, self.valid = (x[None].clone()
+                                            for x in (time, flux, valid))
+        dev = flux.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):   # cuFFT plans and buffers first
+            self._run()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(self.graph):
+                self.out = self._run()
+        except RuntimeError:
+            self.graph = None
+
+    def _run(self):
+        return flatten_batch(self.time, self.flux, self.valid, *self.args,
+                             max_segments=None, static=True)
+
+    def __call__(self, time, flux, valid):
+        """(trend, valid_out), each (n,), of one curve's (n,) tensors."""
+        if self.graph is None:
+            return flatten(time, flux, valid, *self.args, max_segments=None)
+        n, niters = flux.shape[-1], self.args[-1]
+        with span("flatten", curves=1, cadences=n, niters=niters,
+                  graph=True):
+            for mine, x in zip((self.time, self.flux, self.valid),
+                               (time, flux, valid)):
+                mine[0].copy_(x)
+            self.graph.replay()
+            return tuple(x[0].clone() for x in self.out)

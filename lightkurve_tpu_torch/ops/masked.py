@@ -13,6 +13,7 @@ import torch
 __all__ = [
     "nan_to_mask", "masked_sum", "masked_mean", "masked_var", "masked_std",
     "masked_median", "masked_quantile", "masked_median_grouped",
+    "segment_medians",
 ]
 
 
@@ -116,3 +117,37 @@ def masked_median_grouped(x, group_id, n_groups, valid=None):
     v_lo, v_hi = at(lo), at(hi)
     med = v_lo + (pos - lo) * (v_hi - v_lo)
     return torch.where(ng > 0, med, 0.0)
+
+
+def segment_medians(x, lo, hi):
+    """Each sample's median over its own segment, for segments that are
+    contiguous runs along the last axis: sample i belongs to ``[lo[i],
+    hi[i])``, as :func:`~lightkurve_tpu_torch.ops.detrend._segment_bounds`
+    gives them.  Any number of segments.  The sort needs only ``lo``: a
+    sample whose ``hi`` is at most its ``lo`` (a row's padding) is a
+    segment of its own and gets its own value.
+
+    Sorted by value, then stably by segment start, each segment's values
+    land ascending at the segment's own positions, so its two middle
+    ranks are gathers at ``lo + (hi - lo - 1) // 2`` and the next: no
+    count per segment and no read on the host.  The arithmetic is
+    :func:`masked_median_grouped`'s, so the medians agree bit for bit.
+
+    x, lo, hi : (..., n).  Returns (..., n) medians.
+    """
+    n = x.shape[-1]
+    by_value = torch.sort(x, dim=-1, stable=True)
+    lo_v = torch.gather(lo, -1, by_value.indices)
+    by_seg = torch.sort(lo_v, dim=-1, stable=True)
+    vs = torch.gather(by_value.values, -1, by_seg.indices)
+    ng = (hi - lo).to(x.dtype)
+    pos = 0.5 * (ng - 1.0)
+    r_lo = torch.clamp(torch.floor(pos), 0, n - 1)
+    r_hi = torch.minimum(r_lo + 1, torch.clamp(ng - 1, min=0))
+
+    def at(rank):
+        return torch.gather(vs, -1, torch.clamp(lo + rank.to(torch.int64),
+                                                0, n - 1))
+
+    v_lo, v_hi = at(r_lo), at(r_hi)
+    return v_lo + (pos - r_lo) * (v_hi - v_lo)

@@ -17,6 +17,8 @@ Memory stays O(B·n): no tensor holds every sample's window.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -37,10 +39,20 @@ def savgol_design_matrix(window_length: int, polyorder: int) -> np.ndarray:
     if polyorder >= w:
         raise ValueError("polyorder must be less than window_length")
     with span("flatten.design", window_length=w, polyorder=int(polyorder)):
-        # centred positions for numerical conditioning
-        pos = np.arange(w, dtype=np.float64) - (w - 1) / 2.0
-        V = np.vander(pos, N=polyorder + 1, increasing=True)
-        return V @ np.linalg.pinv(V)
+        return _design_matrix(w, int(polyorder)).copy()
+
+
+@functools.lru_cache(maxsize=8)
+def _design_matrix(w, polyorder):
+    """:func:`savgol_design_matrix`, built once per shape: its product runs
+    on the BLAS thread pool, whose spinning threads slow the host's
+    launches after it (a single-curve flatten calls it each time)."""
+    # centred positions for numerical conditioning
+    pos = np.arange(w, dtype=np.float64) - (w - 1) / 2.0
+    V = np.vander(pos, N=polyorder + 1, increasing=True)
+    H = V @ np.linalg.pinv(V)
+    H.flags.writeable = False
+    return H
 
 
 def _centred(xc, h):
@@ -54,7 +66,7 @@ def _centred(xc, h):
     return torch.fft.irfft(spec, n=nfft)[..., w // 2:w // 2 + n]
 
 
-def savgol_filter_interp(x, H, seg_lo=None, seg_hi=None):
+def savgol_filter_interp(x, H, seg_lo=None, seg_hi=None, static=False):
     """SG smoothing with 'interp' edges over the last axis of ``x``.
 
     x : (..., n) samples; H : (w, w) projection matrix
@@ -69,6 +81,11 @@ def savgol_filter_interp(x, H, seg_lo=None, seg_hi=None):
     are shifted by their in-segment mean before the sums (SG reproduces
     constants exactly), which keeps float32 rounding relative to the
     signal, and the shift is added back.
+
+    ``static`` finds the segment ends' windows with no read on the host
+    (:func:`_end_windows_static`), so that the call can be captured in a
+    CUDA graph; the default reads their positions (``torch.nonzero``) and
+    multiplies only the windows there are.
     """
     dev = x.device
     H = torch.as_tensor(H, dtype=x.dtype, device=dev)
@@ -99,6 +116,9 @@ def savgol_filter_interp(x, H, seg_lo=None, seg_hi=None):
     start = torch.clamp(idx - hw, min=lo)
     start = torch.minimum(start, torch.maximum(lo, hi - w))
     shifted = ((hi - lo) >= w) & (start != idx - hw)
+    if static:
+        trend = _end_windows_static(xc, H, trend, start, shifted)
+        return trend.reshape(lead + (n,)) + mu
     rr, ii = torch.nonzero(shifted, as_tuple=True)
     count("host_sync")                  # nonzero waits for the device
     if rr.numel():
@@ -116,3 +136,38 @@ def savgol_filter_interp(x, H, seg_lo=None, seg_hi=None):
             vals = win @ H.T                            # (windows, w)
         trend[rr, ii] = vals[win_id[rr, st], ii - st]
     return (trend.reshape(lead + (n,)) + mu)
+
+
+def _end_windows_static(xc, H, trend, start, shifted):
+    """``trend`` with each shifted sample's value taken on its segment
+    end's window, from tensors whose shapes depend on no value.
+
+    A segment of at least ``w`` samples has two end windows at most, and
+    segments do not overlap, so a row has at most ``2 * (n // w)``; each
+    row's window starts fill a table of that width in their order (unused
+    entries window 0), and a shifted sample's window is the rank of its
+    start.  The same windows and products as the reading path, on a table
+    that is mostly padding: for one curve, not for a batch.
+    """
+    rows, n = xc.shape
+    w = H.shape[0]
+    k = 2 * (n // w)
+    if k == 0:                          # no segment as long as a window
+        return trend
+    dev = xc.device
+    idx = torch.arange(n, device=dev).expand(rows, n)
+    # each window start marked once; the other samples in column n
+    ends = torch.zeros((rows, n + 1), dtype=torch.bool, device=dev)
+    ends.scatter_(-1, torch.where(shifted, start, n), True)
+    ends = ends[:, :n]
+    rank = torch.cumsum(ends, -1) - 1
+    table = torch.zeros((rows, k + 1), dtype=torch.int64, device=dev)
+    table.scatter_(-1, torch.where(ends, rank, k), idx)
+    pos = table[:, :k, None] + torch.arange(w, device=dev)
+    win = torch.gather(xc, -1, torch.clamp(pos, max=n - 1).reshape(rows, -1))
+    with full_f32_matmul(dev):
+        vals = win.reshape(rows, k, w) @ H.T           # (rows, k, w)
+    wid = torch.clamp(torch.gather(rank, -1, start), 0, k - 1)
+    at = wid * w + torch.clamp(idx - start, 0, w - 1)
+    got = torch.gather(vals.reshape(rows, k * w), -1, at)
+    return torch.where(shifted, got, trend)

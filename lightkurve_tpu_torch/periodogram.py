@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from . import config
+from .diagnostics import count, set_attrs, span
 from .lightcurve import LightCurve
 from .time import Time
 from .units import Quantity, Unit, day, dimensionless, one_per_day, uHz
@@ -561,107 +562,118 @@ class BoxLeastSquaresPeriodogram(Periodogram):
         """
         from .ops.bls import bls_power, bls_power_binned
 
-        lc = lc.remove_nans()
-        if np.isfinite(lc.flux_err.value).all():
-            dy = lc.flux_err.value.astype(np.float64)
-        else:
-            dy = None
+        with span("periodogram.bls"):
+            with span("periodogram.grid"):
+                lc = lc.remove_nans()
+                if np.isfinite(lc.flux_err.value).all():
+                    dy = lc.flux_err.value.astype(np.float64)
+                else:
+                    dy = None
 
-        duration = kwargs.pop("duration", [0.05, 0.10, 0.15, 0.20, 0.25,
-                                           0.33])
-        duration = np.atleast_1d(_qval(duration)).astype(np.float64)
-        if not np.all(np.isfinite(duration)):
-            raise ValueError("`duration` parameter contains illegal nan or "
-                             "inf value(s)")
+                duration = kwargs.pop("duration", [0.05, 0.10, 0.15, 0.20,
+                                                   0.25, 0.33])
+                duration = np.atleast_1d(_qval(duration)).astype(np.float64)
+                if not np.all(np.isfinite(duration)):
+                    raise ValueError("`duration` parameter contains illegal "
+                                     "nan or inf value(s)")
 
-        period = kwargs.pop("period", None)
-        minimum_period = kwargs.pop("minimum_period", None)
-        maximum_period = kwargs.pop("maximum_period", None)
-        if period is not None:
-            period = np.atleast_1d(_qval(period)).astype(np.float64)
-            if not np.all(np.isfinite(period)):
-                raise ValueError("`period` parameter contains illegal nan "
-                                 "or inf value(s)")
-        tv = lc.time.value.astype(np.float64)
-        if minimum_period is None:
-            if period is None:
-                minimum_period = max(np.median(np.diff(tv)) * 4,
-                                     np.max(duration) + np.median(np.diff(tv)))
-            else:
-                minimum_period = np.min(period)
-        else:
-            minimum_period = _qval(minimum_period)
-        if maximum_period is None:
-            if period is None:
-                maximum_period = (np.max(tv) - np.min(tv)) / 3.0
-            else:
-                maximum_period = np.max(period)
-        else:
-            maximum_period = _qval(maximum_period)
+                period = kwargs.pop("period", None)
+                minimum_period = kwargs.pop("minimum_period", None)
+                maximum_period = kwargs.pop("maximum_period", None)
+                if period is not None:
+                    period = np.atleast_1d(_qval(period)).astype(np.float64)
+                    if not np.all(np.isfinite(period)):
+                        raise ValueError("`period` parameter contains "
+                                         "illegal nan or inf value(s)")
+                tv = lc.time.value.astype(np.float64)
+                if minimum_period is None:
+                    if period is None:
+                        cadence = np.median(np.diff(tv))
+                        minimum_period = max(cadence * 4,
+                                             np.max(duration) + cadence)
+                    else:
+                        minimum_period = np.min(period)
+                else:
+                    minimum_period = _qval(minimum_period)
+                if maximum_period is None:
+                    if period is None:
+                        maximum_period = (np.max(tv) - np.min(tv)) / 3.0
+                    else:
+                        maximum_period = np.max(period)
+                else:
+                    maximum_period = _qval(maximum_period)
 
-        time_unit = kwargs.pop("time_unit", "day")
-        frequency_factor = kwargs.pop("frequency_factor", 10)
-        baseline = np.max(tv) - np.min(tv)
-        df = frequency_factor * np.min(duration) / baseline ** 2
-        # same expression autoperiod uses, so the guard counts the grid
-        # that will actually be built
-        npoints = 1 + int(np.round(
-            ((1 / minimum_period) - (1 / maximum_period)) / df))
-        if npoints > 1e7:
-            raise ValueError(
-                f"`period` contains {np.round(npoints, 4)} points."
-                "Periodogram is too large to evaluate. "
-                "Consider setting `frequency_factor` to a higher value.")
-        elif npoints > 1e5:
-            log.warning(
-                f"`period` contains {np.round(npoints, 4)} points."
-                "Periodogram is likely to be large, and slow to evaluate. "
-                "Consider setting `frequency_factor` to a higher value.")
+                time_unit = kwargs.pop("time_unit", "day")
+                frequency_factor = kwargs.pop("frequency_factor", 10)
+                baseline = np.max(tv) - np.min(tv)
+                df = frequency_factor * np.min(duration) / baseline ** 2
+                # same expression autoperiod uses, so the guard counts the
+                # grid that will actually be built
+                npoints = 1 + int(np.round(
+                    ((1 / minimum_period) - (1 / maximum_period)) / df))
+                if npoints > 1e7:
+                    raise ValueError(
+                        f"`period` contains {np.round(npoints, 4)} points."
+                        "Periodogram is too large to evaluate. "
+                        "Consider setting `frequency_factor` to a higher "
+                        "value.")
+                elif npoints > 1e5:
+                    log.warning(
+                        f"`period` contains {np.round(npoints, 4)} points."
+                        "Periodogram is likely to be large, and slow to "
+                        "evaluate. Consider setting `frequency_factor` to a "
+                        "higher value.")
 
-        if period is None:
-            period = autoperiod(duration, baseline,
-                                minimum_period=minimum_period,
-                                maximum_period=maximum_period,
-                                frequency_factor=frequency_factor)
+                if period is None:
+                    period = autoperiod(duration, baseline,
+                                        minimum_period=minimum_period,
+                                        maximum_period=maximum_period,
+                                        frequency_factor=frequency_factor)
 
-        objective = kwargs.pop("objective", "likelihood")
-        oversample = kwargs.pop("oversample", 10)
-        # 'fast' = binned fold (astropy's default Cython algorithm family);
-        # 'exact'/'slow' = the exact sorted-phase kernel
-        method = kwargs.pop("method", "fast")
-        if kwargs:
-            raise TypeError(
-                "to_periodogram(method='bls') got unexpected keyword "
-                f"argument(s): {sorted(kwargs)}")
-        kernel = bls_power_binned if method == "fast" else bls_power
-        # the fluxes in the configured dtype on the configured device; the
-        # times and the grid stay float64, the fold's geometry in every
-        # dtype (ops.bls._curve_inputs)
-        result = kernel(tv, _host(lc.flux.value),
-                        None if dy is None else _host(dy), period, duration,
-                        oversample=oversample, objective=objective,
-                        device=config.resolve_device(None))
-        result = {k: v.cpu().numpy().astype(np.float64)
-                  for k, v in result.items()}
-
-        return BoxLeastSquaresPeriodogram(
-            frequency=Quantity(1.0 / period, one_per_day),
-            power=Quantity(result["power"], dimensionless),
-            default_view="period",
-            label=lc.meta.get("LABEL"),
-            targetid=lc.meta.get("TARGETID"),
-            transit_time=Time(result["transit_time"],
-                              format=lc.time.format, scale=lc.time.scale),
-            duration=Quantity(result["duration"], day),
-            depth=Quantity(result["depth"], dimensionless),
-            depth_err=Quantity(result["depth_err"], dimensionless),
-            snr=Quantity(result["depth_snr"], dimensionless),
-            log_likelihood=Quantity(result["log_likelihood"], dimensionless),
-            time=lc.time,
-            flux=lc.flux,
-            flux_err=lc.flux_err,
-            time_unit=time_unit,
-            meta=lc.meta)
+                objective = kwargs.pop("objective", "likelihood")
+                oversample = kwargs.pop("oversample", 10)
+                # 'fast' = binned fold (astropy's default Cython algorithm
+                # family); 'exact'/'slow' = the exact sorted-phase kernel
+                method = kwargs.pop("method", "fast")
+                if kwargs:
+                    raise TypeError(
+                        "to_periodogram(method='bls') got unexpected keyword "
+                        f"argument(s): {sorted(kwargs)}")
+            set_attrs(cadences=len(lc), periods=len(period),
+                      durations=len(duration), method=method)
+            kernel = bls_power_binned if method == "fast" else bls_power
+            # the fluxes in the configured dtype on the configured device;
+            # the times and the grid stay float64, the fold's geometry in
+            # every dtype (ops.bls._curve_inputs)
+            out = kernel(tv, _host(lc.flux.value),
+                         None if dy is None else _host(dy), period, duration,
+                         oversample=oversample, objective=objective,
+                         device=config.resolve_device(None))
+            with span("periodogram.result"):
+                result = {}
+                for k, v in out.items():
+                    result[k] = v.cpu().numpy().astype(np.float64)
+                    count("host_sync")
+                return BoxLeastSquaresPeriodogram(
+                    frequency=Quantity(1.0 / period, one_per_day),
+                    power=Quantity(result["power"], dimensionless),
+                    default_view="period",
+                    label=lc.meta.get("LABEL"),
+                    targetid=lc.meta.get("TARGETID"),
+                    transit_time=Time(result["transit_time"],
+                                      format=lc.time.format,
+                                      scale=lc.time.scale),
+                    duration=Quantity(result["duration"], day),
+                    depth=Quantity(result["depth"], dimensionless),
+                    depth_err=Quantity(result["depth_err"], dimensionless),
+                    snr=Quantity(result["depth_snr"], dimensionless),
+                    log_likelihood=Quantity(result["log_likelihood"],
+                                            dimensionless),
+                    time=lc.time,
+                    flux=lc.flux,
+                    flux_err=lc.flux_err,
+                    time_unit=time_unit,
+                    meta=lc.meta)
 
     def _best(self, period, duration, transit_time):
         if period is None:

@@ -67,7 +67,9 @@ class Unit:
         on one (e.g. (1/d)**-1 displays as 'd', not '1 / d-1')."""
         bases = {k: v for k, v in bases.items() if v != 0}
         for u in Unit._registry.values():
-            if u.bases == bases and np.isclose(u.scale, scale):
+            # np.isclose's test, on two floats without its array overhead
+            if u.bases == bases and \
+                    abs(u.scale - scale) <= 1e-8 + 1e-5 * abs(scale):
                 return u.name
         return fallback
 

@@ -284,3 +284,72 @@ def test_past_the_cap_spans_are_dropped_and_counted(monkeypatch):
     with diag.span("c"):
         pass
     assert diag.dropped() == 3
+
+
+def vet_curve(n=1500):
+    """A TESS-like curve of float64 BTJD times: a gap, NaN cadences, a
+    transit every 1.3 d."""
+    from lightkurve_tpu_torch import LightCurve
+    from lightkurve_tpu_torch.time import Time
+    rng = np.random.default_rng(1)
+    t = 1325.2931 + np.arange(n) * (2.0 / 1440)
+    t[n // 2:] += 1.0
+    flux = 1.0 + 2e-4 * rng.standard_normal(n)
+    flux[np.abs(np.mod(t - 1325.5 + 0.65, 1.3) - 0.65) < 0.04] -= 2e-3
+    flux[rng.random(n) < 0.03] = np.nan
+    return LightCurve(time=Time(t, format="btjd"), flux=flux,
+                      flux_err=np.full(n, 2e-4))
+
+
+@pytest.mark.parametrize("method,route", [("fast", "binned"),
+                                          ("exact", "exact")])
+def test_the_vet_path_spans_nest_with_attributes(monkeypatch, method,
+                                                 route):
+    """``LightCurve.flatten`` then ``to_periodogram("bls")``: their spans,
+    the per-curve BLS's chunks (7 periods a chunk here) and one
+    ``host_sync`` for each device read on the path."""
+    from lightkurve_tpu_torch.ops import bls
+    from lightkurve_tpu_torch.periodogram import BoxLeastSquaresPeriodogram
+    from perfbench.program_spans import counts_under
+    monkeypatch.setattr(bls, "_periods_per_step", lambda B, work: 7)
+    lc = vet_curve()
+    diag.enable()
+    pg = BoxLeastSquaresPeriodogram.from_lightcurve(
+        lc.flatten(window_length=101), minimum_period=1.0,
+        maximum_period=1.6, method=method)
+    spans = diag.spans()
+    P = len(pg.period)
+    top = [s for s in spans if s.parent == -1]
+    assert [s.name for s in top] == ["lc.flatten", "periodogram.bls"]
+    flat, per = top
+    assert flat.attrs == {"cadences": 1500}
+    assert [s.name for s in children(spans, flat)] == [
+        "lc.flatten.host", "flatten", "lc.flatten.out"]
+    host, inner, out = children(spans, flat)
+    assert [s.name for s in children(spans, host)] == ["flatten.design"]
+    assert inner.attrs["curves"] == 1 and inner.attrs["cadences"] == 1500
+    assert out.counts == {"host_sync": 1}
+    assert per.attrs == {"cadences": int(np.isfinite(lc.flux.value).sum()),
+                         "periods": P, "durations": 6, "method": method}
+    assert [s.name for s in children(spans, per)] == [
+        "periodogram.grid", "bls.curve", "periodogram.result"]
+    grid, curve, result = children(spans, per)
+    chunks = -(-P // 7)
+    assert curve.attrs == {"route": route, "periods": P, "chunks": chunks}
+    kids = children(spans, curve)
+    assert [s.name for s in kids] == ["bls.curve.chunk"] * chunks
+    assert [s.attrs for s in kids] == [
+        {"index": i, "periods": min(7, P - 7 * i)} for i in range(chunks)]
+    assert result.counts == {"host_sync": 8}
+    for s in spans:
+        if s.parent != -1:
+            p = spans[s.parent]
+            assert p.start_ns <= s.start_ns and s.end_ns <= p.end_ns
+    counts = diag.counters()
+    assert counts["bls.curve.chunks"] == chunks
+    # the flatten's own reads: two a clip iteration (ops/savgol.py)
+    assert counts["host_sync"] == 1 + 6 + 8
+    # what periodogram_syncs.vet reads from a traced window
+    run = SimpleNamespace(trace=SimpleNamespace(window_ns=(
+        spans[0].start_ns, max(s.end_ns for s in spans) + 1)))
+    assert counts_under(run, "periodogram.bls", "host_sync") == 8
