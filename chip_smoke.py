@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Phases:
-  1. build the CUDA kernels (K-F, K-WF, K-W, K-U, K-SF) from the
+  1. build the CUDA kernels (K-F, K-WF, K-W, K-U, K-SF, K-PC) from the
      checkout's sources, one nvcc per source, all started together;
   2. hold each kernel against its plain torch version on the card at a
      small shape, in float64 (exact logic) and float32, over both edge
@@ -13,7 +13,13 @@ Phases:
      also at a ragged batch (250 curves) and with ten durations up to
      2.5 d; the fused kernels and K-SF give the same bits on two runs, and
      K-SF's empty astropy-mode rows repeat the row before them bit for
-     bit;
+     bit; K-PC (the per-curve binned search) against its plain version
+     on 5 curves of their own grids, float32 and float64, both edge
+     modes and both id conventions (two runs the same bits); then on a
+     TESS sector curve at lightkurve's default grid (4,238 periods) and
+     on a Kepler Q1-Q17-like curve whose longest periods take its L2
+     kernel, in float32 and float64, held against the plain version and
+     timed (the sector curve against its bound);
   3. uniform main path at full size: a 2048-file synthetic TESS sector
      written with the port's FITS writer, streamed through
      StreamingStackLoader into SweepRunner(method="shared");
@@ -31,8 +37,8 @@ Phases:
   7. the mixed-grid sweep: 2048 SPOC-like curves on four sector grids,
      one shared-grid search per grid, held against four single-grid
      sweeps of the same rows;
-  8. the per-curve methods, SweepRunner(method="fast") and "exact", at
-     2048 x 8192 (plain torch, no kernel);
+  8. the per-curve methods, SweepRunner(method="fast") (K-PC, one launch
+     a chunk) and "exact" (plain torch), at 2048 x 8192;
  10. flatten, then search: 2048 SPOC-like curves over a 27-d sector
      (19,440 cadences, a 1-d downlink gap, a stellar trend per curve,
      outliers, ~3% masked) in float32 through LightCurveStack.flatten
@@ -72,8 +78,8 @@ Phases:
      get_transit_mask, fold and bin, the Lomb-Scargle periodogram of the
      raw curve (peak within one frequency step of the rotation) and
      estimate_cdpp against estimate_cdpp_batch; on 2 curves the card's
-     float32 periodograms against the CPU's float64; no kernel may launch
-     in the single-curve part;
+     float32 periodograms against the CPU's float64; no kernel but K-PC
+     (the BLS periodograms') may launch in the single-curve part;
  13. pixels: (a) a TPFStack of 512 TESS targets x phase 10's sector x 11 x
      11 pixels made on the card in float32 (Gaussian PSFs, photon noise, a
      pointing jitter and momentum-dump sawtooth common to all, 3% NaN
@@ -95,7 +101,8 @@ Phases:
      collection's TPFStack photometry against each file's; 4 K2-like
      Kepler TPFs through to_corrector("sff") (CDPP below the raw curve's),
      a spline RegressionCorrector and the over-fitting metric; 2 files of
-     each kind against float64 on the CPU; no kernel may launch in (b);
+     each kind against float64 on the CPU; no kernel but K-PC (the BLS
+     periodograms') may launch in (b);
  14. CBV cotrending and asteroseismology: (a) one TESS CCD's CBV file (16
      single-scale vectors, three multiscale bands of 8, 8 spike vectors,
      float32, over phase 10's sector with its downlink gap flagged) and
@@ -171,7 +178,8 @@ Phases:
      the CPU's float64 pages, and the echelle page (one KEPSEISMIC giant)
      within 5e-4 of the float64 page's peak, a one-bin shift of that
      spectrum reading above it; search -> stitch at least 25 targets/s
-     and the explorer under 2 s; no kernel may launch in (b)-(d);
+     and the explorer under 2 s; no kernel may launch in (b)-(c), and in
+     (d) only K-PC, once for every precompute on the card;
  18. the archive over HTTP (after phase 16, HOME and the rest as there): a
      Mashup server of the standard library on 127.0.0.1 (a free port, in
      a thread of this process) serving phase 16's 1,024 files and phase
@@ -191,7 +199,8 @@ Phases:
      exports: without matplotlib or pandas (this card's machine) a plot,
      to_pandas() and the SkyBot query raise ImportError naming the
      package; with them, card-made PRF and BLS periodogram plots and an
-     export against the CPU's; no kernel may launch in (b) or (c);
+     export against the CPU's; no kernel may launch in (b), and in (c) only
+     K-PC (the BLS periodogram's, where matplotlib is installed);
  19. the port's drivers: (a) lightkurve_tpu_torch.bench.run() at its full
      default shape (2048 x 8,192 x 16,384 periods and its eight
      companions; its JSON line printed): no companion may fail, the
@@ -530,7 +539,8 @@ def compare(name, got, want, f64):
 def phase_kernels():
     """K-F, K-WF, K-W and K-U against their plain versions, both edge
     modes and both objectives, and K-SF over both regimes' columns in both
-    edge modes, float64 then float32.  Returns per-kernel f32 errors."""
+    edge modes, float64 then float32; then K-PC (:func:`check_curve`).
+    Returns per-kernel f32 errors and K-PC's times and bound."""
     import torch
     from lightkurve_tpu_torch.ops import (bls_fused, bls_fused_weighted,
                                           bls_staged_fold, bls_window)
@@ -589,7 +599,8 @@ def phase_kernels():
     check_ragged()
     check_long_durations()
     check_deterministic()
-    return errs
+    errs["K-PC"], kpc = check_curve()
+    return errs, kpc
 
 
 def check_long_durations(B=256, n=2048, seed=13):
@@ -684,6 +695,172 @@ def check_deterministic():
         raise AssertionError("K-SF: two runs differ")
     log("  K-F, K-WF and K-SF: two runs on the same inputs are "
         "bit-identical")
+
+
+def curve_curves(B, n, seed):
+    """B curves of 2-min cadences, each on its own grid (a 1-d gap
+    midway, starts apart), noise 2e-4 with per-cadence flux_err and 3%
+    masked (flux_err inf), a 3e-3 box of 0.1 d at 0.8-4 d: host times
+    (B, n), flux and flux_err."""
+    from lightkurve_tpu_torch.tools import make_sector as ms
+    rng = np.random.default_rng(seed)
+    cad = 2.0 / 1440.0
+    idx = np.arange(n) + (np.arange(n) >= n // 2) * 720
+    t = 1325.0 + rng.uniform(0, 0.5, (B, 1)) + idx * cad
+    y = 1.0 + ms.NOISE * rng.standard_normal((B, n))
+    p_inj = rng.uniform(0.8, 4.0, B)
+    ph = np.mod(t - t[:, :1] - 0.3, p_inj[:, None])
+    y[ph < 0.1] -= ms.DEPTH
+    dy = ms.NOISE * rng.uniform(0.8, 1.25, (B, n))
+    dy[rng.random((B, n)) < 0.03] = np.inf
+    return t, y, dy
+
+
+def curve_grid(t, durations=DURATIONS, frequency_factor=10.0):
+    """lightkurve's default BLS grid for times ``t`` (astropy's
+    autoperiod, as ``from_lightcurve`` builds it)."""
+    dt = np.median(np.diff(t))
+    baseline = t.max() - t.min()
+    df = frequency_factor * durations.min() / baseline ** 2
+    f_max, f_min = 1.0 / max(4 * dt, durations.max() + dt), 3.0 / baseline
+    return 1.0 / (f_max - df * np.arange(1 + int(np.round((f_max - f_min)
+                                                          / df))))
+
+
+def hold_curve(tag, got, want, exact):
+    """K-PC's result ``got`` against its plain version's ``want`` (dicts
+    of (B, P)): the same winners (duration and transit time: the same
+    start bin and duration), the float64 statistics within F64_RTOL, and
+    where ``exact`` (data whose float64 sums are exact in any order, as
+    float32 data's are) every field's bits.  Returns the largest |power
+    error|."""
+    import torch
+    torch.cuda.synchronize()
+    if not all(torch.equal(got[k], want[k])
+               for k in ("duration", "transit_time")):
+        raise AssertionError(f"{tag}: a winner differs")
+    if exact and not all(torch.equal(got[k], want[k]) for k in got):
+        raise AssertionError(f"{tag}: exact sums, other bits")
+    e, _ = compare(tag, got, want, True)
+    return e
+
+
+def kepler_curve(seed=19, n=65_000):
+    """One Kepler Q1-Q17-like long-cadence curve (29.4-min cadences over
+    ~1,370 d with a 1-d downlink gap a month, 7% masked, noise 1e-4, a
+    5e-4 box of 0.2 d at 97.3 d) and a grid that reaches the shared-memory
+    limit's far side: 192 periods of lightkurve's default grid for it,
+    evenly by index, and 64 of those past 60 d.  Host times (1, n), flux
+    (float32 values), flux_err (2^-13, a weight of 2^26, or inf) and the
+    periods: the weighted fluxes' float64 sums over 65,000 cadences are
+    exact in any order, so K-PC gives the plain version's bits in float64
+    too, where other data would differ by rounding that grows with the
+    cadences summed (6.9e-9 of a power with flux_err 1e-4, on an H100)."""
+    rng = np.random.default_rng(seed)
+    cad = 29.4244 / 1440.0
+    idx = np.arange(n) + (np.arange(n) // 1470) * 49
+    t = 131.5 + idx * cad
+    y = 1.0 + 1e-4 * rng.standard_normal(n)
+    y[np.mod(t - t[0] - 11.0, 97.3) < 0.2] -= 5e-4
+    dy = np.full(n, 2.0 ** -13)
+    dy[rng.random(n) < 0.07] = np.inf
+    full = curve_grid(t)
+    far = full[full > 60.0]
+    grid = np.unique(np.concatenate([
+        full[np.linspace(0, full.size - 1, 192).astype(np.int64)],
+        far[np.linspace(0, far.size - 1, 64).astype(np.int64)]]))
+    return t[None], y[None].astype(np.float32), dy[None], grid
+
+
+def check_curve():
+    """K-PC against its plain version (:func:`hold_curve`): 5 curves of
+    their own grids (of 2,000 cadences, periods 0.4-9 d), float64 then
+    float32 data, both edge modes and both id conventions, two launches
+    the same bits.  Then at the main path's shape, one TESS sector curve
+    (19,440 cadences, 3% masked) at lightkurve's default grid (4,564
+    periods), float32 and float64 data: one kernel call and one plain
+    call held against each other before both are timed (and the kernel
+    against its bound, ``roofline.bound_curve``).  Then one Kepler
+    Q1-Q17-like curve (:func:`kepler_curve`) whose longest periods' columns
+    do not fit shared memory (the L2 kernel's), held and timed the same
+    way, its float64 statistics bit for bit (its sums are exact).  Returns the largest |power error| and ((kernel ms, plain ms),
+    (bound ms, bound by)) of the sector curve."""
+    import torch
+    from lightkurve_tpu_torch.ops import bls, bls_curve
+    from lightkurve_tpu_torch.ops.bls_fused import shared_memory_optin
+    from lightkurve_tpu_torch.roofline import bound_curve
+    f64 = torch.float64
+    d_phase = float(DURATIONS.min()) / OVERSAMPLE
+    dp = torch.tensor(d_phase, dtype=f64, device="cuda")
+    periods = np.linspace(0.4, 9.0, 257)
+    nbins = int(np.ceil(periods.max() / d_phase))
+    t, y, dy = curve_curves(5, 2000, 17)
+    err = 0.0
+    for dtype in (f64, torch.float32):
+        ts, w, wy, _, pc, durs = bls._curve_inputs(
+            t, torch.as_tensor(y, dtype=dtype, device="cuda"), dy, periods,
+            DURATIONS)
+        for wrap in (True, False):
+            for recip in (False, True):
+                tag = (f"K-PC {dtype} {'wrap' if wrap else 'astropy'}/"
+                       f"{'reciprocal' if recip else 'division'}")
+                flags = (True, wrap, recip)
+                got = bls_curve.curve_scan(ts, w, wy, pc, durs, d_phase,
+                                           nbins, *flags, periods, DURATIONS)
+                again = bls_curve.curve_scan(ts, w, wy, pc, durs, d_phase,
+                                             nbins, *flags, periods,
+                                             DURATIONS)
+                want = bls_curve.curve_scan_plain(ts, w, wy, pc, durs, dp,
+                                                  nbins, *flags, chunk=64)
+                torch.cuda.synchronize()
+                if not all(torch.equal(got[k], again[k]) for k in got):
+                    raise AssertionError(f"{tag}: two runs differ")
+                err = max(err, hold_curve(tag, got, want,
+                                          dtype == torch.float32))
+    log("  K-PC: two runs on the same inputs are bit-identical")
+    t1 = sector_times()
+    rng = np.random.default_rng(18)
+    keep = rng.random(t1.size) >= 0.03
+    t1 = t1[keep][None]
+    y1 = 1.0 + 2e-4 * rng.standard_normal(t1.shape)
+    grid = curve_grid(t1[0])
+    out = None
+    for name, t_, y_, dy_, grid_, chunk, exact in (
+            ("sector curve", t1, y1, None, grid, 1726, False),
+            ("Kepler-like curve", *kepler_curve(), 16, True)):
+        nb = int(np.ceil(grid_.max() / d_phase))
+        rows = bls_curve.curve_rows(grid_, bls_curve.curve_k_bins(
+            DURATIONS, d_phase), d_phase, nb)
+        n_l2 = int((16 * rows > shared_memory_optin("cuda")).sum())
+        for dtype in (f64, torch.float32):
+            ts, w, wy, _, pc, durs = bls._curve_inputs(
+                t_, torch.as_tensor(y_, dtype=dtype, device="cuda"), dy_,
+                grid_, DURATIONS)
+            args = (ts, w, wy, pc, durs, d_phase, nb)
+            run_kernel = lambda *a: bls_curve.curve_scan(  # noqa: E731
+                *a, True, True, False, grid_, DURATIONS)
+            run_plain = lambda: bls_curve.curve_scan_plain(  # noqa: E731
+                ts, w, wy, pc, durs, dp, nb, True, True, False, chunk=chunk)
+            tag = f"K-PC {name} {dtype}"
+            err = max(err, hold_curve(tag, run_kernel(*args), run_plain(),
+                                      exact or dtype == torch.float32))
+            log(f"  {tag}: the plain version's winners at "
+                f"{t_.shape[1]} cadences, {grid_.size} periods ({n_l2} on "
+                f"the L2 kernel), {nb} bins")
+            if dtype == torch.float32:
+                warps, smem, blocks = bls_curve.curve_block(
+                    int(rows[16 * rows <= shared_memory_optin("cuda")]
+                        .max()), dtype, "cuda")
+                log(f"K-PC on a {name} ({rows.mean():.1f} rows a period): "
+                    f"blocks of {warps} periods in {smem} bytes, {blocks} "
+                    f"resident per SM")
+                times = time_pair(f"K-PC {name}", run_kernel, None, args,
+                                  run_plain=run_plain)
+                if out is None:
+                    bound = bound_curve(*args)
+                    log(f"bound K-PC: {bound[0]:.6f} ms ({bound[1]})")
+                    out = (times, bound)
+    return err, out
 
 
 def check_tile_edge(B=256, n=2048, seed=11):
@@ -1817,7 +1994,8 @@ def check_mixed_against_single(tmp, stack, mixed, per, chunk_periods=2048):
 
 def phase_percurve(tmp, B=2048, n_periods=1024, chunk_periods=512):
     """Phase 8: SweepRunner(method="fast") and method="exact" on the
-    SPOC-like batch (2048 x 8192), 1,024 periods; plain torch, no kernel."""
+    SPOC-like batch (2048 x 8192), 1,024 periods: "fast" launches K-PC
+    once a chunk, "exact" is plain torch."""
     from lightkurve_tpu_torch.parallel.checkpoint import SweepRunner
     from lightkurve_tpu_torch.tools import make_sector as ms
     stack, p_inj = spoc_like_stack(B, seed=2029)
@@ -3174,8 +3352,9 @@ def phase_pixels(tmp, card, sweep, runs):
     """Phase 13, each part a path of its own: (a) the PLD-corrected search
     and the uncorrected one (their launches as the route rule gives them,
     through ``sweep``), call 4 on both routes, the float32-against-float64
-    check; (b) the single files, where no kernel may launch.  Adds the
-    paths' launches to ``runs``; returns (a)'s times and (b)'s numbers."""
+    check; (b) the single files, where no kernel but K-PC (the BLS
+    periodograms') may launch.  Adds the paths' launches to ``runs``;
+    returns (a)'s times and (b)'s numbers."""
     import torch
     t0 = time.time()
     px = sweep("pixels, PLD -> search (phase 13)", phase_pixels_stack, card)
@@ -3190,7 +3369,8 @@ def phase_pixels(tmp, card, sweep, runs):
     del px
     torch.cuda.empty_cache()
     files, _ = drive("pixels, files (phase 13)", phase_pixels_files, tmp,
-                     card, forbid=tuple(kernel_table()))
+                     card, expect=("K-PC",),
+                     forbid=tuple(k for k in kernel_table() if k != "K-PC"))
     torch.cuda.empty_cache()
     log(f"phase 13: {time.time() - t0:.1f}s")
     return numbers, files
@@ -3535,8 +3715,8 @@ def phase_pixels_files(tmp, card):
     photometry against each file's ``to_lightcurve``, the K2 files
     through :func:`k2_file_chain` (SFF lowers the CDPP of the raw curve);
     on :data:`PIX_F64_FILES` files of each kind the card's float32
-    against the CPU's float64.  No BLS kernel may launch here.  Returns
-    the times."""
+    against the CPU's float64.  No BLS kernel but K-PC (the periodograms')
+    may launch here.  Returns the times."""
     import torch
     from lightkurve_tpu_torch import config
     from lightkurve_tpu_torch.correctors import PLDCorrector
@@ -4785,13 +4965,16 @@ def port_on(device, dtype):
 @contextlib.contextmanager
 def bls_devices(seen):
     """Append the device of every per-curve binned BLS result (the BLS
-    explorer's precompute) to ``seen`` inside the block."""
-    from lightkurve_tpu_torch.ops import bls
+    explorer's precompute) and the K-PC launches of its call to ``seen``
+    inside the block."""
+    from lightkurve_tpu_torch.ops import bls, bls_curve
     real = bls.bls_power_binned
 
     def spy(*args, **kwargs):
+        launches = bls_curve.curve_scan.launches
         out = real(*args, **kwargs)
-        seen.append(out["power"].device.type)
+        seen.append((out["power"].device.type,
+                     bls_curve.curve_scan.launches - launches))
         return out
 
     bls.bls_power_binned = spy
@@ -5215,7 +5398,8 @@ def archive_pages(tmp, files, stitched, card):
     ``Seismology.interact_echelle(html=...)`` on one of phase 14's
     KEPSEISMIC giants, against the same pages written on the CPU in
     float64 (:func:`compare_pages`); ``demo_sky_catalog()`` opened.  No
-    kernel may launch.  Returns each page's seconds and errors."""
+    kernel but K-PC may launch, once for every BLS precompute on the card.
+    Returns each page's seconds and errors."""
     import csv
     import torch
     from lightkurve_tpu_torch.interact_html import (demo_sky_catalog,
@@ -5241,9 +5425,9 @@ def archive_pages(tmp, files, stitched, card):
         export_interact_bls_html(lc, page("small32"), **ARC_SMALL_PAGE)
         with port_on("cuda", torch.float64):
             export_interact_bls_html(lc, page("small64"), **ARC_SMALL_PAGE)
-    if set(seen) != {"cuda"} or len(seen) != 10:
+    if set(seen) != {("cuda", 1)} or len(seen) != 10:
         raise AssertionError(f"archive, explorers: a BLS precompute ran off "
-                             f"the card ({seen})")
+                             f"the card or without K-PC ({seen})")
     with port_on("cpu", torch.float64):
         _, cpu_s = sync_timed(lambda: export_interact_bls_html(
             lc, page("small_cpu"), **ARC_SMALL_PAGE))
@@ -5326,13 +5510,15 @@ def phase_archive(tmp, card, sweep, runs):
     BLS path (the launches the route rule gives, through ``sweep``) with
     K-WF and K-SF against their plain versions on its call 4
     (:func:`check_weighted_kernels`), (b) the MAST chain, (c) TESScut and
-    (d) the explorers (no kernel may launch in b-d).  Adds the paths'
-    launches to ``runs``; returns the numbers (and, under ``"phase18"``,
-    the files, each target's search and stitched curve, and the winners,
-    which phase 18 compares with) and the kernels' errors."""
+    (d) the explorers (no kernel may launch in b-c, only K-PC in d).
+    Adds the paths' launches to ``runs``; returns the numbers (and, under
+    ``"phase18"``, the files, each target's search and stitched curve,
+    and the winners, which phase 18 compares with) and the kernels'
+    errors."""
     import torch
     t0 = time.time()
     none = tuple(kernel_table())
+    others_than_kpc = tuple(k for k in none if k != "K-PC")
     out = {}
     with archive_env(tmp):
         files, runs["archive, files (phase 16)"] = drive(
@@ -5355,7 +5541,8 @@ def phase_archive(tmp, card, sweep, runs):
             forbid=none)
         out["pages"], runs["archive, explorers (phase 16)"] = drive(
             "archive, explorers (phase 16)", archive_pages, tmp, files,
-            results[0][1], card, forbid=none)
+            results[0][1], card, expect=("K-PC",),
+            forbid=others_than_kpc)
     torch.cuda.empty_cache()
     out["seconds"] = time.time() - t0
     log(f"phase 16: {out['seconds']:.1f}s")
@@ -5873,8 +6060,8 @@ def phase_http(tmp, card, sweep, runs, arc):
     K-WF, K-SF and K-W against their plain versions there
     (:func:`check_pixel_kernels`); (b) ``correct()`` with the neighbours
     fetched over HTTP; (c) the plots and exports (no kernel may launch in
-    b or c).  Adds the paths' launches to ``runs``; returns the numbers
-    and the kernels' errors."""
+    b, only K-PC in c).  Adds the paths' launches to ``runs``; returns the
+    numbers and the kernels' errors."""
     import torch
     t0 = time.time()
     none = tuple(kernel_table())
@@ -5900,7 +6087,8 @@ def phase_http(tmp, card, sweep, runs, arc):
             "CBV neighbours over HTTP (phase 18)", http_cbv, tmp, archive,
             local, card, forbid=none)
     out["plots"], runs["plots and exports (phase 18)"] = drive(
-        "plots and exports (phase 18)", http_plots, tmp, card, forbid=none)
+        "plots and exports (phase 18)", http_plots, tmp, card,
+        forbid=tuple(k for k in none if k != "K-PC"))
     torch.cuda.empty_cache()
     out["seconds"] = time.time() - t0
     log(f"phase 18: {out['seconds']:.1f}s")
@@ -6871,6 +7059,9 @@ KERNELS = (
     ("K-SF", "K-SF bin-ordered staged BLS fold", "lightkurve_tpu_torch/csrc/"
      "bls_staged_fold.cu", "lightkurve_tpu/ops/bls.py:340-373 (XLA one-hot "
      "fold + cumsum)"),
+    ("K-PC", "K-PC per-curve binned BLS search", "lightkurve_tpu_torch/csrc/"
+     "bls_curve_fused.cu", "none: lightkurve_tpu/ops/bls.py:212-311 "
+     "(_bls_one_period_binned, _bls_scan_binned; XLA)"),
 )
 
 
@@ -6972,7 +7163,7 @@ def main():
         with tempfile.TemporaryDirectory() as tmp, archive_env(tmp):
             phase_profile(tmp)
         return 0
-    phase_kernels()
+    kernel_errs, (kpc_times, kpc_bound) = phase_kernels()
     runs = {}
     others = lambda *keep: tuple(k for k in kernel_table()  # noqa: E731
                                  if k not in keep)
@@ -7000,7 +7191,8 @@ def main():
         check_mixed_against_single(tmp, stack, mix, per)
         del stack
         path = "per-curve sweeps (phase 8)"
-        pcv, runs[path] = drive(path, phase_percurve, tmp, forbid=others())
+        pcv, runs[path] = drive(path, phase_percurve, tmp, expect=("K-PC",),
+                                forbid=others("K-PC"))
         torch.cuda.empty_cache()
         flt = sweep("flatten -> search (phase 10)", phase_flatten, tmp)
         check_flatten(flt.pop("arrays"))
@@ -7011,8 +7203,8 @@ def main():
         check_lc_stack_against_numpy(lcs)
         lcs_numbers = {k: lcs[k] for k in ("files_per_s", "rate")}
         single, _ = drive("LightCurve API, single curves (phase 12)",
-                          phase_lc_single, lcs, card,
-                          forbid=tuple(kernel_table()))
+                          phase_lc_single, lcs, card, expect=("K-PC",),
+                          forbid=others("K-PC"))
         del lcs
         torch.cuda.empty_cache()
         px_numbers, files = phase_pixels(tmp, card, sweep, runs)
@@ -7039,6 +7231,8 @@ def main():
     for key, (e, t, b, per) in long.items():
         errs[key], times[key], bounds[key], per_launch[key] = e, t, b, per
     errs["K-F"] = max(errs["K-F"], kf_err)
+    errs["K-PC"], times["K-PC"], bounds["K-PC"] = (kernel_errs["K-PC"],
+                                                   kpc_times, kpc_bound)
     for key, e in (*px_errs.items(), *p14_errs.items(), *prf_errs.items(),
                    *arc_errs.items(), *h18_errs.items(), *p19_errs.items()):
         errs[key] = max(errs[key], e)

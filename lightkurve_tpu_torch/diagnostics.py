@@ -9,6 +9,8 @@ Counterpart of ``lightkurve_tpu/diagnostics.py``:
   kept in one registry (:func:`spans`, :func:`counters`, :func:`reset`);
 - :func:`pending_counts` — counters that kernels add to on the device,
   read into the registry by :func:`counters`;
+- :func:`settle` — while recording, wait for the card's queued work, so
+  that the open spans hold a launch's device time;
 - :class:`KernelTimer` / :func:`timed` — wall-clock counters per named
   region, ended by a device synchronisation, kept in the same registry
   and tabled by :func:`report`;
@@ -73,7 +75,7 @@ log = logging.getLogger(__name__)
 __all__ = ["trace", "timed", "annotate", "report", "reset",
            "KernelTimer", "hbm_stats", "span", "count", "set_attrs",
            "enable", "disable", "recording", "spans", "counters", "dropped",
-           "pending_counts",
+           "pending_counts", "settle",
            "idle_by_span", "busy_intervals", "Span", "MAX_SPANS"]
 
 #: the most spans the registry keeps; later ones are dropped and counted
@@ -309,6 +311,15 @@ def dropped():
 def _sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def settle(device):
+    """While :func:`recording`, wait until ``device`` has run the work
+    queued on it, so that the spans open now hold that work's device time
+    (a kernel's span that closed once the launch was queued would not);
+    else nothing."""
+    if _explicit or _profiling():
+        _sync(torch.device(device))
 
 
 @contextlib.contextmanager

@@ -135,16 +135,22 @@ def _declare_cuda(lib):
     lib.lk_bls_staged_fold_f32.argtypes = [P, P, P, I, I, I, I, I, P, P, P]
     lib.lk_bls_staged_fold_f64.argtypes = \
         lib.lk_bls_staged_fold_f32.argtypes
+    lib.lk_bls_curve_fused_f32.argtypes = (
+        [P] * 5 + [I] * 9 + [D, D] + [I] * 3 + [P, I, I] + [P] * 6 + [P])
+    lib.lk_bls_curve_fused_f64.argtypes = \
+        lib.lk_bls_curve_fused_f32.argtypes
     IP = ctypes.POINTER(ctypes.c_int)
     lib.lk_bls_fused_uniform_block.argtypes = [I, I, IP, IP]
     lib.lk_bls_fused_weighted_block.argtypes = [I, I, IP, IP]
+    lib.lk_bls_curve_block.argtypes = [I, I, IP, IP, IP]
     for fn in (lib.lk_bls_window_weighted_f32, lib.lk_bls_window_weighted_f64,
                lib.lk_bls_fused_uniform_f32, lib.lk_bls_fused_uniform_f64,
                lib.lk_bls_fused_weighted_f32, lib.lk_bls_fused_weighted_f64,
                lib.lk_bls_window_uniform_f32, lib.lk_bls_window_uniform_f64,
                lib.lk_bls_staged_fold_f32, lib.lk_bls_staged_fold_f64,
+               lib.lk_bls_curve_fused_f32, lib.lk_bls_curve_fused_f64,
                lib.lk_bls_fused_uniform_block,
-               lib.lk_bls_fused_weighted_block):
+               lib.lk_bls_fused_weighted_block, lib.lk_bls_curve_block):
         fn.restype = ctypes.c_int
     lib.lk_max_shared_optin.argtypes = [I]
     lib.lk_max_shared_optin.restype = ctypes.c_int

@@ -30,10 +30,13 @@ one contiguous (n, cols) copy per call for K-SF.
   holds (:func:`staged_slice`).
 
 **Per curve** (:func:`bls_power`, exact; :func:`bls_power_binned`, fast):
-each curve folds on its own time grid, in plain torch with the curves as
-a batch dimension (the reference's ``vmap`` written out): sorted phases,
-prefix sums and batched ``searchsorted`` range queries, no kernel.  The
-fold and its sums are float64 whatever the data dtype (ROADMAP C3).
+each curve folds on its own time grid.  The exact method is plain torch
+with the curves as a batch dimension (the reference's ``vmap`` written
+out): sorted phases, prefix sums and batched ``searchsorted`` range
+queries.  The binned method takes kernel K-PC on the card
+(:mod:`.bls_curve`; every period in one call, :func:`.bls_curve.
+curve_route`), elsewhere its plain version a chunk of periods at a time.
+The fold and its sums are float64 whatever the data dtype (ROADMAP C3).
 
 CUDA tensors take the kernels; CPU tensors take their plain versions.
 """
@@ -43,7 +46,9 @@ import numpy as np
 import torch
 
 from ..config import numpy_dtype, on_device
-from ..diagnostics import count, set_attrs, span
+from ..diagnostics import count, set_attrs, settle, span
+from .bls_curve import (_chunks, _mod, _sorted_prefix, _take, curve_route,
+                        curve_scan, curve_scan_plain)
 from .bls_fused import (fold_rows, fused_fits, fused_scan_uniform,
                         max_nbins_bound)
 from .bls_fused_weighted import fused_scan_weighted
@@ -461,13 +466,6 @@ def bls_power_shared_batch(t, Y, dy, periods, durations, oversample=10,
 # vmaps a one-curve function over the batch; here the curves (and a chunk
 # of periods) are batch dimensions of plain torch ops.
 # ---------------------------------------------------------------------------
-def _mod(x, y):
-    """``x mod y`` as the reference computes it: the exact ``fmod``, moved
-    into the divisor's sign (``torch.remainder`` rounds differently)."""
-    r = torch.fmod(x, y)
-    return torch.where((r != 0) & ((r < 0) != (y < 0)), r + y, r)
-
-
 def _curve_inputs(t, y, dy, periods, durations):
     """Tensors (B, n) of times from each curve's first sample, weights and
     weighted fluxes; each curve's first time; the periods and durations.
@@ -529,22 +527,6 @@ def _range_sums(ph_sorted, cw, cwy, lo, hi, period, total_w, total_wy):
     return w_in, wy_in
 
 
-def _take(a, best):
-    return torch.gather(a, -1, best[..., None])[..., 0]
-
-
-def _sorted_prefix(w, wy, order):
-    """Prefix sums (B, C, n + 1), leading 0, of the weights and weighted
-    fluxes (B, n) taken in each (curve, period)'s sample ``order``, in
-    float64 whatever the data dtype: a window's sums are differences of
-    two prefix sums over the whole curve (ROADMAP C3)."""
-    B, C, n = order.shape
-    zero = torch.zeros((B, C, 1), dtype=torch.float64, device=w.device)
-    return tuple(torch.cat([zero, torch.cumsum(torch.gather(
-        v[:, None, :].expand(B, C, n), -1, order), -1,
-        dtype=torch.float64)], -1) for v in (w, wy))
-
-
 def _bls_one_period(ts, w, wy, pc, t0_grid, durations, use_likelihood):
     """Best-fit box statistics of B curves at C periods: ts, w, wy (B, n),
     pc (C,).  Returns a dict of (B, C) tensors."""
@@ -581,18 +563,6 @@ def _bls_one_period(ts, w, wy, pc, t0_grid, durations, use_likelihood):
                 depth_snr=_take(snr, best),
                 log_likelihood=_take(loglike, best),
                 duration=durations[best % D], transit_time=t0_grid[best // D])
-
-
-def _chunks(periods, chunk):
-    """The first period of each chunk of a per-curve scan; the caller's
-    work on a chunk runs under its span ``bls.curve.chunk``, and each
-    chunk counts once in ``bls.curve.chunks``."""
-    P = periods.shape[0]
-    for index, lo in enumerate(range(0, P, chunk)):
-        with span("bls.curve.chunk", index=index,
-                  periods=min(chunk, P - lo)):
-            count("bls.curve.chunks")
-            yield lo
 
 
 def _bls_scan(ts, w, wy, periods, durations, d_phase, use_likelihood, chunk,
@@ -679,97 +649,6 @@ def bls_objective_single(t, y, dy, period, duration, transit_time,
                 y_in=y_in, y_out=y_out, in_transit=in_t)
 
 
-def _bls_one_period_binned(ts, w, wy, pc, durations, d_phase, nbins,
-                           use_likelihood, wrap=True, reciprocal=False):
-    """Binned box search of B curves at C periods: ts, w, wy (B, n), pc
-    (C,).  Fold bins are ``clip(trunc(phase / d_phase), 0, nbins - 1)``,
-    or with ``reciprocal`` the product with 1/d_phase rounded in the
-    geometry's dtype (float64, :func:`_curve_inputs`).  The per-bin sums
-    come from each curve's samples sorted by bin and a cumulative sum
-    (deterministic, no float atomics).  Returns a dict of (B, C) float64
-    tensors."""
-    B = w.shape[0]
-    C, D = pc.shape[0], durations.shape[0]
-    dev = w.device
-    phase = _mod(ts[:, None, :], pc[None, :, None])
-    pos = phase * (1.0 / d_phase) if reciprocal else phase / d_phase
-    ids = torch.clamp(pos.to(torch.int64), 0, nbins - 1)
-    ids_s, order = torch.sort(ids, dim=-1, stable=True)         # (B, C, n)
-    cw_s, cwy_s = _sorted_prefix(w, wy, order)
-    # bin prefix cw[b] = Σ over samples with ids < b, b = 0..nbins
-    edges = torch.arange(nbins + 1, device=dev).expand(B, C, -1)
-    first = torch.searchsorted(ids_s, edges.contiguous(), right=False)
-    cw = torch.gather(cw_s, -1, first)                          # (B, C, nb+1)
-    cwy = torch.gather(cwy_s, -1, first)
-    nbins_p = torch.clamp(torch.ceil(pc / d_phase).to(torch.int64),
-                          max=nbins)                            # (C,)
-    nbp = nbins_p[None, :, None]
-    total_w = torch.gather(cw, -1, nbp.expand(B, C, 1))
-    total_wy = torch.gather(cwy, -1, nbp.expand(B, C, 1))
-
-    k_durs = torch.clamp((durations / d_phase + 0.5).to(torch.int64), min=1)
-    starts = torch.arange(nbins, device=dev)                    # (T0,)
-    ends = starts[:, None] + k_durs[None, :]                    # (T0, D)
-    if wrap:
-        # circular: windows past the period edge wrap to the start
-        wraps = ends[None] > nbins_p[:, None, None]             # (C, T0, D)
-        ends_m = torch.where(wraps, ends[None] - nbins_p[:, None, None],
-                             ends[None])
-    else:
-        # astropy edge convention: windows past the period edge read empty
-        # bins (truncated transits), no wrap-around
-        ends_m = torch.minimum(ends, torch.tensor(nbins, device=dev))
-        ends_m = ends_m[None].expand(C, -1, -1)
-    # gathers clamp out-of-range indices, as the reference's do (only
-    # windows that are masked invalid below reach them)
-    ends_m = torch.clamp(ends_m, 0, nbins).reshape(1, C, -1).expand(B, C, -1)
-    idx_s = starts[None, None, :].expand(B, C, -1)
-
-    def window(c, tot):
-        c_end = torch.gather(c, -1, ends_m).reshape(B, C, nbins, D)
-        c_start = torch.gather(c, -1, idx_s)[..., None]
-        if wrap:
-            return torch.where(wraps[None], (tot[..., None] - c_start) + c_end,
-                               c_end - c_start)
-        return c_end - c_start
-
-    w_in, wy_in = window(cw, total_w), window(cwy, total_wy)
-    w_out = total_w[..., None] - w_in
-    wy_out = total_wy[..., None] - wy_in
-    ok = ((w_in > 0) & (w_out > 0)
-          & (starts[None, None, :, None] < nbins_p[None, :, None, None])
-          & (k_durs[None, None, None, :] <= nbins_p[None, :, None, None]))
-    w_in_s = torch.where(ok, w_in, 1.0)
-    w_out_s = torch.where(ok, w_out, 1.0)
-    depth = wy_out / w_out_s - wy_in / w_in_s
-    depth_err = torch.sqrt(1.0 / w_in_s + 1.0 / w_out_s)
-    snr = depth / depth_err
-    loglike = 0.5 * w_in_s * depth * depth
-    objective = torch.where(ok, loglike if use_likelihood else snr,
-                            -torch.inf).reshape(B, C, -1)
-    best = torch.argmax(objective, dim=-1)                      # first max
-    flat = lambda a: _take(a.reshape(B, C, -1), best)           # noqa: E731
-    i0, id_ = best // D, best % D
-    # mid-transit of the binned window, wrapped into [0, period)
-    t0 = (starts[i0].to(ts.dtype) + 0.5 * k_durs[id_].to(ts.dtype)) * d_phase
-    period = pc[None, :]
-    t0 = t0 - torch.floor(t0 / period) * period
-    return dict(power=flat(objective), depth=flat(depth),
-                depth_err=flat(depth_err), depth_snr=flat(snr),
-                log_likelihood=flat(loglike), duration=durations[id_],
-                transit_time=t0)
-
-
-def _bls_scan_binned(ts, w, wy, periods, durations, d_phase, use_likelihood,
-                     chunk, nbins, wrap=True, reciprocal=False):
-    parts = [_bls_one_period_binned(ts, w, wy, periods[i:i + chunk],
-                                    durations, d_phase, nbins,
-                                    use_likelihood, wrap=wrap,
-                                    reciprocal=reciprocal)
-             for i in _chunks(periods, chunk)]
-    return {k: torch.cat([p[k] for p in parts], dim=1) for k in parts[0]}
-
-
 def bls_power_binned(t, y, dy, periods, durations, oversample=10,
                      objective="likelihood", chunk=None, nbins=None,
                      d_phase=None, edge_mode="wrap", device=None):
@@ -780,7 +659,9 @@ def bls_power_binned(t, y, dy, periods, durations, oversample=10,
 
     ``edge_mode``: 'wrap' (default) evaluates circular windows across the
     period edge; 'astropy' truncates edge windows against empty padding
-    bins, as the astropy kernel does.
+    bins, as the astropy kernel does.  On a card one call of kernel K-PC
+    searches every period (:func:`.bls_curve.curve_route`), and ``chunk``
+    is not used.
     """
     return _binned(t, on_device(y, device), dy, periods, durations,
                    oversample, objective, chunk, nbins, d_phase, edge_mode)
@@ -802,15 +683,26 @@ def _binned(t, y, dy, periods, durations, oversample=10,
     def run(t, y, dy):
         ts, w, wy, t_min, pc, durs = _curve_inputs(t, y, dy, periods,
                                                    durations)
-        # d_phase in the geometry's dtype (float64)
-        dp = torch.tensor(d_phase, dtype=ts.dtype, device=w.device)
-        step = chunk or _periods_per_step(w.shape[0], max(
-            w.shape[1], nbins * durs.shape[0]))
-        set_attrs(chunks=-(-pc.shape[0] // step))
-        out = _bls_scan_binned(ts, w, wy, pc, durs, dp,
-                               objective == "likelihood", step, nbins,
-                               wrap=edge_mode != "astropy",
-                               reciprocal=reciprocal)
+        like, wrap = objective == "likelihood", edge_mode != "astropy"
+        if curve_route(w.device) == "kernel":
+            # K-PC: every period in one call, which is one chunk
+            set_attrs(route="binned_kernel", chunks=1)
+            with span("bls.curve.chunk", index=0, periods=pc.shape[0]):
+                count("bls.curve.chunks")
+                out = curve_scan(ts, w, wy, pc, durs, d_phase, nbins, like,
+                                 wrap, reciprocal, _host_f64(periods),
+                                 _host_f64(durations))
+                # while traced the spans end when the kernel does (the
+                # caller's first read of the result waits as long)
+                settle(w.device)
+        else:
+            # d_phase in the geometry's dtype (float64)
+            dp = torch.tensor(d_phase, dtype=ts.dtype, device=w.device)
+            step = chunk or _periods_per_step(w.shape[0], max(
+                w.shape[1], nbins * durs.shape[0]))
+            set_attrs(chunks=-(-pc.shape[0] // step))
+            out = curve_scan_plain(ts, w, wy, pc, durs, dp, nbins, like,
+                                   wrap, reciprocal, step)
         out["transit_time"] = out["transit_time"] + t_min
         out["period"] = pc[None, :].expand(w.shape[0], pc.shape[0])
         return {k: v.to(w.dtype) for k, v in out.items()}

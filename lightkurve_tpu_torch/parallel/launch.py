@@ -37,6 +37,7 @@ KERNEL_COUNTERS = {
     "K-U": ("bls_window", "window_scan_uniform",
             "window_scan_uniform_plain"),
     "K-SF": ("bls_staged_fold", "staged_fold", "staged_fold_plain"),
+    "K-PC": ("bls_curve", "curve_scan", "curve_scan_plain"),
 }
 
 #: seconds a rank waits in a collective before it fails, and the parent

@@ -31,7 +31,7 @@ __all__ = ["PEAKS", "device_peaks", "fractions_of_peak", "ls_fast_cost",
            "fastchi2_cost", "flatten_cost", "acf_windows_cost",
            "pld_photometry_cost", "shared_uniform_cost", "bound_fused",
            "bound_weighted_fused", "bound_weighted", "bound_uniform",
-           "bound_staged_fold"]
+           "bound_staged_fold", "bound_curve"]
 
 #: peaks per device, in operations/s by type (``f32``, ``f64`` outside the
 #: tensor cores; ``tf32``, ``bf16``, ``f64_tensor``: dense tensor-core
@@ -172,6 +172,7 @@ def pld_photometry_cost(B, T, H, W, n_pca, dtype_bytes=4):
 # ---------------------------------------------------------------------------
 PEAK_BYTES_S = PEAKS["h100_sxm"]["hbm"]
 PEAK_F32_S = PEAKS["h100_sxm"]["f32"]
+PEAK_F64_S = PEAKS["h100_sxm"]["f64"]
 #: operations per window and curve of the weighted scan (K-W, K-WF), whose
 #: weights differ per curve: two prefix differences, w_out, the two
 #: reciprocals and their sum, depth (two products, one difference), the
@@ -193,8 +194,8 @@ def _windows(nbp, k_durs):
     return int(sum(int(p) * sum(k <= p for k in k_durs) for p in nbp))
 
 
-def _bound(nbytes, ops):
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_S
+def _bound(nbytes, ops, peak_ops_s=PEAK_F32_S):
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / peak_ops_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -311,3 +312,25 @@ def bound_staged_fold(ts, X, pc, d_phase, nbins, max_nbp, k_max, wrap=True):
     m, C = int(row_start[:, -1].sum()), pc.shape[0]
     return _bound((m + C * npad) * cols * item + (m + C * (npad + 1)) * 4,
                   m * cols)
+
+
+def bound_curve(ts, w, wy, pc, durations, d_phase, nbins, like=True,
+                wrap=True, reciprocal=False):
+    """K-PC: reads each curve's float64 times, weights and weighted fluxes
+    (B, n) and the grid once, writes each (curve, period)'s five float64
+    statistics and its int32 index once; per (curve, period) it folds
+    every sample into two columns, takes the prefix of the period's rows
+    (:func:`.ops.bls_curve.curve_rows`) and scans its windows at 12
+    operations each, in float64, so at the float64 rate."""
+    from .ops.bls_curve import curve_k_bins, curve_rows
+    B, n = w.shape
+    p_host = pc.cpu().numpy().astype(np.float64)
+    k = curve_k_bins(durations.cpu().numpy(), d_phase)
+    nbp = np.minimum(np.ceil(p_host / d_phase), nbins).astype(np.int64)
+    rows = curve_rows(p_host, k, d_phase, nbins)
+    P = len(p_host)
+    fold = 2 * B * (n * P + int(rows.sum()))
+    scan = B * OPS_WEIGHTED * _windows(nbp, k.tolist())
+    nbytes = (B * n * (8 + 2 * w.element_size()) + (P + len(k)) * 8
+              + B * P * (5 * 8 + 4))
+    return _bound(nbytes, fold + scan, PEAK_F64_S)
