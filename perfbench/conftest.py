@@ -3,6 +3,10 @@
 Tests that need the card carry the ``card`` marker and take the ``card``
 fixture, which decides at run time, never at import, whether CUDA is
 there, and skips where it is not.
+
+Each test process runs torch's CPU operations on one thread: the tiny
+runs are timed windows, and several test processes that each start a
+thread a core leave every window few steps.
 """
 import pytest
 
@@ -10,6 +14,8 @@ import pytest
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "card: needs an NVIDIA card (skipped without CUDA)")
+    import torch
+    torch.set_num_threads(1)
 
 
 @pytest.fixture

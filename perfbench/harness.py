@@ -8,9 +8,11 @@ reader ``perfbench/metrics/<metric>.py``, all under the root it is given.
 """
 from __future__ import annotations
 
+import gc
 import importlib.util
 import json
 import os
+import resource
 import shutil
 import sys
 import tempfile
@@ -19,8 +21,8 @@ from dataclasses import dataclass, field
 
 from .trace import Spans, summarize
 
-__all__ = ["ROOT", "Cell", "Run", "load_cell", "run_cell", "jax_modules",
-           "result_line"]
+__all__ = ["ROOT", "Cell", "Run", "load_cell", "run_cell", "reader",
+           "jax_modules", "result_line"]
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: top-level module names that may not be loaded when a result is printed
@@ -51,6 +53,7 @@ class Run:
     trace: object = None
     setup_spans: dict = field(default_factory=dict)
     step_s: list = field(default_factory=list)
+    host: dict = field(default_factory=dict)
 
 
 def _read_json(path):
@@ -82,7 +85,9 @@ def load_cell(name, root=ROOT):
                 root=root)
 
 
-def _reader(root, metric):
+def reader(root, metric):
+    """The ``read`` function of metric ``metric``'s file,
+    ``<root>/perfbench/metrics/<metric>.py``."""
     path = os.path.join(root, "perfbench", "metrics", metric + ".py")
     spec = importlib.util.spec_from_file_location(
         "perfbench_metric_" + metric.replace(".", "_").replace("-", "_"),
@@ -97,7 +102,7 @@ def read_metrics(run, metrics):
     something to read."""
     out = {}
     for m in metrics:
-        value = _reader(run.cell.root, m["name"])(run)
+        value = reader(run.cell.root, m["name"])(run)
         if value is not None:
             out[m["name"]] = {"value": float(value), "unit": m["unit"]}
     return out
@@ -108,6 +113,36 @@ def jax_modules():
     whole (``lightkurve_tpu_torch`` is not ``lightkurve_tpu``)."""
     return sorted({k.split(".")[0] for k in list(sys.modules)}
                   & set(FORBIDDEN))
+
+
+def _host_now():
+    """The process's host counters: its page faults, context switches and
+    CPU seconds (``getrusage``), its resident bytes (``/proc/self/statm``,
+    None where there is none) and the garbage collector's collections of
+    each generation."""
+    ru = resource.getrusage(resource.RUSAGE_SELF)
+    try:
+        with open("/proc/self/statm") as f:
+            rss = int(f.read().split()[1]) * resource.getpagesize()
+    except OSError:
+        rss = None
+    return {"minflt": ru.ru_minflt, "majflt": ru.ru_majflt,
+            "nvcsw": ru.ru_nvcsw, "nivcsw": ru.ru_nivcsw,
+            "utime_s": ru.ru_utime, "stime_s": ru.ru_stime, "rss": rss,
+            "gc": [g["collections"] for g in gc.get_stats()]}
+
+
+def host_figures(before, after):
+    """What the window cost the host process, from two :func:`_host_now`
+    readings: printed beside a run's result, never a metric."""
+    out = {k: round(after[k] - before[k], 3) if isinstance(after[k], float)
+           else after[k] - before[k]
+           for k in ("minflt", "majflt", "nvcsw", "nivcsw", "utime_s",
+                     "stime_s")}
+    out["rss_growth"] = (None if before["rss"] is None
+                         else after["rss"] - before["rss"])
+    out["gc"] = [b - a for a, b in zip(before["gc"], after["gc"])]
+    return out
 
 
 def _sync(device):
@@ -143,6 +178,7 @@ def run_cell(cell, seed, seconds, trace, device="cuda", t_start=None):
             prof = profile(activities=acts)
             prof.__enter__()
             run.spans.annotate = True
+        host0 = _host_now()
         with run.spans.span("window"):
             w0 = time.perf_counter()
             while True:
@@ -154,6 +190,7 @@ def run_cell(cell, seed, seconds, trace, device="cuda", t_start=None):
                     break
             _sync(device)
             run.window_s = time.perf_counter() - w0
+        run.host = host_figures(host0, _host_now())
         if prof is not None:
             prof.__exit__(None, None, None)
             run.spans.annotate = False

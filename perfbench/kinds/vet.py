@@ -19,6 +19,15 @@ each vet's flattened flux, and its winner against the reference's grid
 of that curve's own times.  The curves whose gap test is hard are drawn
 first (:func:`hard_gaps`), since a fault in the gap splits or the
 segment medians shows only on them.
+
+A run keeps a vet's output whole only while it is in one of two
+reservoirs of ``check_vets`` each, drawn from the seed over the whole
+window: one of the vets whose curve's gap test is hard, one of the rest
+(:meth:`Driver.keep`).  Every other vet leaves its curve and its number of
+periods, as a user's notebook keeps nothing of the vets it moves past; the
+count of each search is made after the window from the grid of that
+curve's own valid times.  A window of fewer than ``check_vets`` vets
+raises.
 """
 import numpy as np
 import torch
@@ -41,18 +50,46 @@ def on_grid(values, grid, rtol):
                     grid[i], values)
 
 
+#: curves a block of the pool's gap test takes at once on the device
+ROWS = 256
+
+
 def hard_gaps(t, valid, break_tolerance, max_segments=16, rtol=1e-6):
-    """Whether lightkurve's gap test is hard on a curve of float64 times
-    ``t`` and validity ``valid``: it cuts the curve into more than
-    ``max_segments`` segments, or a step between valid cadences lies
-    within ``rtol`` of ``break_tolerance`` median steps, where the times'
-    rounding decides the cut (a run of 4 masked cadences at 5)."""
-    dt = np.diff(np.asarray(t, np.float64)[np.asarray(valid, bool)])
-    if dt.size == 0 or break_tolerance is None:
-        return False
-    limit = float(break_tolerance) * np.median(dt)
-    close = np.abs(dt - limit) <= rtol * limit
-    return bool(close.any() or (dt > limit).sum() + 1 > max_segments)
+    """Whether lightkurve's gap test is hard on each curve of a pool of
+    float64 times ``t`` (n,) and validity ``valid`` (P, n), a numpy array or
+    a tensor on the device whose rows hold one number of valid cadences:
+    it cuts the curve into more than ``max_segments`` segments, or a step
+    between valid cadences lies within ``rtol`` of ``break_tolerance``
+    median steps, where the times' rounding decides the cut (a run of 4
+    masked cadences at 5).  A bool array (P,), taken :data:`ROWS` curves
+    at a time on the mask's device with the float64 arithmetic of numpy's
+    median."""
+    v = torch.as_tensor(valid, dtype=torch.bool)
+    hard = np.zeros(v.shape[0], bool)
+    if break_tolerance is not None:
+        tt = torch.as_tensor(np.asarray(t, np.float64), device=v.device)
+        for lo in range(0, v.shape[0], ROWS):
+            hard[lo:lo + ROWS] = _hard_rows(tt, v[lo:lo + ROWS],
+                                            float(break_tolerance),
+                                            max_segments, rtol)
+    return hard
+
+
+def _hard_rows(t, valid, break_tolerance, max_segments, rtol):
+    n = valid.sum(1)
+    if not bool((n == n[0]).all()):
+        raise ValueError("the rows of a pool differ in their number of "
+                         "valid cadences")
+    dt = t.expand(valid.shape)[valid].view(valid.shape[0], -1).diff(dim=1)
+    m = dt.shape[1]
+    if m == 0:
+        return np.zeros(valid.shape[0], bool)
+    s = dt.sort(dim=1).values
+    median = s[:, m // 2] if m % 2 else (s[:, m // 2 - 1] + s[:, m // 2]) / 2
+    limit = break_tolerance * median[:, None]
+    close = (dt - limit).abs() <= rtol * limit
+    cuts = (dt > limit).sum(1) + 1
+    return (close.any(1) | (cuts > max_segments)).cpu().numpy()
 
 
 class Driver(drivers.Driver):
@@ -61,18 +98,23 @@ class Driver(drivers.Driver):
         self.fl = dict(self.cfg["flatten"])
         self.search = self.cfg["search"]
         self.t = data.time_grid(self.cfg)
-        self.kept = []                  # (pool index, flat flux, winner)
-        self.searched = []              # (valid cadences, periods)
+        # reservoirs of (pool index, flat, winner): [easy, hard] curves
+        self.kept = ([], [])
+        self.seen = [0, 0]              # vets of each so far
+        self.searched = []              # (pool index, periods searched)
+        self.sample = []                # the kept vets the check judges
 
     def draw_pool(self):
         """The pool as host arrays (P, n): flux and flux_err in float32 with
-        NaN where masked, and the validity mask."""
+        NaN where masked, and the validity mask; with each curve's
+        :func:`hard_gaps`, taken on the pool's device."""
         d = data.make_stack(self.cfg, self.seed, "pool",
                             int(self.traffic["pool"]), self.device, self.t)
+        hard = hard_gaps(self.t, d["mask"], self.fl["break_tolerance"])
         valid = d["mask"].cpu().numpy()
         flux, err = (np.where(valid, d[k].cpu().numpy(), np.float32(np.nan))
                      for k in ("flux", "flux_err"))
-        return flux, err, valid
+        return flux, err, valid, hard
 
     def use_config(self):
         """Point the program's defaults at this run's device and the
@@ -91,10 +133,12 @@ class Driver(drivers.Driver):
         import lightkurve_tpu_torch  # noqa: F401  (imports are set-up)
         self.prev = self.use_config()
         with self.span("data"):
-            self.flux, self.err, self.valid = self.draw_pool()
+            self.flux, self.err, self.valid, hard = self.draw_pool()
         order_rng = np.random.default_rng(data.stream_seed(self.seed,
                                                            "order"))
         self.order = order_rng.permutation(self.flux.shape[0])
+        # the steps visit positions 0 .. P - 2; the last curve warms up
+        self.hard = hard[self.order[:-1]]
         self.i = 0
         self.vet(int(self.order[-1]))
 
@@ -126,36 +170,67 @@ class Driver(drivers.Driver):
         return flat.flux.value, win, 1.0 / pg.frequency.value
 
     def step(self):
-        c = int(self.order[self.i % (len(self.order) - 1)])
+        p = self.i % (len(self.order) - 1)
+        c = int(self.order[p])
         self.attempted += 1
         flat, win, periods = self.vet(c)
-        self.kept.append((c, flat, win))
-        self.searched.append((int(self.valid[c].sum()), periods))
+        self.keep(int(self.hard[p]), (c, flat, win))
+        self.searched.append((c, periods.size))
         self.count("curve_periods", periods.size)
         self.i += 1
 
+    def keep(self, hard, out):
+        """Keep a vet's output ``out`` in reservoir ``hard`` (1: its curve's
+        gap test is hard) with the chance that leaves each reservoir a
+        uniform draw of ``check_vets`` of its vets so far (Vitter's R);
+        the output it replaces is freed."""
+        k, n = int(self.traffic["check_vets"]), self.seen[hard]
+        if n < k:
+            self.kept[hard].append(out)
+        else:
+            j = int(self.rng.integers(n + 1))
+            if j < k:
+                self.kept[hard][j] = out
+        self.seen[hard] = n + 1
+
     def record_searches(self):
         """The window's searches counted (:mod:`perfbench.roofline`) after
-        the window: a count of 4,564 periods takes 10-25 ms on the host."""
-        for n, periods in self.searched:
-            self.run.searches.append(search_counts(
-                n, 1, n, periods, self.search["durations"],
-                self.search["oversample"], weighted=True))
+        the window, each on the grid lightkurve builds from its curve's own
+        valid times; a grid's count (10-25 ms on the host for 4,564
+        periods) is made once."""
+        by_curve, by_grid = {}, {}
+        for c, size in self.searched:
+            if c not in by_curve:
+                tv = self.t[self.valid[c]]
+                periods = self.periods_of(tv)
+                if periods.size != size:
+                    raise RuntimeError(
+                        f"curve {c}: the program searched {size} periods, "
+                        f"its grid has {periods.size}")
+                key = (tv.size, periods.tobytes())
+                if key not in by_grid:
+                    by_grid[key] = search_counts(
+                        tv.size, 1, tv.size, periods,
+                        self.search["durations"], self.search["oversample"],
+                        weighted=True)
+                by_curve[c] = by_grid[key]
+            self.run.searches.append(by_curve[c])
         self.searched = []
 
     def draw_sample(self):
-        """``check_vets`` of the window's vets in a seeded order, those
-        whose gap test is hard first."""
-        k = min(int(self.traffic["check_vets"]), len(self.kept))
-        bt = self.fl["break_tolerance"]
-        hard = np.array([hard_gaps(self.t, self.valid[c], bt)
-                         for c, _, _ in self.kept], bool)
-        order = self.rng.permutation(len(self.kept))
-        order = np.concatenate([order[hard[order]], order[~hard[order]]])
-        pick = np.sort(order[:k])
-        self.kept = [self.kept[j] for j in pick]
+        """``check_vets`` of the window's vets: the kept hard ones, then the
+        kept others in a seeded order; a window of fewer raises."""
+        k = int(self.traffic["check_vets"])
+        easy, hard = self.kept
+        if sum(self.seen) < k:
+            raise RuntimeError(
+                f"the window made {sum(self.seen)} vets; the check needs "
+                f"{k}: a longer window")
+        easy = [easy[j] for j in self.rng.permutation(len(easy))]
+        self.sample = (hard + easy)[:k]
+        self.kept = ([], [])
         self.raw = {c: (self.flux[c], self.err[c], self.valid[c])
-                    for c, _, _ in self.kept}
+                    for c, _, _ in self.sample}
 
     def release(self):
         self.record_searches()
@@ -188,17 +263,21 @@ class Driver(drivers.Driver):
                                       grid_dtype=np.float64)
         return f_err, gap, werr
 
+    def periods_of(self, tv):
+        """The trial periods lightkurve builds for a curve of times ``tv``."""
+        return data.autoperiod(tv, np.asarray(self.search["durations"],
+                                              np.float64),
+                               float(self.search["periods"]
+                                     ["frequency_factor"]))
+
     def geometry(self, tv):
         """The search grid lightkurve builds for a curve of times ``tv``."""
-        durations = np.asarray(self.search["durations"], np.float64)
-        periods = data.autoperiod(tv, durations,
-                                  float(self.search["periods"]
-                                        ["frequency_factor"]))
-        return ref.Geometry.of(periods, durations, self.search["oversample"])
+        return ref.Geometry.of(self.periods_of(tv), self.search["durations"],
+                               self.search["oversample"])
 
     def check(self):
         f_err, gap, err = [], 0.0, 0.0
-        for c, flat, win in self.kept:
+        for c, flat, win in self.sample:
             a, b, e = self.judge(c, flat, win)
             f_err += a
             gap, err = max(gap, b), max(err, e)
@@ -214,7 +293,7 @@ def control(drv, prec):
     pool of run ``drv.seed``, its first ``check_vets`` curves of the vet
     order each flattened and searched once by the reference, reported as
     the program reports a winner."""
-    drv.flux, drv.err, drv.valid = drv.draw_pool()
+    drv.flux, drv.err, drv.valid, _ = drv.draw_pool()
     order_rng = np.random.default_rng(data.stream_seed(drv.seed, "order"))
     order = order_rng.permutation(drv.flux.shape[0])
     dev = "cuda" if torch.cuda.is_available() else "cpu"
@@ -235,7 +314,7 @@ def control(drv, prec):
                                   win["k"], win["b"], prec)["depth"]
         win["duration"] = win["duration"].astype(np.float32).astype(
             np.float64)
-        drv.kept.append((c, flat, {k: win[k] for k in (
+        drv.sample.append((c, flat, {k: win[k] for k in (
             "period", "power", "duration", "transit_time", "depth")}))
     drv.raw = {c: (drv.flux[c], drv.err[c], drv.valid[c])
-               for c, _, _ in drv.kept}
+               for c, _, _ in drv.sample}

@@ -79,7 +79,7 @@ def main(argv=None):
           f"{drv.attempted}, steps s [min, median, max] "
           f"{[round(f(run.step_s), 4) for f in (min, statistics.median, max)]}"
           f", counters {run.counters}, spans [count, s] "
-          f"{spans}", file=sys.stderr)
+          f"{spans}, host {run.host}", file=sys.stderr)
     for name, v, lim in checks:
         print(f"check {name} {v!r} limit {lim!r}", file=sys.stderr)
     sys.stderr.flush()

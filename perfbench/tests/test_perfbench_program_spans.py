@@ -18,7 +18,7 @@ def test_the_program_span_readers_read_a_traced_run(tmp_path, cell,
     root = tiny_root(str(tmp_path))
     c = harness.load_cell(cell, root)
     run, *_ = harness.run_cell(c, 2 ** 31 + 11, 0.2, True, device="cpu")
-    got = {m: harness._reader(root, m)(run) for m in READERS}
+    got = {m: harness.reader(root, m)(run) for m in READERS}
     assert got["flatten_syncs.sweep"] == 6.0           # 3 clip iterations
     flat_ms = 1e3 * run.spans.total("flatten") / len(
         run.spans.durations("flatten"))
@@ -31,7 +31,7 @@ def test_the_program_span_readers_read_a_traced_run(tmp_path, cell,
     assert {m["name"] for m in c.per_layer} >= set(READERS)
 
     run.trace, trace = None, run.trace
-    assert all(harness._reader(root, m)(run) is None for m in READERS)
+    assert all(harness.reader(root, m)(run) is None for m in READERS)
     run.trace = trace
     monkeypatch.delattr(diagnostics, "spans")
-    assert all(harness._reader(root, m)(run) is None for m in READERS)
+    assert all(harness.reader(root, m)(run) is None for m in READERS)
